@@ -13,191 +13,276 @@
 // 4*d*bh*t*(t+1)/2 = 2.75e11 FLOP, 0.28 ms at 989 TFLOP/s bf16, while
 // q, k, v and out are 268 MB, 0.08 ms at 3.35 TB/s.
 //
-// Design: one block of 4 warps per (bh, 64-row q tile); the loop over
-// KV tiles inside the block takes the place of the TPU's sequential
-// grid axis, and stops at the causal diagonal and at kv_len, so no
-// fully masked tile is loaded. K and V tiles are staged in shared
-// memory; S = Q2 K^T and P V run on the tensor cores (mma.sync bf16,
-// f32 accumulate). The online-softmax state (running max m, sum l and
-// the [16, d] accumulator) stays in f32 registers, and P goes from the
-// S accumulator to the A fragment of P V without leaving registers.
-// q tiles are scheduled heaviest first so the causal tail stays short.
-// Later work: wgmma with TMA-fed multi-stage shared-memory rings.
-#include "flash_common.cuh"
+// Design (hopper.cuh has the primitives and the tile layout):
+//   - One block per (128-row q tile, bh) of three warpgroups. Warpgroup 2
+//     is the producer: one thread issues every TMA load, and the group
+//     gives its registers away (setmaxnreg 24). Warpgroups 0 and 1 are
+//     consumers of 64 q rows each (setmaxnreg 240).
+//   - Shared memory: the Q tile stays resident; K and V tiles of 128 rows
+//     sit in a 2-stage ring (160 KB at d 128). Each stage has a "full"
+//     mbarrier for K and one for V, completed by the TMA's transaction
+//     bytes, and an "empty" mbarrier the two consumers arrive on when
+//     they are done with it. So the next tile's loads run under this
+//     tile's products.
+//   - S = Q2 K^T is an SS wgmma (m64n128k16, K as the K-major B operand);
+//     masks apply only on diagonal and kv_len-edge tiles; the online
+//     softmax runs in f32 registers with exp2f and quad shuffles; P is
+//     rounded to bf16 in registers and is the A operand of the RS wgmma
+//     O += P V (m64n{d}k16), V read as an MN-major (transposed) B operand.
+//   - Partial tiles: TMA fills rows past t or tk with zeros, kv_len masks
+//     the columns, and stores of rows past t are skipped, so t and tk
+//     need only be multiples of 64.
+//   - Blocks of one bh run together (q tiles fastest, heaviest first):
+//     the K/V of the few heads in flight stay in L2.
+// What still holds it back: each consumer waits for S before its
+// softmax and for O before its next S, so its tensor cores idle during
+// its own softmax (the other consumer's products fill part of that gap);
+// the 128-wide K tile is reloaded by every q tile of the head. Running a
+// consumer's softmax of S_j under its own P_{j-1} V_{j-1}
+// (FlashAttention-3's intra-warpgroup overlap) writes registers while a
+// wgmma is in flight; written that way, ptxas (C7513) serialised every
+// wgmma of the kernel, which then ran slower than this schedule.
+#include "hopper.cuh"
 
 namespace rtt {
+namespace fwd {
+
+constexpr int BM = 128;  // q rows of a block
+constexpr int BN = 128;  // KV rows of a tile
+constexpr int STAGES = 2;
+constexpr int CONSUMERS = 2;  // warpgroups, 64 q rows each
+constexpr int THREADS = (CONSUMERS + 1) * WG_THREADS;
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q2, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out,
-                 float* __restrict__ lse, int t, int tk, int kv_len,
-                 int causal) {
-  constexpr int LD = Pitch<D>::value;
-  __shared__ __align__(16) bf16 sK[BLOCK * LD];
-  __shared__ __align__(16) bf16 sV[BLOCK * LD];
+struct Smem {
+  static constexpr int q_bytes = BM * D * 2;
+  static constexpr int kv_bytes = BN * D * 2;
+  static constexpr int k_off = q_bytes;
+  static constexpr int v_off = k_off + STAGES * kv_bytes;
+  static constexpr int bar_off = v_off + STAGES * kv_bytes;
+  static constexpr int bytes = bar_off + 64 + 1024;  // + alignment slack
+};
 
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int c = lane & 3;
-  const int q0 = qt * BLOCK;
-  const int r0 = warp * 16 + g;  // this thread's first row in the tile
-  const int row0 = q0 + r0;
-  const int row1 = row0 + 8;
-  const size_t q_off = (static_cast<size_t>(bh) * t + q0) * D;
-  const size_t kv_off = static_cast<size_t>(bh) * tk * D;
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 bf16* __restrict__ out, float* __restrict__ lse, int t,
+                 int kv_len, int causal) {
+  using S = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::bar_off);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + STAGES;
+  uint64_t* empty = bars + 1 + 2 * STAGES;
 
-  // The q tile goes to registers once, staged through sK.
-  load_tile<D>(sK, q2 + q_off);
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  int n_kv = (kv_len + BN - 1) / BN;
+  if (causal) n_kv = min(n_kv, (q0 + BM - 1) / BN + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) ld_a_frag(qf[kk], sK, LD, r0, kk * 16, c);
 
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-
-  int n_kv = (kv_len + BLOCK - 1) / BLOCK;
-  if (causal) n_kv = min(n_kv, qt + 1);
-  for (int j = 0; j < n_kv; ++j) {
-    __syncthreads();  // every warp is done with the previous tiles
-    load_tile<D>(sK, k + kv_off + static_cast<size_t>(j) * BLOCK * D);
-    load_tile<D>(sV, v + kv_off + static_cast<size_t>(j) * BLOCK * D);
-    __syncthreads();
-
-    // S = Q2 K^T: [16, 64] per warp as 8 tiles of 8 columns.
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* kb = sK + (nt * 8 + g) * LD + kk * 16 + 2 * c;
-        mma_bf16(s[nt], qf[kk], ld_pair(kb), ld_pair(kb + 8));
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == CONSUMERS) {
+    // ---- producer ----------------------------------------------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x % WG_THREADS == 0) {
+      mbar_arrive_expect_tx(q_full, S::q_bytes);
+      for (int h = 0; h < D / BOX_COLS; ++h)
+        tma_load_3d(smem + h * BM * BOX_ROW_BYTES, &tm_q, q_full,
+                    h * BOX_COLS, q0, bh);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        unsigned char* sk = smem + S::k_off + s * S::kv_bytes;
+        unsigned char* sv = smem + S::v_off + s * S::kv_bytes;
+        mbar_arrive_expect_tx(&k_full[s], S::kv_bytes);
+        for (int h = 0; h < D / BOX_COLS; ++h)
+          tma_load_3d(sk + h * BN * BOX_ROW_BYTES, &tm_k, &k_full[s],
+                      h * BOX_COLS, j * BN, bh);
+        mbar_arrive_expect_tx(&v_full[s], S::kv_bytes);
+        for (int h = 0; h < D / BOX_COLS; ++h)
+          tma_load_3d(sv + h * BN * BOX_ROW_BYTES, &tm_v, &v_full[s],
+                      h * BOX_COLS, j * BN, bh);
       }
     }
+  } else {
+    // ---- consumers: 64 q rows each -----------------------------------
+    setmaxnreg_inc<240>();
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32;
+    const int g = (tid % 32) >> 2;
+    const int c = tid & 3;
+    const int wq0 = q0 + wg * 64;           // this warpgroup's first row
+    const int row0 = wq0 + warp * 16 + g;   // this thread's rows: row0, +8
+    const uint32_t q_tile = smem_u32(smem) + wg * 64 * BOX_ROW_BYTES;
 
-    const int c0 = j * BLOCK;
-    if (c0 + BLOCK > kv_len || (causal && c0 + BLOCK - 1 > q0)) {
+    float o[D / 2];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY;
+    float l0 = 0.f, l1 = 0.f;  // this thread's share of the row sums
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % STAGES;
+      const uint32_t phase = (j / STAGES) & 1;
+      const uint32_t k_tile = smem_u32(smem + S::k_off + s * S::kv_bytes);
+      const uint32_t v_tile = smem_u32(smem + S::v_off + s * S::kv_bytes);
+
+      // S = Q2 K^T: [64, 128] per warpgroup.
+      float sc[BN / 2];
+      mbar_wait(&k_full[s], phase);
+      wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + nt * 8 + 2 * c + (e & 1);
-          const int row = e < 2 ? row0 : row1;
-          if (col >= kv_len || (causal && row < col)) s[nt][e] = MASK_VALUE;
+      for (int k = 0; k < D / 16; ++k)
+        wgmma_ss<0, 0>(sc, kmajor_desc(q_tile, BM, k),
+                       kmajor_desc(k_tile, BN, k), k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(sc);
+
+      const int c0 = j * BN;
+      if (c0 + BN > kv_len || (causal && c0 + BN - 1 > wq0)) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int col = c0 + 8 * (i >> 2) + 2 * c + (i & 1);
+          const int row = row0 + 8 * ((i >> 1) & 1);
+          if (col >= kv_len || (causal && row < col)) sc[i] = MASK_VALUE;
         }
       }
+
+      // Online softmax in the log2 domain. The 4 threads of a quad
+      // share two rows; their maxima and sums meet through shuffles.
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float alpha0 = exp2f(m0 - mx0);
+      const float alpha1 = exp2f(m1 - mx1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < BN / 8; ++nt) {
+        sc[4 * nt] = exp2f(sc[4 * nt] - mx0);
+        sc[4 * nt + 1] = exp2f(sc[4 * nt + 1] - mx0);
+        sc[4 * nt + 2] = exp2f(sc[4 * nt + 2] - mx1);
+        sc[4 * nt + 3] = exp2f(sc[4 * nt + 3] - mx1);
+        sum0 += sc[4 * nt] + sc[4 * nt + 1];
+        sum1 += sc[4 * nt + 2] + sc[4 * nt + 3];
+      }
+      l0 = alpha0 * l0 + sum0;
+      l1 = alpha1 * l1 + sum1;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        o[4 * nt] *= alpha0;
+        o[4 * nt + 1] *= alpha0;
+        o[4 * nt + 2] *= alpha1;
+        o[4 * nt + 3] *= alpha1;
+      }
+      // P rounded to bf16: the A fragments of the 16-column slices.
+      uint32_t pa[BN / 16][4];
+#pragma unroll
+      for (int k = 0; k < BN / 16; ++k) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[k][r] = pack_bf16(sc[8 * k + 2 * r], sc[8 * k + 2 * r + 1]);
+      }
+
+      // O += P V, V read transposed (MN-major) from its swizzled boxes.
+      mbar_wait(&v_full[s], phase);
+      fence_operands(o);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BN / 16; ++k)
+        wgmma_rs<1>(o, pa[k], mnmajor_desc(v_tile, BN, k), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(o);
+      if (tid == 0) mbar_arrive(&empty[s]);
     }
 
-    // Online softmax in the log2 domain. The 4 threads of a group
-    // share two rows; their maxima meet through two shuffles.
-    float mx0 = m[0], mx1 = m[1];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
-    const float alpha0 = exp2f(m[0] - mx0);
-    const float alpha1 = exp2f(m[1] - mx1);
-    m[0] = mx0;
-    m[1] = mx1;
-    float sum0 = 0.f, sum1 = 0.f;
+    const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
+    const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+    const size_t base = (static_cast<size_t>(bh) * t + row0) * D + 2 * c;
+    if (row0 < t) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mx0);
-      s[nt][1] = exp2f(s[nt][1] - mx0);
-      s[nt][2] = exp2f(s[nt][2] - mx1);
-      s[nt][3] = exp2f(s[nt][3] - mx1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
+      for (int nt = 0; nt < D / 8; ++nt)
+        *reinterpret_cast<uint32_t*>(out + base + 8 * nt) =
+            pack_bf16(o[4 * nt] * inv0, o[4 * nt + 1] * inv0);
+      if (c == 0) lse[static_cast<size_t>(bh) * t + row0] = m0 + log2f(l0 == 0.f ? 1.f : l0);
     }
-    l[0] = alpha0 * l[0] + sum0;
-    l[1] = alpha1 * l[1] + sum1;
+    if (row0 + 8 < t) {
 #pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= alpha0;
-      acc[dt][1] *= alpha0;
-      acc[dt][2] *= alpha1;
-      acc[dt][3] *= alpha1;
+      for (int nt = 0; nt < D / 8; ++nt)
+        *reinterpret_cast<uint32_t*>(out + base + 8 * D + 8 * nt) =
+            pack_bf16(o[4 * nt + 2] * inv1, o[4 * nt + 3] * inv1);
+      if (c == 0) lse[static_cast<size_t>(bh) * t + row0 + 8] = m1 + log2f(l1 == 0.f ? 1.f : l1);
     }
-
-    // acc += P V, with P rounded to bf16 as the A operand.
-#pragma unroll
-    for (int kk = 0; kk < BLOCK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const bf16* vb = sV + (kk * 16 + 2 * c) * LD + dt * 8 + g;
-        mma_bf16(acc[dt], pa, ld_col_pair(vb, LD), ld_col_pair(vb + 8 * LD, LD));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l[0] += __shfl_xor_sync(0xffffffffu, l[0], off);
-    l[1] += __shfl_xor_sync(0xffffffffu, l[1], off);
-  }
-  const float l0 = l[0] == 0.f ? 1.f : l[0];
-  const float l1 = l[1] == 0.f ? 1.f : l[1];
-  bf16* o = out + q_off + static_cast<size_t>(r0) * D + 2 * c;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    *reinterpret_cast<uint32_t*>(o + dt * 8) =
-        pack_bf16(acc[dt][0] / l0, acc[dt][1] / l0);
-    *reinterpret_cast<uint32_t*>(o + 8 * D + dt * 8) =
-        pack_bf16(acc[dt][2] / l1, acc[dt][3] / l1);
-  }
-  if (c == 0) {
-    lse[static_cast<size_t>(bh) * t + row0] = m[0] + log2f(l0);
-    lse[static_cast<size_t>(bh) * t + row1] = m[1] + log2f(l1);
   }
 }
 
 template <int D>
-static cudaError_t launch_fwd(const void* q2, const void* k, const void* v,
-                              void* out, void* lse, int bh, int t, int tk,
-                              int kv_len, int causal, cudaStream_t stream) {
-  dim3 grid(bh, t / BLOCK);
-  flash_fwd_kernel<D><<<grid, THREADS, 0, stream>>>(
-      static_cast<const bf16*>(q2), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), t, tk, kv_len, causal);
+static cudaError_t launch(const void* q2, const void* k, const void* v,
+                          void* out, void* lse, int bh, int t, int tk,
+                          int kv_len, int causal, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  cudaError_t err = make_tile_map(&tm_q, q2, D, t, bh, BM);
+  if (err == cudaSuccess) err = make_tile_map(&tm_k, k, D, tk, bh, BN);
+  if (err == cudaSuccess) err = make_tile_map(&tm_v, v, D, tk, bh, BN);
+  if (err != cudaSuccess) return err;
+  const int bytes = Smem<D>::bytes;
+  err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((t + BM - 1) / BM, bh);
+  flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<bf16*>(out), static_cast<float*>(lse), t,
+      kv_len, causal);
   return cudaGetLastError();
 }
 
+}  // namespace fwd
 }  // namespace rtt
 
-// q2, k, v, out: bf16, contiguous; t and tk multiples of 64; d in {64, 128}.
-// Returns the CUDA error of the launch (0 on success).
+// q2, k, v, out: bf16, contiguous, 16-byte aligned; t and tk multiples of
+// 64; d in {64, 128}. Returns the CUDA error of the launch (0 on success).
 extern "C" int rtt_flash_fwd_bf16(const void* q2, const void* k,
                                   const void* v, void* out, void* lse, int bh,
                                   int t, int tk, int d, int kv_len, int causal,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (t % rtt::BLOCK || tk % rtt::BLOCK || t <= 0 || kv_len <= 0 || kv_len > tk)
+  if (t % 64 || tk % 64 || t <= 0 || kv_len <= 0 || kv_len > tk)
     return static_cast<int>(cudaErrorInvalidValue);
   if (d == 64)
-    return rtt::launch_fwd<64>(q2, k, v, out, lse, bh, t, tk, kv_len, causal, s);
+    return rtt::fwd::launch<64>(q2, k, v, out, lse, bh, t, tk, kv_len, causal, s);
   if (d == 128)
-    return rtt::launch_fwd<128>(q2, k, v, out, lse, bh, t, tk, kv_len, causal, s);
+    return rtt::fwd::launch<128>(q2, k, v, out, lse, bh, t, tk, kv_len, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,7 @@
 """Attention ops (PyTorch port of `ray_tpu/ops/attention.py`): the
-reference MHA, and flash attention carried by two CUDA kernels written
-for Hopper (`csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`).
+reference MHA, and flash attention carried by CUDA kernels written for
+Hopper (`csrc/flash_fwd.cu`; `csrc/flash_bwd.cu`, whose op is three
+launches).
 
 Each kernel has a plain PyTorch version here that computes the same
 function the same way: log2-domain logits (q pre-scaled by
@@ -27,8 +28,9 @@ from . import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
-#: Rows of a q tile and of a KV tile in both kernels; the public
-#: wrapper pads both sequence axes to a multiple of it.
+#: The kernels take sequence lengths that are multiples of BLOCK (their
+#: 128-row tiles handle a partial last tile of 64 rows themselves); the
+#: public wrapper pads both sequence axes to a multiple of it.
 BLOCK = 64
 
 #: Head dims the kernels are instantiated for.
@@ -38,8 +40,12 @@ _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
 #: Kernel launches since the last reset, by kernel. Each wrapper adds
-#: one where it launches its kernel and nowhere else.
-LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
+#: one where it launches its kernel and nowhere else. The backward op
+#: is three launches: `flash_bwd_pre` (delta, and dq's f32 accumulator
+#: zeroed), `flash_bwd` (the fused kernel) and `flash_bwd_dq` (dq
+#: scaled and cast from the accumulator).
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_pre": 0, "flash_bwd": 0,
+            "flash_bwd_dq": 0}
 
 
 def reset_launch_counts() -> None:
@@ -116,11 +122,13 @@ def flash_forward_plain(q2, k, v, causal: bool, kv_len: int):
     return out.to(q2.dtype), lse
 
 
-def flash_backward_plain(q2, k, v, do, lse, delta, scale: float,
+def flash_backward_plain(q2, k, v, out, do, lse, scale: float,
                          causal: bool, kv_len: int, q_len: int):
-    """Plain version of the fused backward kernel: (dq f32, dk, dv).
-    lse is the forward's log2-domain [bh, t]; delta = rowsum(out * do)."""
+    """Plain version of the backward op (its three kernels): (dq in q's
+    dtype, dk, dv). lse is the forward's log2-domain [bh, t]; delta =
+    rowsum(out * do) in f32, as `_flash_backward_fused` computes it."""
     t, tk = q2.shape[1], k.shape[1]
+    delta = (out.float() * do.float()).sum(dim=-1)
     s = torch.matmul(q2.float(), k.float().transpose(1, 2))
     s.masked_fill_(~_valid_mask(t, tk, causal, kv_len, s.device),
                    DEFAULT_MASK_VALUE)
@@ -132,7 +140,7 @@ def flash_backward_plain(q2, k, v, do, lse, delta, scale: float,
     ds = (p * (dp - delta[..., None])).to(q2.dtype).float()
     dk = torch.matmul(ds.transpose(1, 2), q2.float()) * _LN2
     dq = torch.matmul(ds, k.float()) * scale
-    return dq, dk.to(k.dtype), dv.to(v.dtype)
+    return dq.to(q2.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -141,18 +149,21 @@ def flash_backward_plain(q2, k, v, do, lse, delta, scale: float,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+#: Counter name -> (library, C symbol, argument types).
 _SIGNATURES = {
-    "flash_fwd": ("rtt_flash_fwd_bf16", [_P] * 5 + [_I] * 6 + [_P]),
-    "flash_bwd": (
-        "rtt_flash_bwd_bf16",
-        [_P] * 9 + [_I] * 7 + [ctypes.c_float, _P],
-    ),
+    "flash_fwd": ("flash_fwd", "rtt_flash_fwd_bf16", [_P] * 5 + [_I] * 6 + [_P]),
+    "flash_bwd_pre": (
+        "flash_bwd", "rtt_flash_bwd_pre_bf16", [_P] * 4 + [_I] * 2 + [_P]),
+    "flash_bwd": ("flash_bwd", "rtt_flash_bwd_bf16", [_P] * 9 + [_I] * 7 + [_P]),
+    "flash_bwd_dq": (
+        "flash_bwd", "rtt_flash_bwd_dq_bf16",
+        [_P] * 2 + [_I] * 3 + [ctypes.c_float, _P]),
 }
 
 
 def _kernel(name: str):
-    symbol, argtypes = _SIGNATURES[name]
-    fn = getattr(_build.load(name), symbol)
+    library, symbol, argtypes = _SIGNATURES[name]
+    fn = getattr(_build.load(library), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
@@ -211,32 +222,85 @@ def flash_forward(q2, k, v, causal: bool, kv_len: int):
     return out, lse
 
 
-def flash_backward(q2, k, v, do, lse, delta, scale: float, causal: bool,
-                   kv_len: int, q_len: int):
-    """Fused backward kernel (replaces
-    `ray_tpu/ops/attention.py::_flash_backward_fused`). Returns
-    (dq f32, dk, dv); dq accumulates across KV tiles by atomics."""
-    if q2.device.type == "cpu":
-        return flash_backward_plain(
-            q2, k, v, do, lse, delta, scale, causal, kv_len, q_len
-        )
-    _check_cuda("flash_bwd", q2.device, torch.bfloat16, q2, k, v, do)
-    _check_cuda("flash_bwd", q2.device, torch.float32, lse, delta)
-    _check_shapes("flash_bwd", q2, k, v)
+def _check_backward(name, q2, k, v, do, lse):
+    _check_cuda(name, q2.device, torch.bfloat16, q2, k, v, do)
+    _check_cuda(name, q2.device, torch.float32, lse)
+    _check_shapes(name, q2, k, v)
+    if do.shape != q2.shape or lse.shape != q2.shape[:2]:
+        raise ValueError(f"{name}: do/lse shapes do not match q")
+
+
+def flash_backward_pre(out, do):
+    """First launch of the backward op: (delta [bh, t] f32 = rowsum(out *
+    do), dq's f32 accumulator, zeroed). CUDA tensors only; anything else
+    raises ValueError."""
+    _check_cuda("flash_bwd_pre", out.device, torch.bfloat16, out, do)
+    if out.dim() != 3 or do.shape != out.shape or out.shape[2] not in HEAD_DIMS:
+        raise ValueError(f"flash_bwd_pre: out {tuple(out.shape)} and do "
+                         f"{tuple(do.shape)} must be one [bh, t, d], d in "
+                         f"{HEAD_DIMS}")
+    bh, t, d = out.shape
+    delta = torch.empty(bh, t, dtype=torch.float32, device=out.device)
+    dq_acc = torch.empty(bh * t * d, dtype=torch.float32, device=out.device)
+    _launch("flash_bwd_pre", _kernel("flash_bwd_pre"), out.device,
+            out.data_ptr(), do.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+            bh * t, d)
+    return delta, dq_acc
+
+
+def flash_backward_main(q2, k, v, do, lse, delta, dq_acc, causal: bool,
+                        kv_len: int, q_len: int):
+    """The fused backward kernel: (dk, dv), and dS k added into dq_acc
+    (unscaled, in the kernel's own order). CUDA tensors only; anything
+    else raises ValueError."""
+    _check_backward("flash_bwd", q2, k, v, do, lse)
+    _check_cuda("flash_bwd", q2.device, torch.float32, delta, dq_acc)
+    if delta.shape != lse.shape or dq_acc.numel() != q2.numel():
+        raise ValueError("flash_bwd: delta/dq_acc sizes do not match q")
     bh, t, d = q2.shape
-    if do.shape != q2.shape or lse.shape != (bh, t) or delta.shape != (bh, t):
-        raise ValueError("flash_bwd: do/lse/delta shapes do not match q")
-    dq = torch.zeros(bh, t, d, dtype=torch.float32, device=q2.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(
-        "flash_bwd", _kernel("flash_bwd"), q2.device,
-        q2.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), bh, t, k.shape[1], d, kv_len, q_len, int(causal),
-        float(scale),
-    )
-    return dq, dk, dv
+    _launch("flash_bwd", _kernel("flash_bwd"), q2.device,
+            q2.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), bh, t, k.shape[1], d, kv_len, q_len, int(causal))
+    return dk, dv
+
+
+def flash_backward_dq(dq_acc, shape, scale: float):
+    """Last launch of the backward op: dq [bh, t, d] bf16 = dq_acc *
+    scale, in dq's row-major order. CUDA tensors only; anything else
+    raises ValueError."""
+    _check_cuda("flash_bwd_dq", dq_acc.device, torch.float32, dq_acc)
+    bh, t, d = shape
+    if d not in HEAD_DIMS or t % BLOCK or dq_acc.numel() != bh * t * d:
+        raise ValueError(f"flash_bwd_dq: dq {tuple(shape)} does not fit an "
+                         f"accumulator of {dq_acc.numel()} elements")
+    dq = torch.empty(bh, t, d, dtype=torch.bfloat16, device=dq_acc.device)
+    _launch("flash_bwd_dq", _kernel("flash_bwd_dq"), dq_acc.device,
+            dq_acc.data_ptr(), dq.data_ptr(), bh, t, d, float(scale))
+    return dq
+
+
+def flash_backward(q2, k, v, out, do, lse, scale: float, causal: bool,
+                   kv_len: int, q_len: int):
+    """Backward op (replaces `ray_tpu/ops/attention.py::_flash_backward_fused`):
+    (dq in q's dtype, dk, dv) from the forward's q2, k, v, out and lse
+    and the upstream gradient `do`. Three launches: delta and a zeroed
+    f32 dq accumulator, the fused kernel, and dq's scale and cast."""
+    if q2.device.type == "cpu":
+        return flash_backward_plain(
+            q2, k, v, out, do, lse, scale, causal, kv_len, q_len
+        )
+    # Every input is checked before the first of the three launches.
+    _check_backward("flash_bwd", q2, k, v, do, lse)
+    _check_cuda("flash_bwd", q2.device, torch.bfloat16, out)
+    if out.shape != q2.shape:
+        raise ValueError("flash_bwd: out shape does not match q")
+    delta, dq_acc = flash_backward_pre(out, do)
+    dk, dv = flash_backward_main(q2, k, v, do, lse, delta, dq_acc, causal,
+                                 kv_len, q_len)
+    return flash_backward_dq(dq_acc, q2.shape, scale), dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -245,10 +309,9 @@ def flash_backward(q2, k, v, do, lse, delta, scale: float, causal: bool,
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Counterpart of `_flash_attention_bhsd`'s custom VJP on
-    [bh, t, d] inputs padded to BLOCK multiples. The backward launches
-    the fused backward kernel from the saved (q2, k, v, out, lse), q2
-    being the pre-scaled q the forward kernel took; it never reruns the
-    forward."""
+    [bh, t, d] inputs padded to BLOCK multiples. The backward runs the
+    backward op from the saved (q2, k, v, out, lse), q2 being the
+    pre-scaled q the forward kernel took; it never reruns the forward."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, kv_len, q_len):
@@ -262,12 +325,10 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, do):
         q2, k, v, out, lse = ctx.saved_tensors
         scale, causal, kv_len, q_len = ctx.args
-        do = do.contiguous()
-        delta = (out.float() * do.float()).sum(dim=-1)
         dq, dk, dv = flash_backward(
-            q2, k, v, do, lse, delta, scale, causal, kv_len, q_len,
+            q2, k, v, out, do.contiguous(), lse, scale, causal, kv_len, q_len,
         )
-        return dq.to(q2.dtype), dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(

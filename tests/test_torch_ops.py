@@ -24,6 +24,7 @@ from _torch_port import isolated_module  # noqa: F401 (autouse fixture)
 NORM_TOL = 1e-6  # f32 elementwise chains: a few ulps
 FWD_TOL = 2e-5  # f32 forward, as tests/test_ops.py holds the JAX kernel
 GRAD_TOL = 5e-4  # f32 gradients, as tests/test_ops.py
+BF16_REL_TOL = 2e-2  # bf16 outputs: a few bf16 ulps (2^-8) of the largest
 
 
 def _rand(seed, *shape):
@@ -117,7 +118,11 @@ class TestFlashForwardKernel:
 
 
 class TestFlashAttentionPublic:
-    @pytest.mark.parametrize("t,causal", [(100, True), (300, True), (300, False)])
+    # 192 is one and a half of the kernels' 128-row tiles, 129 pads to
+    # two and a half.
+    @pytest.mark.parametrize("t,causal", [
+        (100, True), (300, True), (300, False), (192, True), (129, True),
+    ])
     def test_ragged_matches_pallas(self, t, causal):
         q, k, v = _rand(13, 1, 2, t, 64), _rand(14, 1, 2, t, 64), _rand(15, 1, 2, t, 64)
         want = jax_attn.flash_attention(
@@ -161,18 +166,47 @@ class TestFlashBackwardKernel:
             jnp.asarray(do), scale, causal, 128, 128, kv_len, q_len)
         out = torch.from_numpy(np.array(j_out))
         lse = torch.from_numpy(np.asarray(j_lse)[:, 0, :].copy())
-        do_t = torch.from_numpy(do)
-        delta = (out * do_t).sum(-1)
         got = attn.flash_backward(
             attn.prescale(torch.from_numpy(q), scale), torch.from_numpy(k),
-            torch.from_numpy(v), do_t, lse, delta, scale, causal, kv_len,
-            q_len)
+            torch.from_numpy(v), out, torch.from_numpy(do), lse, scale, causal,
+            kv_len, q_len)
         for g, w, name in zip(got, want, ("dq", "dk", "dv")):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=GRAD_TOL,
                                        rtol=GRAD_TOL, err_msg=name)
 
+    @pytest.mark.parametrize("causal,t,kv_len", [(True, 192, 192), (False, 256, 200)])
+    def test_bf16_backward_op_matches_pallas(self, causal, t, kv_len):
+        """In bf16 the op returns dq in q's dtype, as `_flash_backward_fused`
+        does, with delta computed inside it from `out` and `do`."""
+        q, k, v, do = (_rand(40 + i, 2, t, 64) for i in range(4))
+        k[:, kv_len:] = 0
+        v[:, kv_len:] = 0
+        jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+        scale = 1.0 / math.sqrt(64)
+        # 64-row blocks: the JAX kernels take whole blocks.
+        j_out, j_lse = jax_attn._flash_forward(jq, jk, jv, scale, causal, 64,
+                                               64, kv_len)
+        want = jax_attn._flash_backward_fused(jq, jk, jv, j_out, j_lse, jdo,
+                                              scale, causal, 64, 64, kv_len, t)
+
+        def bf16(x):
+            return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+        got = attn.flash_backward(
+            attn.prescale(bf16(jq), scale), bf16(jk), bf16(jv), bf16(j_out),
+            bf16(jdo), torch.from_numpy(np.asarray(j_lse)[:, 0, :].copy()),
+            scale, causal, kv_len, t)
+        for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+            assert g.dtype == torch.bfloat16, name
+            w = np.asarray(w, np.float32)
+            # Both round P and dS to bf16 before their products and the
+            # outputs to bf16 after; the f32 sums differ in order only.
+            err = np.abs(g.float().numpy() - w).max()
+            assert err <= BF16_REL_TOL * np.abs(w).max(), (name, err)
+
     @pytest.mark.parametrize("t,tk,causal", [
         (256, 256, True), (256, 256, False), (100, 100, True), (128, 256, True),
+        (192, 192, True), (129, 129, True),
     ])
     def test_autograd_matches_jax_grad(self, t, tk, causal):
         q, k, v = _rand(30, 1, 2, t, 64), _rand(31, 1, 2, tk, 64), _rand(32, 1, 2, tk, 64)
@@ -197,9 +231,36 @@ class TestKernelWrappers:
         attn.reset_launch_counts()
         q = torch.zeros(1, 64, 64)
         attn.flash_forward(q, q, q, True, 64)
-        assert attn.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
+        assert attn.LAUNCHES == {"flash_fwd": 0, "flash_bwd_pre": 0,
+                                 "flash_bwd": 0, "flash_bwd_dq": 0}
+
+    def test_cpu_backward_takes_plain_version_without_launch(self):
+        attn.reset_launch_counts()
+        q = torch.zeros(1, 64, 64)
+        lse = torch.zeros(1, 64)
+        dq, dk, dv = attn.flash_backward(q, q, q, q, q, lse, 0.125, True, 64, 64)
+        assert dq.dtype == q.dtype and dq.shape == q.shape
+        assert all(n == 0 for n in attn.LAUNCHES.values())
 
     def test_meta_tensor_raises(self):
         q = torch.zeros(1, 64, 64, dtype=torch.bfloat16, device="meta")
         with pytest.raises(ValueError, match="CUDA"):
             attn.flash_forward(q, q, q, True, 64)
+
+    @pytest.mark.parametrize("launch", ["pre", "main", "dq"])
+    def test_backward_launch_rejects_cpu_tensors(self, launch):
+        # The backward's launches have no plain version of their own: on
+        # a CPU tensor each raises before it reaches its kernel.
+        attn.reset_launch_counts()
+        q = torch.zeros(1, 64, 64, dtype=torch.bfloat16)
+        rows = torch.zeros(1, 64)
+        acc = torch.zeros(64 * 64)
+        calls = {
+            "pre": lambda: attn.flash_backward_pre(q, q),
+            "main": lambda: attn.flash_backward_main(
+                q, q, q, q, rows, rows, acc, True, 64, 64),
+            "dq": lambda: attn.flash_backward_dq(acc, q.shape, 0.125),
+        }
+        with pytest.raises(ValueError, match="CUDA"):
+            calls[launch]()
+        assert all(n == 0 for n in attn.LAUNCHES.values())

@@ -109,3 +109,56 @@ def test_7b_width_shapes_match_jax_without_allocating():
             assert tuple(state[f"layers.{i}.{name}"].shape) == want, (leaf, i)
     n_jax = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
     assert n_jax == sum(t.numel() for t in state.values()) == cfg.num_params()
+
+
+def test_chip_smoke_finds_the_peak_and_what_is_alive_at_it():
+    import chip_smoke
+
+    def frame(path, line, name):
+        return [{"filename": path, "line": line, "name": name}]
+
+    trace = [
+        {"action": "alloc", "addr": 1, "size": 100,
+         "frames": frame("/x/ray_tpu_torch/ops/attention.py", 5, "f")},
+        {"action": "alloc", "addr": 2, "size": 50, "frames": []},
+        # A block allocated before the history began, freed during it.
+        {"action": "free_requested", "addr": 9, "size": 30},
+        {"action": "alloc", "addr": 3, "size": 60,
+         "frames": frame("/t/torch/nn/functional.py", 7, "g")},
+        {"action": "free_requested", "addr": 1, "size": 100},
+        {"action": "alloc", "addr": 4, "size": 10, "frames": []},
+    ]
+    above, alive = chip_smoke.peak_allocations(trace)
+    assert above == 180
+    assert alive == [
+        {"site": "ray_tpu_torch/ops/attention.py:5 f", "bytes": 100},
+        {"site": "functional.py:7 g", "bytes": 60},
+        {"site": "(no Python frame)", "bytes": 50},
+    ]
+
+
+def test_chip_smoke_loads_another_checkout_beside_this_one(tmp_path):
+    import shutil
+
+    import chip_smoke
+    from ray_tpu_torch.ops import attention as attn
+
+    shutil.copytree(PORT, tmp_path / "ray_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    try:
+        other = chip_smoke.load_port(tmp_path)
+        other_attn = other.ops.attention
+        assert other_attn.__file__.startswith(str(tmp_path))
+        assert other_attn.LAUNCHES is not attn.LAUNCHES
+        gen = torch.Generator().manual_seed(0)
+        q, k, v, do = (torch.randn(2, 64, 64, generator=gen) for _ in range(4))
+        grads = []
+        for tree in (other_attn, attn):
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = tree.FlashAttentionFunction.apply(*leaves, 0.125, True, 64, 64)
+            grads.append((out,) + torch.autograd.grad(out, leaves, do))
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    finally:
+        for name in [m for m in sys.modules if m.startswith("against_ray_tpu_torch")]:
+            del sys.modules[name]
