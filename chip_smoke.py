@@ -36,13 +36,45 @@ Phases, none of whose failures is caught:
       and fall, and the launch counters must show 2 forward (one under
       remat) and 1 backward op (each of its 3 launches once) per layer
       per step.
+  (e) serving, after (c) has freed its model and optimizer: (e1) at a
+      small width in f32 (vocab 512, dim 256, 2 layers, 4 heads on 2 KV
+      heads), 6 greedy requests through the engine (slots 4, max_len
+      256, prefill_chunk 32, prefix cache on; two share a prefix, one
+      arrives while another decodes) must equal `generate` token for
+      token. (e2) Llama-2-7B (`LlamaConfig.llama2_7b()`, 32 layers by
+      `--serve-layers`, bf16, random init from the seeded generator),
+      2 prompts of 1024 tokens: `prefill` and 16 `decode_step`s on the
+      contiguous cache, and `paged_prefill` in 256-token chunks and 16
+      `paged_decode_step`s on a scrambled block pool. Each step's
+      logits are held to teacher-forced logits at the same positions of
+      the f32 `llama.forward` of the same weights: max abs and relative
+      L2 error each at most NOISE_RATIO x those of the bf16
+      `llama.forward`. Held to the next position's, they must fall
+      outside. (e3) the server on
+      the same model: `EngineConfig(slots=8, max_len=2048,
+      prefill_chunk=256, prefix_cache=True)`, 16 requests of a shared
+      512-token system prefix and a seeded random tail of 64-1024
+      tokens, 64 new tokens each, greedy, all submitted at once and each
+      stream consumed on its own thread. Every request must end with
+      "length", the prefix cache must hit, and the flash launch counters
+      must not move while the engine serves. Greedy consistency: each
+      served token's teacher-forced (bf16) logit is within delta (3x
+      the largest error of (e2)'s logits against the bf16 forward) of
+      its row's maximum; held to the
+      next position's logits (the control) not every token may be.
 
-Prints `{"kernels": [...]}`, then `{"slice": {...}}`, and as the last
-line `{"ok": true, "device": {...}}`. Exits non-zero with no result
+Prints `{"kernels": [...]}`, then `{"slice": {...}}`, then `{"serve":
+{...}}` (the card, TTFT and inter-token gap p50/p99, decode tokens/s
+and step ms at a full batch beside its bound, prefill tokens/s, prefix
+hits and tokens saved, pool bytes, peak memory of phase (e)), and as
+the last line `{"ok": true, "device": {...}}`. Exits non-zero with no result
 line when there is no CUDA card or the port is not beside it.
 
 `--profile` traces one more step with torch.profiler after the slice
 and prints `{"profile": ...}`: device time by kernel, and idle share.
+It also traces one paged decode step at the full batch and one prefill
+chunk of the serving model, into the `{"serve": ...}` record's
+"profile".
 
 `--against ROOT` adds phase (d), a comparison with another checkout of
 the repo at ROOT (for example `git archive <commit>` unpacked into a
@@ -84,6 +116,12 @@ OUT_TOL = 0.05
 GRAD_TOL = 0.01
 LSE_TOL = 1e-3
 LOGITS_TOL = 0.1  # bf16 model, flash vs reference attention, 2 layers
+#: Bar of the serving phase's bf16 logits, against the f32 forward of
+#: the same weights: at most this many times the error of the bf16
+#: `llama.forward` itself. A flat REL_TOL does not fit bf16 logits: the
+#: bf16 forward itself lies about 1% (relative L2) from the f32 one, and
+#: the serving path's bf16 arithmetic as far.
+NOISE_RATIO = 2.0
 
 #: Device-side names of every launch of the two attention ops.
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_pre_kernel",
@@ -93,6 +131,7 @@ BWD_LAUNCHES = ("flash_bwd_pre", "flash_bwd", "flash_bwd_dq")
 
 TRAIN_STEPS = 8
 N_LAYERS = 4
+SERVE_LAYERS = 32
 BATCH, SEQ = 2, 4096
 
 
@@ -119,11 +158,7 @@ def held(name, got, ref, abs_tol=None):
     """Print `got`'s error against `ref` and return (within the bars,
     max abs error). Bars: max abs error <= REL_TOL * max|ref|, L2 error
     <= REL_TOL * ||ref||, and max abs error <= `abs_tol` if given."""
-    got, ref = got.float(), ref.float()
-    diff = got - ref
-    err = diff.abs().max().item()
-    ref_max = ref.abs().max().item()
-    rel_l2 = (diff.norm() / ref.norm()).item()
+    err, ref_max, rel_l2 = rel_errors(got, ref)
     ok = err <= REL_TOL * ref_max and rel_l2 <= REL_TOL
     if abs_tol is not None:
         ok = ok and err <= abs_tol
@@ -307,6 +342,300 @@ def against(torch, attn, root, randn, n_layers, reps=20):
             "memory": memory}
 
 
+def rel_errors(got, ref):
+    """(max abs error, max|ref|, relative L2 error) of `got` against
+    `ref`, in f32."""
+    got, ref = got.float(), ref.float()
+    diff = got - ref
+    return (diff.abs().max().item(), ref.abs().max().item(),
+            (diff.norm() / ref.norm()).item())
+
+
+def percentile(xs, q):
+    """The q-th percentile (0-100) of `xs`, nearest rank."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q / 100 * len(xs)) - 1))]
+
+
+def held_steps(name, got, teacher, truth):
+    """Hold each step of `got` [b, steps, vocab] (bf16 serving logits) to
+    `truth`, the f32 forward of the same weights at the same positions:
+    its max abs error and relative L2 error must each be at most
+    NOISE_RATIO times the bf16 `teacher`'s own over all the steps. As a
+    control that must fail, each step but the last is held to `truth`
+    one position later. Returns the max abs error against `teacher`."""
+    steps = got.shape[1]
+    floor_err, _, floor_l2 = rel_errors(teacher, truth)
+
+    def ok(e):
+        return e[0] <= NOISE_RATIO * floor_err and e[2] <= NOISE_RATIO * floor_l2
+
+    errors = [rel_errors(got[:, i], truth[:, i]) for i in range(steps)]
+    shifted = [rel_errors(got[:, i], truth[:, i + 1]) for i in range(steps - 1)]
+    to_teacher = rel_errors(got, teacher)
+    print(f"  {name}, {steps} steps against the f32 forward: max err up to "
+          f"{max(e[0] for e in errors):.4g} (max|ref| "
+          f"{max(e[1] for e in errors):.4g}), rel L2 up to "
+          f"{max(e[2] for e in errors):.4g}; bf16 forward's own: max err "
+          f"{floor_err:.4g}, rel L2 {floor_l2:.4g}; against the bf16 forward: "
+          f"max err {to_teacher[0]:.4g}, rel L2 {to_teacher[2]:.4g}; shifted "
+          f"one position (must be outside the bars): rel L2 from "
+          f"{min(e[2] for e in shifted):.4g}")
+    assert all(ok(e) for e in errors), (name, errors, floor_err, floor_l2)
+    assert not any(ok(e) for e in shifted), (name, "control", shifted)
+    return to_teacher[0]
+
+
+def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
+    """Phase (e), the serving slice (see the module's doc), on device
+    `dev`. Returns the `{"serve": ...}` record."""
+    import threading
+
+    from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import generate as gen
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+
+    def prompt(n):
+        return torch.randint(0, 512, (n,), generator=g, device=dev).tolist()
+
+    # (e1) f32 at a small width: the engine equals `generate` exactly.
+    small = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2,
+                              n_heads=4, n_kv_heads=2, intermediate=512,
+                              max_seq_len=256, dtype=torch.float32,
+                              remat=False)
+    m_small = llama.init_params(small, g, device=dev)
+    shared = prompt(64)
+    prompts = [shared + prompt(23), shared + prompt(50), prompt(20),
+               prompt(97), prompt(41), prompt(130)]
+    eng = InferenceEngine(m_small, small, EngineConfig(
+        slots=4, max_len=256, prefill_chunk=32, prefix_cache=True,
+        max_new_tokens=24))
+    try:
+        streams = [eng.submit(p) for p in prompts[:5]]
+        first = next(streams[0])  # request 0 decodes ...
+        streams.append(eng.submit(prompts[5]))  # ... when this one arrives
+        outs = [[first] + list(streams[0])] + [list(s) for s in streams[1:]]
+        small_stats = eng.stats()
+    finally:
+        eng.close()
+    for p, out in zip(prompts, outs):
+        want, _ = gen.generate(m_small, torch.tensor([p], device=dev),
+                               torch.tensor([len(p)], device=dev), small,
+                               max_new_tokens=24)
+        assert out == want[0].tolist(), (len(p), out, want[0].tolist())
+    assert small_stats["prefix_hits"] >= 1, small_stats
+    print(f"serve (e1), f32 small width: 6 requests through the engine equal "
+          f"generate token for token; prefix hits "
+          f"{small_stats['prefix_hits']}")
+    del m_small, eng
+
+    # (e2) full width, bf16: cached and paged logits against
+    # teacher-forced `llama.forward`.
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=n_layers, remat=False)
+    model = llama.init_params(cfg, g, device=dev)
+    b, t, steps, chunk, bl = 2, 1024, 16, 256, 16
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=g, device=dev)
+
+    # The f32 model of the same weights gives the truth both bf16 paths
+    # are held to.
+    m32 = llama.Llama(dataclasses.replace(cfg, dtype=torch.float32,
+                                          attention="reference"), device=dev)
+    m32.load_state_dict(model.state_dict())
+
+    def teacher(seq, m=model):
+        with torch.no_grad():
+            return llama.forward(m, seq)
+
+    def forced(seq):
+        """(bf16, f32) teacher-forced logits of the last steps + 1."""
+        return (teacher(seq)[:, t - 1:], teacher(seq, m32)[:, t - 1:])
+
+    cache = gen.init_kv_cache(cfg, b, t + steps, device=dev)
+    logits, cache = gen.prefill(model, cfg, tokens, cache, 0, t)
+    got, seq = [logits[:, -1]], tokens
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    for i in range(steps):
+        tok, cache, last = gen.decode_step(model, cfg, cache, got[-1], t + i,
+                                           alive)
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        got.append(last)
+    del cache, logits
+    print(f"serve (e2), {cfg.n_layers} layers bf16, batch {b} x {t} + {steps} "
+          "steps, against teacher-forced llama.forward:")
+    err_cached = held_steps("prefill + decode_step", torch.stack(got, 1),
+                            *forced(seq))
+    nb = (t + steps) // bl
+    order = torch.randperm(b * nb, generator=g, device=dev) + 1
+    tables = order.view(b, nb)
+    pool = gen.init_block_pool(cfg, b * nb + 1, bl, device=dev)
+    for off in range(0, t, chunk):
+        logits, pool = gen.paged_prefill(model, cfg, tokens[:, off:off + chunk],
+                                         pool, tables, off, off + chunk)
+    got, seq = [logits[:, -1]], tokens
+    for i in range(steps):
+        tok, pool, last = gen.paged_decode_step(
+            model, cfg, pool, tables, got[-1],
+            torch.full((b,), t + i, device=dev), alive)
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        got.append(last)
+    err_paged = held_steps("paged_prefill + paged_decode_step",
+                           torch.stack(got, 1), *forced(seq))
+    del pool, logits, got, seq, tokens, m32
+    torch.cuda.empty_cache()
+    # A served token's teacher-forced logit is at most 2 x this error
+    # below its row's maximum (each of the two logits moves by at most
+    # the error); x1.5 for the server's longer sequences.
+    delta = 3.0 * max(err_cached, err_paged)
+
+    # (e3) the server: 16 requests sharing a 512-token system prefix.
+    ec = EngineConfig(slots=8, max_len=2048, prefill_chunk=256,
+                      prefix_cache=True, max_new_tokens=64)
+    system = torch.randint(0, cfg.vocab_size, (512,), generator=g,
+                           device=dev).tolist()
+    tails = torch.randint(64, 1025, (16,), generator=g, device=dev).tolist()
+    requests = [system + torch.randint(0, cfg.vocab_size, (n,), generator=g,
+                                       device=dev).tolist() for n in tails]
+    eng = InferenceEngine(model, cfg, ec, family="llama2_7b")
+    outs = [[] for _ in requests]
+    arrivals = [[] for _ in requests]
+    try:
+        attn.reset_launch_counts()
+        t0 = time.perf_counter()
+        streams = [eng.submit(p) for p in requests]
+
+        def consume(i):
+            for tok in streams[i]:
+                arrivals[i].append(time.perf_counter())
+                outs[i].append(tok)
+
+        threads = [threading.Thread(target=consume, args=(i,))
+                   for i in range(len(streams))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall_s = time.perf_counter() - t0
+        serve_launches = dict(attn.LAUNCHES)
+        stats = eng.stats()
+    finally:
+        eng.close()
+    reasons = [s.finish_reason for s in streams]
+    assert reasons == ["length"] * len(streams), reasons
+    assert all(len(o) == ec.max_new_tokens for o in outs)
+    assert stats["prefix_hits"] >= 1, stats
+    assert not any(serve_launches.values()), serve_launches
+
+    # Greedy consistency against teacher-forced logits (these launch the
+    # forward kernel: the counters were read above). The control holds
+    # each token to the logits one position later, and must fail.
+    n = exact = consistent = control = 0
+    worst_gap = 0.0
+    for p, out in zip(requests, outs):
+        seq = torch.tensor([p + out[:-1]], device=dev)
+        ref = teacher(seq)[0, len(p) - 1:]  # the logits each token came from
+        toks = torch.tensor(out, device=dev)
+        top = ref.max(dim=-1).values
+        gap = top - ref.gather(1, toks[:, None])[:, 0]
+        shifted = top[1:] - ref[1:].gather(1, toks[:-1, None])[:, 0]
+        n += len(out)
+        exact += int((ref.argmax(-1) == toks).sum())
+        consistent += int((gap <= delta).sum())
+        control += int((shifted <= delta).sum())
+        worst_gap = max(worst_gap, gap.max().item())
+        del seq, ref
+    print(f"serve (e3): greedy consistency, delta {delta:.4g}: {consistent} of "
+          f"{n} tokens within delta of their row's maximum (largest gap "
+          f"{worst_gap:.4g}), exact argmax {exact} of {n} (no bar); control, "
+          f"tokens against the next position's logits: {control} of "
+          f"{n - len(requests)} within delta (must not be all)")
+    assert consistent == n, (consistent, n, worst_gap, delta)
+    assert control < n - len(requests), control
+
+    ttft = [(a[0] - t0) * 1e3 for a in arrivals]  # all submitted at t0
+    gaps = [(y - x) * 1e3 for a in arrivals for x, y in zip(a, a[1:])]
+    full = stats["decode_by_batch"].get(ec.slots, {"steps": 0, "ms": 0.0})
+    decode_ms = sum(r["ms"] for r in stats["decode_by_batch"].values())
+    step_ms_full = full["ms"] / full["steps"] if full["steps"] else None
+    # The decode bound at a full batch: the weights and the live KV of
+    # 8 rows read once, at the run's mean live length.
+    kv_per_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2
+    mean_live = (sum(len(p) for p in requests) / len(requests)
+                 + ec.max_new_tokens / 2)
+    weight_bytes = cfg.num_params() * 2
+    bound = (weight_bytes + ec.slots * mean_live * kv_per_token) / HBM_BYTES_PER_S
+    serve = {
+        "card": card,
+        "config": f"llama2_7b, {cfg.n_layers} layers, bf16, random init",
+        "engine": dataclasses.asdict(ec),
+        "requests": len(requests), "prompt_tokens": [len(p) for p in requests],
+        "new_tokens": ec.max_new_tokens, "wall_s": wall_s,
+        "ttft_ms_p50": percentile(ttft, 50), "ttft_ms_p99": percentile(ttft, 99),
+        "itl_ms_p50": percentile(gaps, 50), "itl_ms_p99": percentile(gaps, 99),
+        "decode_tokens_per_s": stats["tokens_emitted"] / (decode_ms / 1e3),
+        "decode_step_ms_full_batch": step_ms_full,
+        "decode_steps_full_batch": full["steps"],
+        "decode_by_batch": stats["decode_by_batch"],
+        "decode_bound_ms_full_batch": bound * 1e3,
+        "decode_bound_mean_live_tokens": mean_live,
+        "prefill_tokens_per_s": stats["prefill_tokens"] / (stats["prefill_ms"] / 1e3),
+        "prefill_chunks": stats["prefill_chunks"],
+        "prefix_hits": stats["prefix_hits"],
+        "prefix_tokens_saved": stats["prefix_tokens_saved"],
+        "pool_bytes": stats["kv_bytes"],
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "logits_max_err": {"cached": err_cached, "paged": err_paged},
+        "delta": delta, "exact_argmax_share": exact / n,
+        "flash_launches_while_serving": serve_launches,
+    }
+    print(f"serve (e3): {len(requests)} requests in {wall_s:.2f} s; decode "
+          f"step at batch {ec.slots} {step_ms_full} ms (bound "
+          f"{bound * 1e3:.3f} ms); TTFT p50 {serve['ttft_ms_p50']:.1f} ms")
+    del eng
+    if profile:
+        serve["profile"] = profile_serving(torch, gen, model, cfg, ec,
+                                           round(mean_live), dev)
+    del model
+    torch.cuda.empty_cache()
+    return serve
+
+
+def profile_serving(torch, gen, model, cfg, ec, live, dev):
+    """One paged decode step over a full batch whose rows hold `live`
+    tokens each, and one prefill chunk, each timed by the host clock
+    (mean of 5 after a warm-up) and then traced by `profile_step`."""
+    nb = ec.max_len // 16
+    pool = gen.init_block_pool(cfg, ec.slots * nb + 1, 16, device=dev)
+    tables = torch.arange(1, ec.slots * nb + 1, device=dev).view(ec.slots, nb)
+    last = torch.randn(ec.slots, cfg.vocab_size, device=dev)
+    positions = torch.full((ec.slots,), live, device=dev)
+    alive = torch.ones(ec.slots, dtype=torch.bool, device=dev)
+    chunk = torch.randint(0, cfg.vocab_size, (1, ec.prefill_chunk), device=dev)
+    off = (live // ec.prefill_chunk) * ec.prefill_chunk
+    runs = {
+        "decode_step": lambda: gen.paged_decode_step(
+            model, cfg, pool, tables, last, positions, alive),
+        "prefill_chunk": lambda: gen.paged_prefill(
+            model, cfg, chunk, pool, tables[:1], off, off + ec.prefill_chunk),
+    }
+    out = {"live_tokens": live, "prefill_offset": off}
+    for name, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+        out[name] = {"host_clock_ms": (time.perf_counter() - t0) / 5 * 1e3,
+                     **profile_step(torch, run)}
+        print(f"serve profile, {name}: {out[name]['host_clock_ms']:.2f} ms, "
+              f"device busy {out[name]['device_busy_ms']:.2f} ms of "
+              f"{out[name]['wall_ms']:.2f} traced, idle share "
+              f"{out[name]['idle_share']:.3f}")
+    return out
+
+
 def profile_step(torch, run_step):
     """Device time by kernel over one traced step, grouped into the
     flash kernels, matrix products and the rest; and the device's idle
@@ -357,6 +686,10 @@ def main() -> int:
         "--against", metavar="ROOT",
         help="compare the attention ops and the step's memory with those "
              "of another checkout at ROOT (phase (d))")
+    parser.add_argument(
+        "--serve-layers", type=int, default=SERVE_LAYERS,
+        help=f"depth of the serving phase's Llama-2-7B (default "
+             f"{SERVE_LAYERS}, the full model)")
     args = parser.parse_args()
     n_layers = args.layers
 
@@ -612,6 +945,13 @@ def main() -> int:
         profile = profile_step(
             torch, lambda: step_fn(state, tokens, targets))
         print(json.dumps({"profile": profile}))
+    del model, state, batch, tokens, targets, step_fn, init_fn
+    torch.cuda.empty_cache()
+
+    # ---- (e) serving ---------------------------------------------------
+    serve = serve_phase(torch, llama, attn, card, args.serve_layers, dev,
+                        args.profile)
+    serve_launches = serve["flash_launches_while_serving"]
 
     kernels = [
         {
@@ -624,6 +964,7 @@ def main() -> int:
             "ms": fwd_ms, "plain_ms": fwd_plain_ms,
             "bound_ms": fwd_bound, "bound_by": fwd_by,
             "library_ms": sdpa_fwd_ms,
+            "serve_launches": serve_launches["flash_fwd"],
             "bound_share": fwd_bound / fwd_ms,
             "vs_library": fwd_ms / sdpa_fwd_ms,
             "shape": [bh, t, d], "causal": True,
@@ -644,6 +985,7 @@ def main() -> int:
             # The backward share of one SDPA forward+backward.
             "library_ms": sdpa_bwd_ms,
             "library_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+            "serve_launches": serve_launches["flash_bwd"],
             "bound_share": bwd_bound / bwd_ms,
             "vs_library": bwd_ms / sdpa_bwd_ms,
             "shape": [bh, t, d], "causal": True,
@@ -662,9 +1004,8 @@ def main() -> int:
         "memory_allocated_at_start": start_bytes, "launches": launches,
         "card": card,
     }}))
+    print(json.dumps({"serve": serve}))
     if args.against:
-        del model, state, batch, tokens, targets, step_fn, init_fn
-        torch.cuda.empty_cache()
         print(json.dumps({"against": against(
             torch, attn, args.against, randn, n_layers)}))
     print(f"card: {card}")

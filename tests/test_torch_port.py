@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from ray_tpu.models import llama as jax_llama
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.llm import kv_slots
+from ray_tpu_torch.models import generate, hf_convert, llama
 from ray_tpu_torch.train import make_train_step
 
 from _torch_port import isolated_module  # noqa: F401 (autouse fixture)
@@ -76,6 +77,9 @@ def test_entry_points_default_to_the_card():
     assert inspect.signature(llama.Llama).parameters["device"].default == "cuda"
     assert inspect.signature(llama.init_params).parameters["device"].default == "cuda"
     assert inspect.signature(make_train_step).parameters["device"].default == "cuda"
+    for entry in (generate.init_kv_cache, generate.init_block_pool,
+                  hf_convert.load_hf_llama, kv_slots.PagedKVCache):
+        assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
 def test_load_jax_params_round_trips_tiny():
