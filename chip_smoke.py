@@ -36,6 +36,28 @@ Phases, none of whose failures is caught:
       and fall, and the launch counters must show 2 forward (one under
       remat) and 1 backward op (each of its 3 launches once) per layer
       per step.
+  (f) after (c) has freed its memory: (f1) the slice's model (same
+      width and depth, batch 2 x 4096, bf16, flash) from one set of
+      weights and one batch, 4 steps under each remat policy ("full",
+      "dots", "dots_flash"). The step-1 losses must agree to
+      REMAT_LOSS_REL and grad norms to REMAT_GNORM_REL, every step's
+      loss to "full"'s to MESH_LOSS_REL, the loss must
+      fall under each, and the counters must show 2 forward launches
+      per layer per step under "full" and "dots", 1 under "dots_flash",
+      and one backward op (3 launches) per layer per step under all
+      three. (f2) `bench.py`'s mesh path: a NCCL world of one rank made
+      by the port's backend, `MeshSpec(fsdp=1).build("cuda")`, and
+      `make_train_step(loss, optimizer, mesh, param_annotations(cfg))`
+      with `shard_batch` under "dots_flash" on the same weights and
+      batch, 4 steps: the parameters must be DTensors on the CUDA mesh,
+      the backend nccl, and the losses (f1)'s "dots_flash" ones to
+      MESH_LOSS_REL; `prefetch_to_device` puts 3 host batches on the
+      mesh through pinned memory and a side stream, unchanged. (f3) a `TorchTrainer` fit (`num_workers=1`) at the
+      small width of (c)'s small model saves an async checkpoint every 2
+      of 6 steps keeping 2: both kept directories hold `metadata.json`
+      after the fit, and the newest restores bit for bit; three more
+      saves, each after the last one's write, time the snapshot with
+      the writer idle.
   (e) serving, after (c) has freed its model and optimizer: (e1) at a
       small width in f32 (vocab 512, dim 256, 2 layers, 4 heads on 2 KV
       heads), 6 greedy requests through the engine (slots 4, max_len
@@ -63,15 +85,21 @@ Phases, none of whose failures is caught:
       its row's maximum; held to the
       next position's logits (the control) not every token may be.
 
-Prints `{"kernels": [...]}`, then `{"slice": {...}}`, then `{"serve":
-{...}}` (the card, TTFT and inter-token gap p50/p99, decode tokens/s
-and step ms at a full batch beside its bound, prefill tokens/s, prefix
-hits and tokens saved, pool bytes, peak memory of phase (e)), and as
-the last line `{"ok": true, "device": {...}}`. Exits non-zero with no result
+Prints `{"kernels": [...]}` (with each kernel's launches under each
+remat policy and in the mesh step), then `{"slice": {...}}`, then
+`{"serve": {...}}` (the card, TTFT and inter-token gap p50/p99, decode
+tokens/s and step ms at a full batch beside its bound, prefill
+tokens/s, prefix hits and tokens saved, pool bytes, peak memory of
+phase (e)), then `{"train_sharded": {...}}` (the card; step ms,
+tokens/s, MFU, peak memory, losses and launches of each (f1) policy
+and of (f2); (f3)'s checkpoints and `ckpt_block_ms`), and as the last
+line `{"ok": true, "device": {...}}`. Exits non-zero with no result
 line when there is no CUDA card or the port is not beside it.
 
 `--profile` traces one more step with torch.profiler after the slice
 and prints `{"profile": ...}`: device time by kernel, and idle share.
+It traces one more step of each (f1) policy and of (f2) too, into
+their records in `{"train_sharded": ...}`.
 It also traces one paged decode step at the full batch and one prefill
 chunk of the serving model, into the `{"serve": ...}` record's
 "profile".
@@ -131,6 +159,26 @@ BWD_LAUNCHES = ("flash_bwd_pre", "flash_bwd", "flash_bwd_dq")
 
 TRAIN_STEPS = 8
 N_LAYERS = 4
+#: Phase (f): steps per remat policy, and the policies.
+REMAT_STEPS = 4
+REMAT_POLICIES = ("full", "dots", "dots_flash")
+#: (f1) The three policies run one forward on the same weights and
+#: batch, so their step-1 losses agree to the bit; the bar only absorbs
+#: printing. Their backward differs in what it recomputes, and the
+#: flash backward's dq sums in f32 in no fixed order, so a few bf16
+#: gradient elements may round the other way: the step-1 grad norms
+#: read within 4e-6 of each other (PERF.md), and the bar leaves 12x.
+REMAT_LOSS_REL = 1e-6
+REMAT_GNORM_REL = 5e-5
+#: (f1) every step's loss under "dots" and "dots_flash" against "full",
+#: and (f2) the mesh step's against (f1)'s dots_flash: step 1 is the same
+#: computation on the same inputs (FSDP2 over one rank gathers and
+#: reduces nothing); from step 2 on, updates of at most 3e-4 per element
+#: (lr under warmup) may differ where a gradient rounds the other way,
+#: which moved the step-4 loss by at most 3.0e-4 relative (PERF.md). A
+#: wrong gradient in one layer moves that layer's whole update, and the
+#: loss falls by 40% over these steps.
+MESH_LOSS_REL = 1e-3
 SERVE_LAYERS = 32
 BATCH, SEQ = 2, 4096
 
@@ -307,7 +355,11 @@ def against(torch, attn, root, randn, n_layers, reps=20):
         fwd[name] = lambda tree=tree: tree.flash_forward(q2, k, v, True, t)
         out, lse = fwd[name]()
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        o = tree.FlashAttentionFunction.apply(*leaves, scale, True, t, t)
+        # Trees before the op's `torch.library` registration carry it
+        # as an autograd Function.
+        op = getattr(tree, "flash_attention_bhsd", None) or (
+            tree.FlashAttentionFunction.apply)
+        o = op(*leaves, scale, True, t, t)
         bwd[name] = lambda o=o, leaves=leaves: torch.autograd.grad(
             o, leaves, do, retain_graph=True)
         print(f"against, {name} tree, held to this tree's plain versions:")
@@ -317,7 +369,7 @@ def against(torch, attn, root, randn, n_layers, reps=20):
         errors[name] = {"out": checks[0][1], "lse": max_err(lse, ref_lse),
                         "grads": [e for _, e in checks[1:]],
                         "within_bars": all(ok for ok, _ in checks)}
-        del out, lse, o, leaves
+        del out, lse, o, op, leaves
     assert errors["this"]["within_bars"], errors
     del ref_out, ref_lse, ref_grads
     times = {}
@@ -599,6 +651,322 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
     del model
     torch.cuda.empty_cache()
     return serve
+
+
+def remat_runs(torch, llama, attn, cfg, init_state, batch, dev,
+               profile=False):
+    """(f1): `REMAT_STEPS` single-device steps under each policy from the
+    same weights and batch. Returns {policy: record}."""
+    from ray_tpu_torch.train import default_optimizer, make_train_step
+
+    runs = {}
+    for policy in REMAT_POLICIES:
+        c = dataclasses.replace(cfg, remat_policy=policy)
+        model = llama.Llama(c, device=dev)
+        model.load_state_dict(init_state)
+        init_fn, step_fn = make_train_step(
+            llama.loss_fn,
+            default_optimizer(learning_rate=3e-4, total_steps=20), device=dev)
+        state = init_fn(model)
+        runs[policy] = train_steps(torch, llama, attn, c, state, step_fn,
+                                   batch[:, :-1], batch[:, 1:], profile)
+        del model, state, step_fn, init_fn
+        torch.cuda.empty_cache()
+    return runs
+
+
+def train_steps(torch, llama, attn, cfg, state, step_fn, tokens, targets,
+                profile=False):
+    """`REMAT_STEPS` steps, timed by the host clock around a synchronise,
+    with the launch counters zeroed just before them and read just
+    after, and the peak memory of the steps; with `profile`, one more
+    step traced by `profile_step`."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_s = [], [], []
+    attn.reset_launch_counts()
+    for _ in range(REMAT_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, tokens, targets)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+    launches = dict(attn.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(step_s[1:])
+    n_tokens = tokens.shape[0] * tokens.shape[1]
+    tokens_per_s = n_tokens / steady
+    traced = {}
+    if profile:
+        traced["profile"] = profile_step(
+            torch, lambda: step_fn(state, tokens, targets))
+    return {**traced,
+        "losses": losses, "grad_norms": norms,
+        "step_ms": [x * 1e3 for x in step_s], "steady_step_ms": steady * 1e3,
+        "tokens_per_s": tokens_per_s,
+        "mfu": llama.flops_per_token(cfg, tokens.shape[1]) * tokens_per_s
+        / PEAK_BF16_FLOPS,
+        "max_memory_allocated": peak,
+        "launches": launches,
+    }
+
+
+def rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def mesh_run(torch, llama, attn, cfg, init_state, batch, dev, profile=False):
+    """(f2): the flagship's mesh path, `bench.py`'s `make_train_step(loss,
+    optimizer, mesh, param_annotations(cfg))` over `MeshSpec(fsdp=1)`, on
+    a NCCL world of one rank made by the port's backend."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.train import (
+        default_optimizer,
+        init_torch_distributed,
+        make_train_step,
+        prefetch_to_device,
+        shard_batch,
+    )
+    from ray_tpu_torch.train.backend import free_port
+
+    init_torch_distributed(0, 1, f"localhost:{free_port()}", device=dev)
+    try:
+        backend = dist.get_backend()
+        mesh = MeshSpec(fsdp=1).build(dev)
+        model = llama.Llama(cfg, device=dev)
+        model.load_state_dict(init_state)
+        init_fn, step_fn = make_train_step(
+            llama.loss_fn, default_optimizer(learning_rate=3e-4,
+                                             total_steps=20),
+            mesh, llama.param_annotations(cfg))
+        state = init_fn(model)
+        params = list(model.parameters())
+        on_mesh = all(isinstance(p, DTensor) and p.device_mesh.device_type
+                      == "cuda" and p.to_local().is_cuda for p in params)
+        record = train_steps(torch, llama, attn, cfg, state, step_fn,
+                             shard_batch(batch[:, :-1], mesh),
+                             shard_batch(batch[:, 1:], mesh), profile)
+        # The prefetcher's pinned side-stream copies onto the same mesh.
+        host = [batch.cpu() + i for i in range(3)]
+        fetched = list(prefetch_to_device(iter(host), mesh,
+                                          logical_axes=("batch", None)))
+        prefetched = all(isinstance(b, DTensor) and torch.equal(
+            b.to_local().cpu(), h) for b, h in zip(fetched, host))
+        record.update({"backend": backend, "params_are_dtensors": on_mesh,
+                       "prefetch_equal": prefetched and len(fetched) == 3,
+                       "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))})
+        del model, state, step_fn, init_fn, params
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return record
+
+
+def trainer_run(torch, llama, dev):
+    """(f3): a `TorchTrainer` fit at phase (c)'s small width that saves
+    an async checkpoint every 2 of 6 steps through a `CheckpointManager`
+    keeping 2; then the newest is restored into a fresh state."""
+    import shutil
+
+    from ray_tpu_torch._private import step_telemetry
+    from ray_tpu_torch.train import (
+        CheckpointManager,
+        RunConfig,
+        ScalingConfig,
+        TorchTrainer,
+        default_optimizer,
+        make_train_step,
+        pending_checkpoints,
+        report,
+        restore_checkpoint,
+        save_checkpoint,
+        wait_for_checkpoints,
+    )
+
+    small = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2,
+                              n_heads=4, n_kv_heads=2, intermediate=512,
+                              max_seq_len=256, dtype=torch.bfloat16)
+    storage = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_trainer")
+    shutil.rmtree(storage, ignore_errors=True)
+    g = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, small.vocab_size, (4, 129), generator=g,
+                         device=dev)
+    init = {k: v.clone() for k, v in
+            llama.init_params(small, g, device=dev).state_dict().items()}
+    saved, block_ms, save_ms, in_flight = {}, [], [], []
+
+    def make_state():
+        model = llama.Llama(small, device=dev)
+        model.load_state_dict(init)
+        init_fn, step_fn = make_train_step(
+            llama.loss_fn, default_optimizer(learning_rate=1e-3,
+                                             total_steps=20), device=dev)
+        return init_fn(model), step_fn
+
+    def loop():
+        state, step_fn = make_state()
+        mgr = CheckpointManager(os.path.join(storage, "checkpoints"),
+                                num_to_keep=2)
+        for step in range(1, 7):
+            state, metrics = step_fn(state, toks[:, :-1], toks[:, 1:])
+            loss = metrics["loss"].item()
+            path = None
+            if step % 2 == 0:
+                step_telemetry.take_phases()
+                in_flight.append(len(pending_checkpoints()))
+                t0 = time.perf_counter()
+                path = mgr.save(step, state.state_dict(), {"loss": loss},
+                                async_save=True)
+                # The snapshot, as save_checkpoint bills it; the call's
+                # wall also waits for the write it retires (keep 2).
+                save_ms.append((time.perf_counter() - t0) * 1e3)
+                block_ms.append(step_telemetry.take_phases()["ckpt_block_ms"])
+                saved[path] = {k: v.detach().clone() if torch.is_tensor(v)
+                               else v for k, v in flat(state.state_dict())}
+            report({"step": step, "loss": loss}, checkpoint=path)
+
+    try:
+        result = TorchTrainer(loop, scaling_config=ScalingConfig(num_workers=1),
+                              run_config=RunConfig(storage_path=storage)).fit()
+        assert result.error is None, result.error
+        root = os.path.join(storage, "checkpoints")
+        kept = sorted(os.listdir(root))
+        durable = all(os.path.exists(os.path.join(root, d, "metadata.json"))
+                      for d in kept)
+        fresh, _ = make_state()
+        restored = restore_checkpoint(result.checkpoint_path,
+                                      fresh.state_dict())
+        want = saved[result.checkpoint_path]
+        got = dict(flat(restored))
+        bitwise = set(got) == set(want) and all(
+            torch.equal(got[k], want[k]) if torch.is_tensor(want[k])
+            else got[k] == want[k] for k in want)
+        # The same snapshot with no write running beside it: each save
+        # here waits for its own write before the next.
+        idle_ms = []
+        for i in range(3):
+            step_telemetry.take_phases()
+            save_checkpoint(os.path.join(storage, f"idle_{i}"),
+                            fresh.state_dict(), async_save=True)
+            idle_ms.append(step_telemetry.take_phases()["ckpt_block_ms"])
+            wait_for_checkpoints()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    record = {
+        "config": "vocab 512, dim 256, 2 layers, 4 heads / 2 KV, bf16",
+        "steps": len(result.metrics_history), "kept": kept,
+        "metadata_in_every_kept": durable,
+        "checkpoint_path": os.path.basename(result.checkpoint_path),
+        "restored_bitwise": bitwise, "tensors": len(want),
+        "ckpt_block_ms": block_ms, "manager_save_ms": save_ms,
+        "writes_in_flight_at_save": in_flight,
+        "ckpt_block_ms_writer_idle": idle_ms,
+    }
+    print(f"(f3) trainer: {record['steps']} steps, kept {kept}, metadata "
+          f"in every kept: {durable}, restored bit for bit: {bitwise}, "
+          f"ckpt_block_ms {[round(x, 2) for x in block_ms]} (writes in "
+          f"flight {in_flight}), manager.save wall "
+          f"{[round(x, 2) for x in save_ms]} ms; with the writer idle "
+          f"{[round(x, 2) for x in idle_ms]} ms")
+    assert kept == ["checkpoint_00000004", "checkpoint_00000006"], kept
+    assert durable and bitwise, record
+    return record
+
+
+def flat(tree, prefix=""):
+    """(dotted key, leaf) pairs of nested dicts."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from flat(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def train_sharded_phase(torch, llama, attn, card, n_layers, dev,
+                        profile=False):
+    """Phase (f), after (c) has freed its memory (see the module's doc).
+    Returns the `{"train_sharded": ...}` record."""
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=n_layers, max_seq_len=SEQ)
+    g = torch.Generator(device=dev).manual_seed(2)
+    init_state = {k: v.clone() for k, v in
+                  llama.init_params(cfg, g, device=dev).state_dict().items()}
+    batch = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), generator=g,
+                          device=dev)
+    torch.cuda.empty_cache()
+    runs = remat_runs(torch, llama, attn, cfg, init_state, batch, dev,
+                      profile)
+    full = runs["full"]
+    for policy, r in runs.items():
+        r["loss_rel_to_full"] = [rel(a, b) for a, b in
+                                 zip(r["losses"], full["losses"])]
+        r["grad_norm_rel_to_full"] = rel(r["grad_norms"][0],
+                                         full["grad_norms"][0])
+        print(f"(f1) remat {policy}: losses {[round(x, 5) for x in r['losses']]}"
+              f" (relative to full: "
+              f"{[f'{d:.2e}' for d in r['loss_rel_to_full']]}; step-1 grad "
+              f"norm {r['grad_norm_rel_to_full']:.2e})"
+              f", grad norms {[round(x, 5) for x in r['grad_norms']]}, step "
+              f"{r['steady_step_ms']:.2f} ms, {r['tokens_per_s']:.0f} tokens/s"
+              f", MFU {r['mfu']:.4f}, peak {r['max_memory_allocated']} B, "
+              f"launches {r['launches']}")
+        if "profile" in r:
+            prof = r["profile"]
+            print(f"(f1) remat {policy}, traced step: device busy "
+                  f"{prof['device_busy_ms']:.2f} ms of {prof['wall_ms']:.2f}, "
+                  f"by group {prof['groups_ms']}")
+    for policy, r in runs.items():
+        assert all(math.isfinite(x) for x in r["losses"] + r["grad_norms"])
+        assert r["losses"][-1] < r["losses"][0], (policy, r["losses"])
+        assert rel(r["losses"][0], full["losses"][0]) <= REMAT_LOSS_REL, policy
+        assert rel(r["grad_norms"][0], full["grad_norms"][0]) <= \
+            REMAT_GNORM_REL, policy
+        assert all(d <= MESH_LOSS_REL for d in r["loss_rel_to_full"]), (
+            policy, r["loss_rel_to_full"])
+        fwd_per_layer = 1 if policy == "dots_flash" else 2
+        assert r["launches"]["flash_fwd"] == \
+            REMAT_STEPS * n_layers * fwd_per_layer, (policy, r["launches"])
+        for name in BWD_LAUNCHES:
+            assert r["launches"][name] == REMAT_STEPS * n_layers, (
+                policy, r["launches"])
+
+    mesh = mesh_run(torch, llama, attn,
+                    dataclasses.replace(cfg, remat_policy="dots_flash"),
+                    init_state, batch, dev, profile)
+    ref = runs["dots_flash"]
+    diffs = [rel(a, b) for a, b in zip(mesh["losses"], ref["losses"])]
+    print(f"(f2) MeshSpec(fsdp=1) on {mesh['backend']}: losses "
+          f"{[round(x, 5) for x in mesh['losses']]} (relative to (f1) "
+          f"dots_flash: {[f'{d:.2e}' for d in diffs]}), step "
+          f"{mesh['steady_step_ms']:.2f} ms against {ref['steady_step_ms']:.2f}"
+          f" ms, params DTensors on CUDA: {mesh['params_are_dtensors']}, "
+          f"prefetched batches equal: {mesh['prefetch_equal']}, "
+          f"launches {mesh['launches']}")
+    assert mesh["backend"] == "nccl" and mesh["params_are_dtensors"], mesh
+    assert mesh["prefetch_equal"], mesh
+    assert all(d <= MESH_LOSS_REL for d in diffs), diffs
+    assert mesh["launches"]["flash_fwd"] == REMAT_STEPS * n_layers, mesh
+    del init_state, batch
+    torch.cuda.empty_cache()
+
+    trainer = trainer_run(torch, llama, dev)
+    return {
+        "card": card,
+        "config": f"llama2_7b width, {n_layers} layers, bf16, flash",
+        "batch": BATCH, "seq": SEQ, "steps": REMAT_STEPS,
+        "bars": {"remat_loss_rel": REMAT_LOSS_REL,
+                 "remat_grad_norm_rel": REMAT_GNORM_REL,
+                 "mesh_loss_rel": MESH_LOSS_REL},
+        "f1": {"policies": runs,
+               "launches": {p: r["launches"] for p, r in runs.items()}},
+        "f2": {**mesh, "loss_rel_to_f1": diffs,
+               "f1_dots_flash_step_ms": ref["steady_step_ms"]},
+        "f3": trainer,
+    }
 
 
 def profile_serving(torch, gen, model, cfg, ec, live, dev):
@@ -948,6 +1316,11 @@ def main() -> int:
     del model, state, batch, tokens, targets, step_fn, init_fn
     torch.cuda.empty_cache()
 
+    # ---- (f) remat policies, the mesh step, trainer and checkpoints ----
+    sharded = train_sharded_phase(torch, llama, attn, card, n_layers, dev,
+                                  args.profile)
+    by_policy = sharded["f1"]["launches"]
+
     # ---- (e) serving ---------------------------------------------------
     serve = serve_phase(torch, llama, attn, card, args.serve_layers, dev,
                         args.profile)
@@ -965,6 +1338,9 @@ def main() -> int:
             "bound_ms": fwd_bound, "bound_by": fwd_by,
             "library_ms": sdpa_fwd_ms,
             "serve_launches": serve_launches["flash_fwd"],
+            "launches_by_policy": {p: n["flash_fwd"]
+                                   for p, n in by_policy.items()},
+            "launches_mesh_step": sharded["f2"]["launches"]["flash_fwd"],
             "bound_share": fwd_bound / fwd_ms,
             "vs_library": fwd_ms / sdpa_fwd_ms,
             "shape": [bh, t, d], "causal": True,
@@ -986,6 +1362,9 @@ def main() -> int:
             "library_ms": sdpa_bwd_ms,
             "library_fwd_bwd_ms": sdpa_fwd_bwd_ms,
             "serve_launches": serve_launches["flash_bwd"],
+            "launches_by_policy": {p: n["flash_bwd"]
+                                   for p, n in by_policy.items()},
+            "launches_mesh_step": sharded["f2"]["launches"]["flash_bwd"],
             "bound_share": bwd_bound / bwd_ms,
             "vs_library": bwd_ms / sdpa_bwd_ms,
             "shape": [bh, t, d], "causal": True,
@@ -1005,6 +1384,7 @@ def main() -> int:
         "card": card,
     }}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"train_sharded": sharded}))
     if args.against:
         print(json.dumps({"against": against(
             torch, attn, args.against, randn, n_layers)}))

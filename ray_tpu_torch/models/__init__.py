@@ -24,6 +24,7 @@ from .llama import (
     load_jax_params,
     loss_fn,
     masked_xent,
+    param_annotations,
     to_jax_params,
 )
 
@@ -47,6 +48,7 @@ __all__ = [
     "masked_xent",
     "paged_decode_step",
     "paged_prefill",
+    "param_annotations",
     "prefill",
     "to_jax_params",
 ]

@@ -3,15 +3,23 @@
 Layout against the JAX package: the layers are an `nn.ModuleList` of
 `LlamaLayer`s, where the JAX package stacks them on a leading axis
 under `lax.scan`; the projections are `nn.Linear` ([out, in] weights,
-the transpose of the JAX [in, out] leaves); `remat=True` with policy
-"full" wraps each layer in `torch.utils.checkpoint`, as `jax.checkpoint`
-does. Attention goes through the flash kernels (`ops/attention.py`).
-`load_jax_params` maps the JAX parameter tree onto this model.
+the transpose of the JAX [in, out] leaves); `remat=True` wraps each
+layer in `torch.utils.checkpoint`, as `jax.checkpoint` wraps the scan
+body: policy "full" recomputes the whole layer in backward, "dots" and
+"dots_flash" are selective checkpoints (`remat_policy`). Attention goes
+through the flash kernels (`ops/attention.py`). `load_jax_params` maps
+the JAX parameter tree onto this model; `param_annotations` gives each
+parameter's logical axes for the sharded train step.
+
+The head split reads the head count off the projection's output, so a
+layer whose projections are tensor-parallel shards (heads / tp of them)
+runs unchanged.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -19,10 +27,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from ..ops.attention import flash_attention, mha_reference, repeat_kv
+from ..ops.attention import FLASH_FWD, flash_attention, mha_reference, repeat_kv
 from ..ops.norms import apply_rotary, rms_norm, rotary_embedding, swiglu
+from ..parallel.sharding import Annotated, annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +51,10 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16
     attention: str = "flash"  # flash | reference | ring (not ported yet)
     remat: bool = True
-    #: "full" recomputes the whole layer in backward. "dots" and
-    #: "dots_flash" are not ported yet (ROADMAP queue 1).
+    #: "full" recomputes the whole layer in backward; "dots" saves the
+    #: matrix products without batch dims (JAX's
+    #: dots_with_no_batch_dims_saveable); "dots_flash" also saves the
+    #: flash forward's out and lse, so the kernel runs once per step.
     remat_policy: str = "full"
     #: >0 turns every FFN into a routed MoE (not ported yet).
     moe_experts: int = 0
@@ -142,10 +157,35 @@ def _check_ported(cfg: LlamaConfig) -> None:
             "(ROADMAP queue 1, parallelism slice)")
     if cfg.attention not in ("flash", "reference"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
-    if cfg.remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: selective remat is not "
-            "ported yet (ROADMAP queue 1, remat dots/dots_flash)")
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"one of {REMAT_POLICIES}")
+
+
+#: Remat policy -> the ops whose outputs the backward reads from memory
+#: instead of recomputing them. `aten.mm`/`aten.addmm` are the matrix
+#: products without batch dims (every nn.Linear); attention's batched
+#: `bmm` in `mha_reference` is recomputed, as JAX's policy does.
+_SAVED_OPS = {
+    "full": (),
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default),
+    "dots_flash": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   FLASH_FWD),
+}
+REMAT_POLICIES = tuple(_SAVED_OPS)
+
+
+def _policy_fn(saved, ctx, op, *args, **kwargs):
+    if op in saved:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context_fn(policy: str):
+    """`context_fn` of `torch.utils.checkpoint` for a selective policy."""
+    return functools.partial(
+        create_selective_checkpoint_contexts,
+        functools.partial(_policy_fn, _SAVED_OPS[policy]))
 
 
 def model_norm(cfg: LlamaConfig, x, weight):
@@ -169,8 +209,9 @@ def model_glu(cfg: LlamaConfig, x, gate):
 
 def embed_tokens(cfg: LlamaConfig, model: "Llama", tokens):
     """Embedding lookup (+ Gemma's sqrt(dim) normalizer, applied in the
-    embedding dtype)."""
-    x = model.embed.weight[tokens].to(cfg.dtype)
+    embedding dtype). Through the module, so a tensor-parallel embedding
+    gathers its vocab shards."""
+    x = model.embed(tokens).to(cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.dim), dtype=cfg.dtype,
                              device=x.device)
@@ -179,13 +220,15 @@ def embed_tokens(cfg: LlamaConfig, model: "Llama", tokens):
 
 def project_qkv(cfg: LlamaConfig, h, layer: "LlamaLayer"):
     """QKV projection (+ Qwen2-family biases) and head split:
-    h [b, t, dim] -> each of q/k/v [b, heads, t, head_dim]."""
+    h [b, t, dim] -> each of q/k/v [b, heads, t, head_dim], heads being
+    those of this rank's projection shard (all of them without tensor
+    parallelism)."""
     b, t, _ = h.shape
     hd = cfg.head_dim
     q, k, v = layer.wq(h), layer.wk(h), layer.wv(h)
-    q = q.reshape(b, t, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, t, cfg.n_kv_heads, hd).transpose(1, 2)
+    q = q.reshape(b, t, -1, hd).transpose(1, 2)
+    k = k.reshape(b, t, -1, hd).transpose(1, 2)
+    v = v.reshape(b, t, -1, hd).transpose(1, 2)
     if cfg.qk_norm:
         # Qwen3: per-head RMSNorm over head_dim, before RoPE.
         q = rms_norm(q, layer.q_norm, eps=cfg.norm_eps)
@@ -209,7 +252,7 @@ def _layer(cfg: LlamaConfig, x, layer: "LlamaLayer", cos, sin):
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
     attn = _attention(cfg, q, k, v)
-    attn = attn.transpose(1, 2).reshape(b, t, cfg.n_heads * cfg.head_dim)
+    attn = attn.transpose(1, 2).reshape(b, t, -1)
     x = x + layer.wo(attn)
     h = model_norm(cfg, x, layer.mlp_norm)
     return x + layer.w2(model_glu(cfg, layer.w1(h), layer.w3(h)))
@@ -235,7 +278,17 @@ class LlamaLayer(nn.Module):
         self.w2 = nn.Linear(cfg.intermediate, cfg.dim, bias=False, **kw)
 
     def forward(self, x, cos, sin):
-        return _layer(self.cfg, x, self, cos, sin)
+        cfg = self.cfg
+        if not cfg.remat:
+            return _layer(cfg, x, self, cos, sin)
+        # Inside the module's forward, so that a sharded layer's gather
+        # (FSDP's hooks on this module) wraps the recompute too. "full"
+        # keeps one layer's activations in HBM at a time.
+        kw = {}
+        if cfg.remat_policy != "full":
+            kw["context_fn"] = _remat_context_fn(cfg.remat_policy)
+        return checkpoint(_layer, cfg, x, self, cos, sin, use_reentrant=False,
+                          **kw)
 
 
 class Llama(nn.Module):
@@ -253,8 +306,12 @@ class Llama(nn.Module):
         self.final_norm = nn.Parameter(torch.ones(cfg.dim, **kw))
         self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False, **kw)
 
-    def forward(self, tokens, positions=None):
-        return forward(self, tokens, positions=positions)
+    def forward(self, tokens, positions=None, return_aux=False):
+        """Logits, or (logits, aux) with `return_aux`. The module's own
+        call is the way in, so that a sharded model's hooks (FSDP's
+        gather of the root's parameters) run."""
+        logits, aux = _forward_and_aux(self, tokens, positions)
+        return (logits, aux) if return_aux else logits
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
@@ -280,6 +337,10 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
 def forward_and_aux(model: Llama, tokens, *, positions=None) -> tuple:
     """Token ids [batch, seq] -> (logits [batch, seq, vocab] f32, aux),
     aux being the MoE load-balancing loss (0: dense models only)."""
+    return model(tokens, positions=positions, return_aux=True)
+
+
+def _forward_and_aux(model: Llama, tokens, positions) -> tuple:
     cfg = model.cfg
     b, t = tokens.shape
     if positions is None:
@@ -289,15 +350,43 @@ def forward_and_aux(model: Llama, tokens, *, positions=None) -> tuple:
         positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling
     )
     for layer in model.layers:
-        if cfg.remat:
-            # Recomputes the layer, flash forward kernel included, in
-            # backward: HBM holds one layer's activations at a time.
-            x = checkpoint(layer, x, cos, sin, use_reentrant=False)
-        else:
-            x = layer(x, cos, sin)
+        x = layer(x, cos, sin)
     x = model_norm(cfg, x, model.final_norm)
     logits = model.lm_head(x).float()
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def param_annotations(cfg: LlamaConfig) -> Dict[str, Annotated]:
+    """Logical axes of every parameter, by state-dict name, in this
+    model's layout ([out, in] matrices, [vocab, dim] embedding): the
+    JAX package's `param_annotations` with each matrix's two axes
+    swapped and the layer axis unstacked."""
+    _check_ported(cfg)
+    layer = {
+        "wq.weight": ("heads", "embed"),
+        "wk.weight": ("kv_heads", "embed"),
+        "wv.weight": ("kv_heads", "embed"),
+        "wo.weight": ("embed", "heads"),
+        "attn_norm": (None,),
+        "mlp_norm": (None,),
+        "w1.weight": ("mlp", "embed"),
+        "w3.weight": ("mlp", "embed"),
+        "w2.weight": ("embed", "mlp"),
+    }
+    if cfg.attn_bias:
+        layer.update({"wq.bias": ("heads",), "wk.bias": ("kv_heads",),
+                      "wv.bias": ("kv_heads",)})
+    if cfg.qk_norm:
+        layer.update({"q_norm": (None,), "k_norm": (None,)})
+    out = {
+        "embed.weight": annotate("vocab", "embed"),
+        "final_norm": annotate(None),
+        "lm_head.weight": annotate("vocab", "embed"),
+    }
+    for i in range(cfg.n_layers):
+        for name, axes in layer.items():
+            out[f"layers.{i}.{name}"] = annotate(*axes)
+    return out
 
 
 def forward(model: Llama, tokens, *, positions=None):

@@ -307,28 +307,59 @@ def flash_backward(q2, k, v, out, do, lse, scale: float, causal: bool,
 # public op
 # ---------------------------------------------------------------------------
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """Counterpart of `_flash_attention_bhsd`'s custom VJP on
-    [bh, t, d] inputs padded to BLOCK multiples. The backward runs the
-    backward op from the saved (q2, k, v, out, lse), q2 being the
-    pre-scaled q the forward kernel took; it never reruns the forward."""
+#: The op's namespace is the package's own name, so that another copy of
+#: the package imported beside this one (`chip_smoke.py --against`)
+#: registers an op of its own.
+_NAMESPACE = __name__.split(".")[0]
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal, kv_len, q_len):
-        q2 = prescale(q, scale)
-        out, lse = flash_forward(q2, k, v, causal, kv_len)
-        ctx.save_for_backward(q2, k, v, out, lse)
-        ctx.args = (scale, causal, kv_len, q_len)
-        return out
 
-    @staticmethod
-    def backward(ctx, do):
-        q2, k, v, out, lse = ctx.saved_tensors
-        scale, causal, kv_len, q_len = ctx.args
-        dq, dk, dv = flash_backward(
-            q2, k, v, out, do.contiguous(), lse, scale, causal, kv_len, q_len,
-        )
-        return dq, dk, dv, None, None, None, None
+@torch.library.custom_op(f"{_NAMESPACE}::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float, causal: bool, kv_len: int,
+                 q_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Counterpart of `_flash_attention_bhsd` on [bh, t, d] inputs
+    padded to BLOCK multiples: (out, lse) of the forward kernel on q
+    pre-scaled. Registered with `torch.library` so that a selective
+    checkpoint can name it (`FLASH_FWD`), as the JAX package names its
+    residuals "flash_out" and "flash_lse". `q_len` is the backward's."""
+    return flash_forward(prescale(q, scale), k, v, causal, kv_len)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, scale, causal, kv_len, q_len):
+    return torch.empty_like(q), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, scale, causal, kv_len, q_len = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.args = (scale, causal, kv_len, q_len)
+
+
+def _flash_fwd_backward(ctx, d_out, d_lse):
+    """The backward op from the saved (q, k, v, out, lse); q2 is q
+    pre-scaled again, bit for bit the forward's. It never reruns the
+    forward kernel."""
+    q, k, v, out, lse = ctx.saved_tensors
+    scale, causal, kv_len, q_len = ctx.args
+    dq, dk, dv = flash_backward(
+        prescale(q, scale), k, v, out, d_out.contiguous(), lse, scale,
+        causal, kv_len, q_len,
+    )
+    return dq, dk, dv, None, None, None, None
+
+
+flash_fwd_op.register_autograd(_flash_fwd_backward,
+                               setup_context=_flash_fwd_setup)
+
+#: The op as the dispatcher sees it: what a checkpoint policy compares.
+FLASH_FWD = getattr(torch.ops, _NAMESPACE).flash_fwd.default
+
+
+def flash_attention_bhsd(q, k, v, scale: float, causal: bool, kv_len: int,
+                         q_len: int) -> torch.Tensor:
+    """The op's output on [bh, t, d] inputs padded to BLOCK multiples."""
+    return flash_fwd_op(q, k, v, scale, causal, kv_len, q_len)[0]
 
 
 def flash_attention(
@@ -358,7 +389,7 @@ def flash_attention(
     if tk_pad:
         kf = F.pad(kf, (0, 0, 0, tk_pad))
         vf = F.pad(vf, (0, 0, 0, tk_pad))
-    out = FlashAttentionFunction.apply(
+    out = flash_attention_bhsd(
         qf.contiguous(), kf.contiguous(), vf.contiguous(), scale, causal,
         tk, t,
     )

@@ -1,5 +1,68 @@
-"""Training of the PyTorch/CUDA port (counterpart of `ray_tpu/train`)."""
+"""Training of the PyTorch/CUDA port (counterpart of `ray_tpu/train`):
+TorchTrainer, the sharded train step, sessions, backends and
+checkpointing.
 
-from .train_step import TrainState, default_optimizer, make_train_step
+Not ported yet: the MPMD pipeline (`MPMDPipeline`), `WorkerGroup` and
+the multi-worker gang (ROADMAP queue 1), and the head-side step
+telemetry (`telemetry`)."""
 
-__all__ = ["TrainState", "default_optimizer", "make_train_step"]
+from .backend import Backend, TorchBackend, init_torch_distributed, run_local_gang
+from .checkpoint import (
+    CheckpointManager,
+    load_metadata,
+    pending_checkpoints,
+    restore_checkpoint,
+    save_checkpoint,
+    wait_for_checkpoints,
+)
+from .config import (
+    CheckpointConfig,
+    FailureConfig,
+    Result,
+    RunConfig,
+    ScalingConfig,
+)
+from .session import (
+    get_checkpoint,
+    get_context,
+    get_dataset_shard,
+    get_device_batches,
+    report,
+)
+from .train_step import (
+    TrainState,
+    default_optimizer,
+    make_train_step,
+    prefetch_to_device,
+    shard_batch,
+)
+from .trainer import TorchTrainer
+
+__all__ = [
+    "TorchTrainer",
+    "ScalingConfig",
+    "RunConfig",
+    "CheckpointConfig",
+    "FailureConfig",
+    "Result",
+    "Backend",
+    "TorchBackend",
+    "init_torch_distributed",
+    "run_local_gang",
+    "TrainState",
+    "make_train_step",
+    "default_optimizer",
+    "shard_batch",
+    "prefetch_to_device",
+    "report",
+    "get_context",
+    "get_checkpoint",
+    "get_dataset_shard",
+    "get_device_batches",
+    "save_checkpoint",
+    "restore_checkpoint",
+    "load_metadata",
+    "wait_for_checkpoints",
+    "pending_checkpoints",
+    "CheckpointManager",
+]

@@ -1,5 +1,4 @@
-"""Single-device training step (PyTorch port of
-`ray_tpu/train/train_step.py`).
+"""Training step (PyTorch port of `ray_tpu/train/train_step.py`).
 
 `default_optimizer` reproduces the JAX package's optax chain
 (`clip_by_global_norm` then `adamw` under a warmup-cosine schedule)
@@ -7,17 +6,38 @@ step for step: the schedule is read at the update count before it is
 incremented, so the first update is exactly zero; the clip divides by
 the global norm with no epsilon; the moments keep the parameter dtype.
 Updates are applied in place (the counterpart of buffer donation).
-The mesh, sharding and device prefetch belong to later slices.
+
+`make_train_step(loss_fn, optimizer, mesh, param_annotations)` lays the
+model out on a `MeshSpec` mesh where the JAX package hands shardings to
+GSPMD (`shard_module`): tensor parallelism over `tp` through
+`parallelize_module`, and FSDP2 (`fully_shard`) over the data axes,
+sharding each parameter's embed dim where the rules put it on `fsdp`.
+With `mesh=None` it is the single-device step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, List
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+
+from .._private import step_telemetry
+from ..parallel.sharding import (
+    ACT_RULES,
+    PARAM_RULES,
+    Rules,
+    distribute,
+    placements_for,
+    tensor_dim_on,
+    tree_map,
+)
 
 
 @dataclasses.dataclass
@@ -27,6 +47,27 @@ class TrainState:
     step: int
     params: nn.Module
     opt_state: Dict[str, Any]
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a checkpoint holds: the step, the model's state dict and
+        the optimizer's, its moments keyed by parameter name. Its tensors
+        are the live ones (sharded as the parameters are), so restoring
+        into it restores the state in place."""
+        names = [n for n, _ in self.params.named_parameters()]
+        opt = self.opt_state
+        return {
+            "step": self.step,
+            "params": self.params.state_dict(),
+            "opt_state": {"count": opt["count"],
+                          "mu": dict(zip(names, opt["mu"])),
+                          "nu": dict(zip(names, opt["nu"]))},
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Take the step and update count of a restored `state_dict()`
+        (its tensors were restored in place)."""
+        self.step = int(state["step"])
+        self.opt_state["count"] = int(state["opt_state"]["count"])
 
 
 def warmup_cosine_decay(init_value: float, peak_value: float,
@@ -49,10 +90,16 @@ def warmup_cosine_decay(init_value: float, peak_value: float,
     return schedule
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 class AdamW:
     """Global-norm clip, then AdamW (optax `scale_by_adam`,
     `add_decayed_weights`, `scale_by_learning_rate`) on every parameter,
-    norms included."""
+    norms included. On sharded parameters each rank updates its own
+    shards: a moment has its parameter's placements, and the update is
+    elementwise."""
 
     def __init__(self, schedule: Callable[[int], float], b1: float,
                  b2: float, eps: float, weight_decay: float,
@@ -63,6 +110,8 @@ class AdamW:
         self.grad_clip = grad_clip
 
     def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
+        # zeros_like of a DTensor is a DTensor placed like it: the
+        # counterpart of `infer_opt_shardings`.
         return {
             "count": 0,
             "mu": [torch.zeros_like(p) for p in params],
@@ -73,13 +122,14 @@ class AdamW:
     def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
               state: Dict[str, Any], grad_norm: torch.Tensor) -> None:
         """Update `params` and `state` in place. `grad_norm` is the
-        global norm of `grads`."""
+        global norm of `grads`, a plain tensor."""
         clip = grad_norm >= self.grad_clip
         count = state["count"] + 1
         bc1 = 1.0 - self.b1 ** count
         bc2 = 1.0 - self.b2 ** count
         lr = self.schedule(state["count"])
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
+            p, g, mu, nu = _local(p), _local(g), _local(mu), _local(nu)
             g = torch.where(clip, g / grad_norm.to(g.dtype) * self.grad_clip, g)
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu.mul_(self.b2).add_(g * g, alpha=1.0 - self.b2)
@@ -112,38 +162,219 @@ def default_optimizer(
                  weight_decay=weight_decay, grad_clip=grad_clip)
 
 
+def _sum_of_squares(t: torch.Tensor) -> torch.Tensor:
+    return torch.sum(t.float() * t.float())
+
+
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor, in f32."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    """sqrt of the sum of squares over every tensor, in f32, a plain
+    tensor. DTensors add their local shards' squares, each divided by
+    the number of ranks that hold a copy of that shard, and one
+    all-reduce over the process group sums them: every rank of the
+    group must call it, and hold a shard of every DTensor (a parameter
+    the mesh's tp ranks share is not on their mesh, so its copies are
+    counted as the world over its shards)."""
+    total = sum(_sum_of_squares(t) for t in tensors
+                if not isinstance(t, DTensor))
+    sharded = [t for t in tensors if isinstance(t, DTensor)]
+    if sharded:
+        local = 0.0
+        for t in sharded:
+            shards = math.prod(t.device_mesh.size(i)
+                               for i, p in enumerate(t.placements)
+                               if p.is_shard())
+            copies = dist.get_world_size() // shards
+            local = local + _sum_of_squares(t.to_local()) / copies
+        dist.all_reduce(local)
+        total = total + local
+    return torch.sqrt(total)
 
 
-def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer: AdamW,
-                    *, device="cuda"):
+def _check_mesh(mesh) -> Dict[str, int]:
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for axis in ("pp", "sp"):
+        if sizes.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f"{axis}={sizes[axis]}: pipeline and sequence parallelism "
+                "are not ported yet (ROADMAP queue 1, parallelism slice)")
+    return sizes
+
+
+def _tp_style(module: nn.Module, dim: int, axis_name: str):
+    """The tensor-parallel style that shards `module`'s weight on `dim`.
+    A column-sharded output stays sharded where the next op is local to
+    the shard (heads, mlp) and is gathered where the model needs it
+    whole (vocab: the logits)."""
+    from torch.distributed.tensor.parallel import (
+        ColwiseParallel,
+        RowwiseParallel,
+    )
+
+    if isinstance(module, nn.Embedding):
+        if dim != 0:
+            raise ValueError("an embedding splits over tp on its rows only")
+        return RowwiseParallel(input_layouts=Replicate())  # partial sums
+    if dim == 1:
+        return RowwiseParallel()
+    if axis_name == "vocab":
+        return ColwiseParallel(output_layouts=Replicate())
+    return ColwiseParallel()
+
+
+def shard_module(model: nn.Module, mesh, param_annotations: Dict[str, Any],
+                 rules: Rules = PARAM_RULES) -> nn.Module:
+    """Lay `model` out on `mesh` (a `MeshSpec` mesh) in place, following
+    each parameter's logical axes (`param_annotations`, by state-dict
+    name) through `rules`:
+
+    - `tp`: every nn.Linear / nn.Embedding whose weight has a dim on tp
+      goes through `parallelize_module` (colwise for an output dim,
+      rowwise for an input dim).
+    - `fsdp`: FSDP2's `fully_shard` on each child of every ModuleList
+      (the layers) and on the root, over the data axes as HSDP: `dcn_dp`
+      and `dp` replicate (flattened into one dim when both are > 1),
+      `fsdp` shards. `shard_placement_fn` shards each parameter on the
+      dim the rules put on `fsdp`.
+
+    Where FSDP2 cannot follow the rules: it shards every parameter it
+    manages, so a parameter the rules replicate (the norms; dims on
+    `tp` only) is sharded over `fsdp` on its dim 0 all the same. Its
+    values and its updates are unchanged by that; only the layout is.
+
+    The model must be whole on every rank, on the mesh's device type or
+    the CPU, with the same values."""
+    sizes = _check_mesh(mesh)
+    model.to(mesh.device_type)
+    if sizes["tp"] > 1:
+        from torch.distributed.tensor.parallel import parallelize_module
+
+        plan = {}
+        for name, module in model.named_modules():
+            ann = param_annotations.get(f"{name}.weight")
+            if ann is None or not isinstance(module, (nn.Linear, nn.Embedding)):
+                continue
+            dim = tensor_dim_on(ann.logical_axes, rules, "tp")
+            if dim is not None:
+                plan[name] = _tp_style(module, dim, ann.logical_axes[dim])
+        parallelize_module(model, mesh["tp"], plan)
+
+    from torch.distributed.fsdp import fully_shard
+
+    replicate = [a for a in ("dcn_dp", "dp") if sizes[a] > 1]
+    if len(replicate) == 2:
+        flat = mesh["dcn_dp", "dp"]._flatten("dcn_dp_dp")
+        dp_mesh = mesh[flat.mesh_dim_names[0], "fsdp"]
+    elif replicate:
+        dp_mesh = mesh[replicate[0], "fsdp"]
+    else:
+        dp_mesh = mesh["fsdp"]
+    fsdp_dim = {}
+    for name, p in model.named_parameters():
+        ann = param_annotations.get(name)
+        dim = tensor_dim_on(ann.logical_axes, rules, "fsdp") if ann else None
+        fsdp_dim[id(p)] = dim
+
+    def placement(p):
+        dim = fsdp_dim.get(id(p))
+        return Shard(dim) if dim is not None else None  # None: Shard(0)
+
+    for module in model.modules():
+        if isinstance(module, nn.ModuleList):
+            for child in module:
+                fully_shard(child, mesh=dp_mesh, shard_placement_fn=placement)
+    fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
+    return model
+
+
+def _data_sum(x: torch.Tensor, data_shards: int) -> torch.Tensor:
+    """Sum of a scalar over the batch's data shards. On a mesh over the
+    whole process group, the ranks that hold one data shard (its tp
+    ranks) hold copies of the same value: the world's sum over copies."""
+    x = x.clone()
+    dist.all_reduce(x)
+    return x / (dist.get_world_size() // data_shards)
+
+
+def make_train_step(
+    loss_fn: Callable[..., torch.Tensor],
+    optimizer: AdamW,
+    mesh=None,
+    param_annotations: Optional[Dict[str, Any]] = None,
+    *,
+    param_rules: Rules = PARAM_RULES,
+    batch_logical_axes: Tuple[Optional[str], ...] = ("batch", "seq"),
+    act_rules: Rules = ACT_RULES,
+    donate: bool = True,
+    device="cuda",
+):
     """Build (init_fn, step_fn).
 
-    loss_fn(model, tokens, targets) -> scalar loss.
-    init_fn(model) -> TrainState with the model on `device`.
+    loss_fn(model, tokens, targets) -> scalar loss, a mean over the
+    targets >= 0 (as `llama.loss_fn`).
+    init_fn(model) -> TrainState: the model on `device` (mesh=None), or
+    laid out on `mesh` by `shard_module(model, mesh, param_annotations,
+    param_rules)`, and moments placed like their parameters.
     step_fn(state, tokens, targets) -> (state, metrics): one step,
     updating the parameters in place; metrics {"loss", "grad_norm"}
-    stay on the device (grad_norm of the gradients before clipping).
+    stay on the device (grad_norm of the gradients before clipping, over
+    every shard). On a mesh, tokens and targets are `shard_batch`'s
+    DTensors or whole host batches (sharded here). Each data shard
+    computes `loss_fn` on its own rows; weighted by its share of the
+    batch's unmasked targets, the shards' losses and gradients add up to
+    the mean over the whole batch, as the JAX step computes it, however
+    unevenly the targets are masked.
+
+    The update is always in place, as the JAX step donates its state
+    (`donate` is taken for the JAX signature and has no effect).
     """
+    if mesh is not None:
+        _check_mesh(mesh)
+        if param_annotations is None:
+            raise ValueError("a mesh needs param_annotations")
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(f"the mesh spans {mesh.size()} ranks of a "
+                             f"world of {dist.get_world_size()}: a train "
+                             "step needs the whole world")
+        device = torch.device(mesh.device_type)
+        batch_placements = placements_for(mesh, batch_logical_axes, act_rules)
+        data_shards = math.prod(mesh.size(i)
+                                for i, p in enumerate(batch_placements)
+                                if p.is_shard())
     device = torch.device(device)
 
     def init_fn(model: nn.Module) -> TrainState:
-        model = model.to(device)
+        if mesh is None:
+            model = model.to(device)
+        else:
+            shard_module(model, mesh, param_annotations, param_rules)
         params = list(model.parameters())
         return TrainState(step=0, params=model,
                           opt_state=optimizer.init(params))
 
+    def local_batch(x):
+        if mesh is None:
+            return torch.as_tensor(x, device=device)
+        if not isinstance(x, DTensor):
+            x = distribute(torch.as_tensor(x), mesh, batch_placements)
+        return x.to_local()
+
     def step_fn(state: TrainState, tokens, targets):
         model = state.params
-        tokens = torch.as_tensor(tokens, device=device)
-        targets = torch.as_tensor(targets, device=device)
+        tokens, targets = local_batch(tokens), local_batch(targets)
         params = list(model.parameters())
         for p in params:
             p.grad = None
         loss = loss_fn(model, tokens, targets)
-        loss.backward()
+        if mesh is None:
+            loss.backward()
+        else:
+            # FSDP2 averages the gradients over the data shards: weight
+            # each shard by data_shards x its share of the unmasked
+            # targets, so they add up to the whole batch's mean.
+            count = torch.sum(targets >= 0).float()
+            share = count / torch.clamp(_data_sum(count, data_shards), min=1.0)
+            (loss * (share * data_shards)).backward()
+            loss = _data_sum(loss.detach() * share, data_shards)
         grads = [p.grad for p in params]
         gnorm = global_norm(grads)
         optimizer.apply(params, grads, state.opt_state, gnorm)
@@ -153,3 +384,85 @@ def make_train_step(loss_fn: Callable[..., torch.Tensor], optimizer: AdamW,
         return state, {"loss": loss.detach(), "grad_norm": gnorm}
 
     return init_fn, step_fn
+
+
+def shard_batch(batch, mesh, logical_axes=("batch", "seq"),
+                rules: Rules = ACT_RULES):
+    """Host batches (tensors or numpy arrays, in a tree) as DTensors on
+    the mesh's data axes. Every rank passes the same whole batch, as
+    every process passes the same global array to JAX's device_put."""
+    placements = placements_for(mesh, logical_axes, rules)
+    return tree_map(
+        lambda x: distribute(torch.as_tensor(x), mesh, placements), batch)
+
+
+def prefetch_to_device(
+    batches,
+    mesh,
+    *,
+    buffer_size: int = 2,
+    logical_axes: Tuple[Optional[str], ...] = ("batch", "seq"),
+    rules: Rules = ACT_RULES,
+):
+    """Double-buffer host batches onto the mesh: batch N+1's copy is
+    issued before batch N is consumed, so its host-to-device transfer
+    overlaps step N's compute. On a CUDA mesh each leaf is pinned and
+    copied with `non_blocking=True` on a side stream, and the consumer's
+    stream waits for that copy's event when the batch is handed out;
+    on a CPU mesh (where CPU-only torch cannot pin) it is sharded as
+    `shard_batch` does. The dispatch time is billed as `h2d_ms`, the
+    wait for the source as `data_wait_ms`.
+
+    `batches` is any iterator of trees; buffer_size=2 is classic double
+    buffering, 1 degenerates to put-then-yield with no overlap.
+    """
+    if buffer_size < 1:
+        raise ValueError(f"buffer_size must be >= 1, got {buffer_size}")
+    placements = placements_for(mesh, logical_axes, rules)
+    cuda = mesh.device_type == "cuda"
+    stream = torch.cuda.Stream() if cuda else None
+
+    def put_leaf(x):
+        x = torch.as_tensor(x)
+        if not cuda:
+            return distribute(x, mesh, placements)
+        with torch.cuda.stream(stream):
+            x = x.pin_memory().to("cuda", non_blocking=True)
+            return distribute(x, mesh, placements)
+
+    def put(batch):
+        t0 = time.monotonic()
+        out = tree_map(put_leaf, batch)
+        event = None
+        if cuda:
+            event = torch.cuda.Event()
+            event.record(stream)
+        step_telemetry.add_phase("h2d_ms", (time.monotonic() - t0) * 1e3)
+        return out, event
+
+    def hand_out(entry):
+        out, event = entry
+        if event is not None:
+            current = torch.cuda.current_stream()
+            current.wait_event(event)
+            # The copies were made on the side stream: keep their memory
+            # from being reused before the consumer's stream is done.
+            tree_map(lambda x: x.to_local().record_stream(current), out)
+        return out
+
+    window: "deque" = deque()
+    iterator = iter(batches)
+
+    def pull():
+        with step_telemetry.phase_timer("data_wait_ms"):
+            return next(iterator)
+
+    while True:
+        while len(window) < buffer_size:
+            try:
+                window.append(put(pull()))
+            except StopIteration:
+                while window:
+                    yield hand_out(window.popleft())
+                return
+        yield hand_out(window.popleft())

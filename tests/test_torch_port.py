@@ -16,7 +16,13 @@ import torch
 from ray_tpu.models import llama as jax_llama
 from ray_tpu_torch.llm import kv_slots
 from ray_tpu_torch.models import generate, hf_convert, llama
-from ray_tpu_torch.train import make_train_step
+from ray_tpu_torch import graft_entry
+from ray_tpu_torch.parallel import MeshSpec
+from ray_tpu_torch.train import (
+    init_torch_distributed,
+    make_train_step,
+    run_local_gang,
+)
 
 from _torch_port import isolated_module  # noqa: F401 (autouse fixture)
 
@@ -58,6 +64,27 @@ def test_imports_leave_jax_and_ray_tpu_out():
     assert int(proc.stdout.split()[-1]) == n_modules
 
 
+@pytest.mark.parametrize("module", [
+    "ray_tpu_torch.parallel",
+    "ray_tpu_torch.train.trainer",
+    "ray_tpu_torch.train.checkpoint",
+    "ray_tpu_torch.graft_entry",
+])
+def test_sharded_training_modules_leave_jax_out(module):
+    """Each alone, in a fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'ray_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=100)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_source_has_no_jax_or_ray_tpu_import(path):
@@ -78,7 +105,9 @@ def test_entry_points_default_to_the_card():
     assert inspect.signature(llama.init_params).parameters["device"].default == "cuda"
     assert inspect.signature(make_train_step).parameters["device"].default == "cuda"
     for entry in (generate.init_kv_cache, generate.init_block_pool,
-                  hf_convert.load_hf_llama, kv_slots.PagedKVCache):
+                  hf_convert.load_hf_llama, kv_slots.PagedKVCache,
+                  MeshSpec.build, graft_entry.entry, init_torch_distributed,
+                  run_local_gang):
         assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
@@ -159,7 +188,7 @@ def test_chip_smoke_loads_another_checkout_beside_this_one(tmp_path):
         grads = []
         for tree in (other_attn, attn):
             leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-            out = tree.FlashAttentionFunction.apply(*leaves, 0.125, True, 64, 64)
+            out = tree.flash_attention_bhsd(*leaves, 0.125, True, 64, 64)
             grads.append((out,) + torch.autograd.grad(out, leaves, do))
         for a, b in zip(*grads):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
