@@ -49,7 +49,8 @@ Phases, none of whose failures is caught:
       by the port's backend, `MeshSpec(fsdp=1).build("cuda")`, and
       `make_train_step(loss, optimizer, mesh, param_annotations(cfg))`
       with `shard_batch` under "dots_flash" on the same weights and
-      batch, 4 steps: the parameters must be DTensors on the CUDA mesh,
+      batch, 4 steps: the weights must be DTensors on the CUDA mesh (the
+      norms, which the rules replicate, whole tensors on the card),
       the backend nccl, and the losses (f1)'s "dots_flash" ones to
       MESH_LOSS_REL; `prefetch_to_device` puts 3 host batches on the
       mesh through pinned memory and a side stream, unchanged. (f3) a `TorchTrainer` fit (`num_workers=1`) at the
@@ -58,6 +59,21 @@ Phases, none of whose failures is caught:
       after the fit, and the newest restores bit for bit; three more
       saves, each after the last one's write, time the snapshot with
       the writer idle.
+  (g) after (f) has freed its memory, on a NCCL world of one rank made
+      by the port's backend and `pipeline_mesh(1, 1, 1)`: (g1)
+      `make_pp_train_step` (2 microbatches) on (f1)'s model, weights and
+      batch under remat "full", 4 steps: the loss must be finite and
+      fall, step 1's must lie within MESH_LOSS_REL of (f1)'s "full"
+      step 1, and the counters must show 2 forward launches and one
+      backward op per layer per microbatch per step. (g2) the same step
+      on `llama2_7b(n_layers=2, moe_experts=8, moe_top_k=2)` (JAX's
+      dense path: every token through all 8 experts), random weights
+      from a seeded generator, 3 steps: the loss must be finite and
+      fall (its MFU counts the active experts only, so it reads low by
+      design). (g3) `moe_ffn_ep` over the mesh's ep group of one against
+      `moe_ffn_dense` at 8192 tokens x 4096, 8 experts of 4096 x 11008,
+      top-2, bf16, capacity factor E/k (nothing drops): outputs held at
+      REL_TOL, aux within AUX_TOL.
   (e) serving, after (c) has freed its model and optimizer: (e1) at a
       small width in f32 (vocab 512, dim 256, 2 layers, 4 heads on 2 KV
       heads), 6 greedy requests through the engine (slots 4, max_len
@@ -92,14 +108,30 @@ tokens/s and step ms at a full batch beside its bound, prefill
 tokens/s, prefix hits and tokens saved, pool bytes, peak memory of
 phase (e)), then `{"train_sharded": {...}}` (the card; step ms,
 tokens/s, MFU, peak memory, losses and launches of each (f1) policy
-and of (f2); (f3)'s checkpoints and `ckpt_block_ms`), and as the last
-line `{"ok": true, "device": {...}}`. Exits non-zero with no result
-line when there is no CUDA card or the port is not beside it.
+and of (f2); (f3)'s checkpoints and `ckpt_block_ms`), then
+`{"train_pp": {...}}` (step ms, tokens/s, MFU, peak memory, losses and
+launches per step of (g1) and (g2); (g3)'s errors and times), and as
+the last line `{"ok": true, "device": {...}}`. Exits non-zero with no
+result line when there is no CUDA card or the port is not beside it.
+
+`--cards 4` (never part of the plain run) builds the kernels and runs
+only the four-card phase, in a NCCL gang of 4 local processes, one card
+each, on the Llama-2-7B width at `--layers` and a batch of 4 x 4096,
+each run against the same weights and batch on one card (a gang of one
+run first; every mesh spans its gang's whole group):
+`make_pp_train_step` at pp 2 x sp 2 with ring attention, and at pp 2 x
+ep 2 with 8 experts; `make_train_step` under "dots_flash" over
+`MeshSpec(fsdp=4)` and `MeshSpec(fsdp=2, tp=2)`. Each run's loss must
+fall and its step 1 lie within CARDS4_LOSS_REL of one card's; it prints
+`{"four_cards": {...}}` (step ms, tokens/s, peak per card). It fails on
+a machine with fewer than 4 cards.
 
 `--profile` traces one more step with torch.profiler after the slice
 and prints `{"profile": ...}`: device time by kernel, and idle share.
-It traces one more step of each (f1) policy and of (f2) too, into
-their records in `{"train_sharded": ...}`.
+It traces one more step of each (f1) policy, of (f2), (g1) and (g2)
+too, into their records, and records the allocator's history over
+each one's timed steps (which then run slower) for the allocations
+alive at their peak, by the line of the port that made them.
 It also traces one paged decode step at the full batch and one prefill
 chunk of the serving model, into the `{"serve": ...}` record's
 "profile".
@@ -121,6 +153,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gc
 import importlib.util
 import json
 import math
@@ -181,6 +214,25 @@ REMAT_GNORM_REL = 5e-5
 MESH_LOSS_REL = 1e-3
 SERVE_LAYERS = 32
 BATCH, SEQ = 2, 4096
+#: Phase (g): microbatches of the pipeline step, and the MoE model's
+#: steps, depth and experts.
+PP_MICROBATCHES = 2
+PP_MOE_STEPS = 3
+PP_MOE_LAYERS, PP_MOE_EXPERTS, PP_MOE_TOP_K = 2, 8, 2
+#: (g3) `moe_ffn_ep` over an ep group of one against `moe_ffn_dense`: the
+#: same products in another order; its aux loss reads the same routing.
+MOE_TOKENS = 8192
+AUX_TOL = 1e-3
+#: `--cards 4`: the four-card runs' step-1 losses against one card's on
+#: the same weights and batch. Ring attention is plain f32 products where
+#: one card runs the bf16 flash kernels, expert parallelism sums the
+#: experts' products in another order and averages the aux loss over
+#: each rank's own tokens, and bf16 GEMMs of other shapes round
+#: otherwise: each moves a bf16 loss by about 1e-4 relative; a wrong
+#: shard or a missing gradient sum moves it by far more than 1e-2.
+CARDS4_LOSS_REL = 1e-2
+#: `--cards 4`: rows of the batch (ep 2 x 2 microbatches).
+CARDS4_BATCH = 4
 
 
 def cuda_ms(torch, fn, reps):
@@ -676,16 +728,21 @@ def remat_runs(torch, llama, attn, cfg, init_state, batch, dev,
 
 
 def train_steps(torch, llama, attn, cfg, state, step_fn, tokens, targets,
-                profile=False):
-    """`REMAT_STEPS` steps, timed by the host clock around a synchronise,
-    with the launch counters zeroed just before them and read just
-    after, and the peak memory of the steps; with `profile`, one more
-    step traced by `profile_step`."""
+                profile=False, steps=REMAT_STEPS):
+    """`steps` steps, timed by the host clock around a synchronise, with
+    the launch counters zeroed just before them and read just after,
+    and the peak memory of the steps; with `profile`, the allocations
+    alive at the steps' peak (from the allocator's history, recorded
+    beside the timed steps) and one more step traced by
+    `profile_step`."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, step_s = [], [], []
+    if profile:
+        torch.cuda.memory._record_memory_history(max_entries=2_000_000,
+                                                 stacks="python")
     attn.reset_launch_counts()
-    for _ in range(REMAT_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = step_fn(state, tokens, targets)
         torch.cuda.synchronize()
@@ -699,6 +756,11 @@ def train_steps(torch, llama, attn, cfg, state, step_fn, tokens, targets,
     tokens_per_s = n_tokens / steady
     traced = {}
     if profile:
+        trace = torch.cuda.memory._snapshot()["device_traces"][
+            torch.cuda.current_device()]
+        torch.cuda.memory._record_memory_history(enabled=None)
+        traced["alive_at_peak"] = peak_allocations(trace)[1]
+        del trace
         traced["profile"] = profile_step(
             torch, lambda: step_fn(state, tokens, targets))
     return {**traced,
@@ -745,8 +807,13 @@ def mesh_run(torch, llama, attn, cfg, init_state, batch, dev, profile=False):
             mesh, llama.param_annotations(cfg))
         state = init_fn(model)
         params = list(model.parameters())
-        on_mesh = all(isinstance(p, DTensor) and p.device_mesh.device_type
-                      == "cuda" and p.to_local().is_cuda for p in params)
+        # Every weight a DTensor on the CUDA mesh; the norms, which the
+        # rules replicate, whole on the card.
+        on_mesh = all(
+            (isinstance(p, DTensor) and p.device_mesh.device_type == "cuda"
+             and p.to_local().is_cuda) if not name.endswith("norm")
+            else (not isinstance(p, DTensor) and p.is_cuda)
+            for name, p in model.named_parameters())
         record = train_steps(torch, llama, attn, cfg, state, step_fn,
                              shard_batch(batch[:, :-1], mesh),
                              shard_batch(batch[:, 1:], mesh), profile)
@@ -756,10 +823,13 @@ def mesh_run(torch, llama, attn, cfg, init_state, batch, dev, profile=False):
                                           logical_axes=("batch", None)))
         prefetched = all(isinstance(b, DTensor) and torch.equal(
             b.to_local().cpu(), h) for b, h in zip(fetched, host))
-        record.update({"backend": backend, "params_are_dtensors": on_mesh,
+        record.update({"backend": backend, "params_laid_out": on_mesh,
                        "prefetch_equal": prefetched and len(fetched) == 3,
                        "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))})
         del model, state, step_fn, init_fn, params
+        # FSDP2 ties its module into reference cycles: free it now, not
+        # whenever the collector runs (it lived into phase (g) before).
+        gc.collect()
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -887,17 +957,24 @@ def flat(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-def train_sharded_phase(torch, llama, attn, card, n_layers, dev,
-                        profile=False):
-    """Phase (f), after (c) has freed its memory (see the module's doc).
-    Returns the `{"train_sharded": ...}` record."""
-    cfg = llama.LlamaConfig.llama2_7b(n_layers=n_layers, max_seq_len=SEQ)
+def flagship_inputs(torch, llama, cfg, dev):
+    """The weights (a state dict) and batch [BATCH, SEQ + 1] of phases
+    (f) and (g1), from one seed."""
     g = torch.Generator(device=dev).manual_seed(2)
     init_state = {k: v.clone() for k, v in
                   llama.init_params(cfg, g, device=dev).state_dict().items()}
     batch = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), generator=g,
                           device=dev)
     torch.cuda.empty_cache()
+    return init_state, batch
+
+
+def train_sharded_phase(torch, llama, attn, card, n_layers, dev,
+                        profile=False):
+    """Phase (f), after (c) has freed its memory (see the module's doc).
+    Returns the `{"train_sharded": ...}` record."""
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=n_layers, max_seq_len=SEQ)
+    init_state, batch = flagship_inputs(torch, llama, cfg, dev)
     runs = remat_runs(torch, llama, attn, cfg, init_state, batch, dev,
                       profile)
     full = runs["full"]
@@ -943,10 +1020,11 @@ def train_sharded_phase(torch, llama, attn, card, n_layers, dev,
           f"{[round(x, 5) for x in mesh['losses']]} (relative to (f1) "
           f"dots_flash: {[f'{d:.2e}' for d in diffs]}), step "
           f"{mesh['steady_step_ms']:.2f} ms against {ref['steady_step_ms']:.2f}"
-          f" ms, params DTensors on CUDA: {mesh['params_are_dtensors']}, "
+          f" ms, weights DTensors and norms whole on CUDA: "
+          f"{mesh['params_laid_out']}, "
           f"prefetched batches equal: {mesh['prefetch_equal']}, "
           f"launches {mesh['launches']}")
-    assert mesh["backend"] == "nccl" and mesh["params_are_dtensors"], mesh
+    assert mesh["backend"] == "nccl" and mesh["params_laid_out"], mesh
     assert mesh["prefetch_equal"], mesh
     assert all(d <= MESH_LOSS_REL for d in diffs), diffs
     assert mesh["launches"]["flash_fwd"] == REMAT_STEPS * n_layers, mesh
@@ -967,6 +1045,284 @@ def train_sharded_phase(torch, llama, attn, card, n_layers, dev,
                "f1_dots_flash_step_ms": ref["steady_step_ms"]},
         "f3": trainer,
     }
+
+
+def pp_run(torch, llama, attn, cfg, owned, mesh, batch, steps, profile):
+    """`make_pp_train_step` on `mesh` from the weights of the model in
+    `owned` (a list of one, emptied here: the whole model is freed once
+    the stage holds its copy), `steps` steps on one batch."""
+    from ray_tpu_torch.train import default_optimizer, make_pp_train_step
+
+    init_fn, step_fn = make_pp_train_step(
+        cfg, mesh, default_optimizer(learning_rate=3e-4, total_steps=20),
+        num_microbatches=PP_MICROBATCHES)
+    state = init_fn(owned.pop())
+    torch.cuda.empty_cache()
+    record = train_steps(torch, llama, attn, cfg, state, step_fn,
+                         batch[:, :-1], batch[:, 1:], profile, steps)
+    del state, step_fn, init_fn
+    torch.cuda.empty_cache()
+    return record
+
+
+def moe_check(torch, llama, group, dev):
+    """(g3): `moe_ffn_ep` over an ep group of one against `moe_ffn_dense`
+    at the MoE model's width, with a capacity at which nothing drops."""
+    from ray_tpu_torch.ops.moe import init_moe_params, moe_ffn_dense, moe_ffn_ep
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    width = llama.LlamaConfig.llama2_7b()
+    cfg_dim, ff = width.dim, width.intermediate
+    params = init_moe_params(PP_MOE_EXPERTS, cfg_dim, ff, g,
+                             dtype=torch.bfloat16, device=dev)
+    x = torch.randn(MOE_TOKENS, cfg_dim, generator=g, device=dev).to(
+        torch.bfloat16)
+    capacity_factor = PP_MOE_EXPERTS / PP_MOE_TOP_K
+    with torch.no_grad():
+        out_ep, aux_ep = moe_ffn_ep(params, x, group, k=PP_MOE_TOP_K,
+                                    capacity_factor=capacity_factor)
+        out_dense, aux_dense = moe_ffn_dense(params, x, k=PP_MOE_TOP_K)
+        ep_ms = cuda_ms(torch, lambda: moe_ffn_ep(
+            params, x, group, k=PP_MOE_TOP_K,
+            capacity_factor=capacity_factor), 3)
+        dense_ms = cuda_ms(torch, lambda: moe_ffn_dense(
+            params, x, k=PP_MOE_TOP_K), 3)
+    print(f"(g3) moe_ffn_ep (ep group of one, capacity factor "
+          f"{capacity_factor}) against moe_ffn_dense, {MOE_TOKENS} tokens x "
+          f"{cfg_dim}, {PP_MOE_EXPERTS} experts of {cfg_dim} x {ff}, top-"
+          f"{PP_MOE_TOP_K}, bf16:")
+    ok, err = held("out", out_ep, out_dense)
+    aux_err = abs(aux_ep.item() - aux_dense.item())
+    print(f"  aux {aux_ep.item():.6f} against {aux_dense.item():.6f} (bar "
+          f"{AUX_TOL}); moe_ffn_ep {ep_ms:.2f} ms, moe_ffn_dense "
+          f"{dense_ms:.2f} ms")
+    assert ok and aux_err <= AUX_TOL, (err, aux_err)
+    del params, x, out_ep, out_dense
+    torch.cuda.empty_cache()
+    return {"tokens": MOE_TOKENS, "dim": cfg_dim, "ffn": ff,
+            "experts": PP_MOE_EXPERTS, "top_k": PP_MOE_TOP_K,
+            "capacity_factor": capacity_factor, "out_max_abs_err": err,
+            "aux_ep": aux_ep.item(), "aux_dense": aux_dense.item(),
+            "moe_ffn_ep_ms": ep_ms, "moe_ffn_dense_ms": dense_ms}
+
+
+def pp_phase(torch, llama, attn, card, n_layers, dev, f1_full_loss,
+             profile=False, f1_full_peak=None):
+    """Phase (g), after (f) has freed its memory (see the module's doc).
+    Returns the `{"train_pp": ...}` record."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import pipeline_mesh
+    from ray_tpu_torch.train import init_torch_distributed
+    from ray_tpu_torch.train.backend import free_port
+
+    init_torch_distributed(0, 1, f"localhost:{free_port()}", device=dev)
+    try:
+        backend = dist.get_backend()
+        mesh = pipeline_mesh(1, 1, 1, dev)
+        # (g1) the flagship's width and depth, (f1)'s weights and batch.
+        cfg = llama.LlamaConfig.llama2_7b(n_layers=n_layers, max_seq_len=SEQ)
+        init_state, batch = flagship_inputs(torch, llama, cfg, dev)
+        model = llama.Llama(cfg, device=dev)
+        model.load_state_dict(init_state)
+        del init_state
+        owned = [model]
+        del model
+        g1 = pp_run(torch, llama, attn, cfg, owned, mesh, batch, REMAT_STEPS,
+                    profile)
+        g1["loss_rel_to_f1_full"] = rel(g1["losses"][0], f1_full_loss)
+        per_step = {n: c / REMAT_STEPS for n, c in g1["launches"].items()}
+        print(f"(g1) make_pp_train_step, (pp, sp, ep) = (1, 1, 1) on "
+              f"{backend}, {PP_MICROBATCHES} microbatches: losses "
+              f"{[round(x, 5) for x in g1['losses']]} (step 1 relative to "
+              f"(f1) full: {g1['loss_rel_to_f1_full']:.2e}), grad norms "
+              f"{[round(x, 5) for x in g1['grad_norms']]}, step "
+              f"{g1['steady_step_ms']:.2f} ms, {g1['tokens_per_s']:.0f} "
+              f"tokens/s, MFU {g1['mfu']:.4f}, peak "
+              f"{g1['max_memory_allocated']} B, launches per step {per_step}")
+        if profile:
+            prof = g1["profile"]
+            print(f"(g1) traced step: device busy {prof['device_busy_ms']:.2f}"
+                  f" ms of {prof['wall_ms']:.2f}, by group {prof['groups_ms']}")
+            print(f"(g1) alive at the peak, by site: {g1['alive_at_peak']}")
+            print(f"(f1) full, alive at the peak, by site: {f1_full_peak}")
+        losses = g1["losses"]
+        assert backend == "nccl", backend
+        assert all(math.isfinite(x) for x in losses + g1["grad_norms"])
+        assert losses[-1] < losses[0], losses
+        assert g1["loss_rel_to_f1_full"] <= MESH_LOSS_REL, g1
+        # Full remat: each layer's forward runs once, and again in the
+        # backward's recompute, for each microbatch.
+        fwd = REMAT_STEPS * n_layers * 2 * PP_MICROBATCHES
+        assert g1["launches"]["flash_fwd"] == fwd, g1["launches"]
+        for name in BWD_LAUNCHES:
+            assert g1["launches"][name] == fwd // 2, g1["launches"]
+
+        # (g2) MoE at the same width: every token through all experts.
+        moe_cfg = llama.LlamaConfig.llama2_7b(
+            n_layers=PP_MOE_LAYERS, moe_experts=PP_MOE_EXPERTS,
+            moe_top_k=PP_MOE_TOP_K, max_seq_len=SEQ)
+        owned = [llama.init_params(
+            moe_cfg, torch.Generator(device=dev).manual_seed(4), device=dev)]
+        g2 = pp_run(torch, llama, attn, moe_cfg, owned, mesh, batch,
+                    PP_MOE_STEPS, profile)
+        del batch
+        g2["params"] = moe_cfg.num_params()
+        print(f"(g2) make_pp_train_step, MoE {PP_MOE_EXPERTS} experts top-"
+              f"{PP_MOE_TOP_K}, {PP_MOE_LAYERS} layers ({g2['params']} "
+              f"parameters): losses {[round(x, 5) for x in g2['losses']]}, "
+              f"grad norms {[round(x, 5) for x in g2['grad_norms']]}, step "
+              f"{g2['steady_step_ms']:.2f} ms, {g2['tokens_per_s']:.0f} "
+              f"tokens/s, MFU {g2['mfu']:.4f} (active experts only: every "
+              f"token runs all {PP_MOE_EXPERTS}, so it reads low by design), "
+              f"peak {g2['max_memory_allocated']} B, launches "
+              f"{g2['launches']}")
+        assert all(math.isfinite(x) for x in g2["losses"] + g2["grad_norms"])
+        assert g2["losses"][-1] < g2["losses"][0], g2["losses"]
+        fwd = PP_MOE_STEPS * PP_MOE_LAYERS * 2 * PP_MICROBATCHES
+        assert g2["launches"]["flash_fwd"] == fwd, g2["launches"]
+
+        g3 = moe_check(torch, llama, mesh.get_group("ep"), dev)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {
+        "card": card, "backend": backend, "mesh": {"pp": 1, "sp": 1, "ep": 1},
+        "microbatches": PP_MICROBATCHES, "batch": BATCH, "seq": SEQ,
+        "g1": {"config": f"llama2_7b width, {n_layers} layers, bf16, flash, "
+                         "remat full", "steps": REMAT_STEPS, **g1,
+               "launches_per_step": {n: c / REMAT_STEPS
+                                     for n, c in g1["launches"].items()}},
+        "g2": {"config": f"llama2_7b width, {PP_MOE_LAYERS} layers, MoE "
+                         f"{PP_MOE_EXPERTS} experts top-{PP_MOE_TOP_K}, bf16,"
+                         " flash, remat full", "steps": PP_MOE_STEPS, **g2,
+               "mfu_counts": "active experts only (flops_per_token)",
+               "launches_per_step": {n: c / PP_MOE_STEPS
+                                     for n, c in g2["launches"].items()}},
+        "g3": g3,
+    }
+
+
+def cards_rank(rank, n_layers, world):
+    """One rank of `--cards 4`'s gangs (NCCL, one card a rank): with
+    world 1 the references on one card, with world 4 the four-card runs,
+    on the Llama-2-7B width at `n_layers`, from the same weights and
+    batch: `make_pp_train_step` dense (pp 2 x sp 2 with ring attention on
+    four cards) and MoE with 8 experts at capacity factor E/k, so that
+    nothing drops (pp 2 x ep 2); `make_train_step` under "dots_flash"
+    (over `MeshSpec(fsdp=4)` and `MeshSpec(fsdp=2, tp=2)`). Every mesh
+    spans the gang's whole world. Returns {run: record}."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.parallel import MeshSpec, pipeline_mesh
+    from ray_tpu_torch.train import (
+        default_optimizer,
+        make_train_step,
+        shard_batch,
+    )
+
+    dev = torch.device("cuda")
+    out = {}
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=n_layers, max_seq_len=SEQ)
+    init_state, _ = flagship_inputs(torch, llama, cfg, dev)
+    batch = torch.randint(0, cfg.vocab_size, (CARDS4_BATCH, SEQ + 1),
+                          generator=torch.Generator(device=dev).manual_seed(6),
+                          device=dev)
+
+    def whole(c, state):
+        model = llama.Llama(c, device=dev)
+        model.load_state_dict(state)
+        return model
+
+    def done(name):
+        print(f"--cards 4, rank {rank} of {world}: {name} "
+              f"{out[name]['steady_step_ms']:.2f} ms", flush=True)
+
+    ring = dataclasses.replace(cfg, attention="ring")
+    dense, dense_cfg, mesh = (
+        ("dense_one_card", cfg, pipeline_mesh(1, 1, 1, "cuda")) if world == 1
+        else ("dense_pp2_sp2_ring", ring, pipeline_mesh(2, 2, 1, "cuda")))
+    out[dense] = pp_run(torch, llama, attn, dense_cfg,
+                        [whole(dense_cfg, init_state)], mesh, batch,
+                        REMAT_STEPS, False)
+    done(dense)
+
+    moe_cfg = llama.LlamaConfig.llama2_7b(
+        n_layers=n_layers, moe_experts=PP_MOE_EXPERTS, moe_top_k=PP_MOE_TOP_K,
+        moe_capacity_factor=PP_MOE_EXPERTS / PP_MOE_TOP_K, max_seq_len=SEQ)
+    moe, mesh = (("moe_one_card", pipeline_mesh(1, 1, 1, "cuda"))
+                 if world == 1 else
+                 ("moe_pp2_ep2", pipeline_mesh(2, 1, 2, "cuda")))
+    out[moe] = pp_run(torch, llama, attn, moe_cfg, [llama.init_params(
+        moe_cfg, torch.Generator(device=dev).manual_seed(4), device=dev)],
+        mesh, batch, PP_MOE_STEPS, False)
+    done(moe)
+
+    flash = dataclasses.replace(cfg, remat_policy="dots_flash")
+    optimizer = default_optimizer(learning_rate=3e-4, total_steps=20)
+    if world == 1:
+        init_fn, step_fn = make_train_step(llama.loss_fn, optimizer,
+                                           device=dev)
+        out["mesh_one_card"] = train_steps(
+            torch, llama, attn, flash, init_fn(whole(flash, init_state)),
+            step_fn, batch[:, :-1], batch[:, 1:])
+        done("mesh_one_card")
+        return out
+    for name, spec in (("fsdp4", MeshSpec(fsdp=4)),
+                       ("fsdp2_tp2", MeshSpec(fsdp=2, tp=2))):
+        mesh = spec.build("cuda")
+        init_fn, step_fn = make_train_step(
+            llama.loss_fn, optimizer, mesh, llama.param_annotations(flash))
+        state = init_fn(whole(flash, init_state))
+        out[name] = train_steps(torch, llama, attn, flash, state, step_fn,
+                                shard_batch(batch[:, :-1], mesh),
+                                shard_batch(batch[:, 1:], mesh))
+        done(name)
+        del state, init_fn, step_fn
+        torch.cuda.empty_cache()
+    return out
+
+
+def four_card_phase(torch, card, n_layers):
+    """`--cards 4`: `cards_rank` in a gang of one (the references on card
+    0), then in a gang of 4. Returns the `{"four_cards": ...}` record."""
+    from ray_tpu_torch.train import run_local_gang
+
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError(f"--cards 4 needs 4 cards, this machine has "
+                           f"{torch.cuda.device_count()}")
+    one = run_local_gang(cards_rank, 1, (n_layers, 1), device="cuda",
+                         timeout=240)[0]
+    ranks = run_local_gang(cards_rank, 4, (n_layers, 4), device="cuda",
+                           timeout=300)
+    runs = {**one, **ranks[0]}
+    for ref, names in (("dense_one_card", ("dense_pp2_sp2_ring",)),
+                       ("moe_one_card", ("moe_pp2_ep2",)),
+                       ("mesh_one_card", ("fsdp4", "fsdp2_tp2"))):
+        base = runs[ref]
+        for name in names:
+            r = runs[name]
+            r["loss_rel_to_one_card"] = [rel(a, b) for a, b in
+                                         zip(r["losses"], base["losses"])]
+            print(f"--cards 4, {name}: losses "
+                  f"{[round(x, 5) for x in r['losses']]} (one card: "
+                  f"{[round(x, 5) for x in base['losses']]}; step 1 relative "
+                  f"{r['loss_rel_to_one_card'][0]:.2e}), step "
+                  f"{r['steady_step_ms']:.2f} ms against "
+                  f"{base['steady_step_ms']:.2f} ms on one card, "
+                  f"{r['tokens_per_s']:.0f} tokens/s, peak per card "
+                  f"{[rk[name]['max_memory_allocated'] for rk in ranks]} B")
+            assert all(math.isfinite(x) for x in r["losses"])
+            assert r["losses"][-1] < r["losses"][0], (name, r["losses"])
+            assert r["loss_rel_to_one_card"][0] <= CARDS4_LOSS_REL, (name, r)
+    return {"card": card, "cards": 4, "batch": CARDS4_BATCH, "seq": SEQ,
+            "layers": n_layers, "runs": runs,
+            "peak_per_card": {name: [rk[name]["max_memory_allocated"]
+                                     for rk in ranks] for name in runs
+                              if all(name in rk for rk in ranks)},
+            "bars": {"loss_rel_to_one_card": CARDS4_LOSS_REL}}
 
 
 def profile_serving(torch, gen, model, cfg, ec, live, dev):
@@ -1058,6 +1414,11 @@ def main() -> int:
         "--serve-layers", type=int, default=SERVE_LAYERS,
         help=f"depth of the serving phase's Llama-2-7B (default "
              f"{SERVE_LAYERS}, the full model)")
+    parser.add_argument(
+        "--cards", type=int, choices=(1, 4), default=1,
+        help="4: build the kernels, then run only the four-card phase "
+             "(pipeline, ring, expert and mesh steps on four cards against "
+             "one); it fails on a machine with fewer cards")
     args = parser.parse_args()
     n_layers = args.layers
 
@@ -1085,6 +1446,17 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(reports) or 'cached'})")
     print_ptxas(reports)
+
+    if args.cards == 4:
+        print(json.dumps({"four_cards": four_card_phase(torch, card,
+                                                        n_layers)}))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
@@ -1321,6 +1693,12 @@ def main() -> int:
                                   args.profile)
     by_policy = sharded["f1"]["launches"]
 
+    # ---- (g) the pipeline step, MoE, and expert parallelism -----------
+    f1_full = sharded["f1"]["policies"]["full"]
+    pp = pp_phase(torch, llama, attn, card, n_layers, dev,
+                  f1_full["losses"][0], args.profile,
+                  f1_full.get("alive_at_peak"))
+
     # ---- (e) serving ---------------------------------------------------
     serve = serve_phase(torch, llama, attn, card, args.serve_layers, dev,
                         args.profile)
@@ -1341,6 +1719,9 @@ def main() -> int:
             "launches_by_policy": {p: n["flash_fwd"]
                                    for p, n in by_policy.items()},
             "launches_mesh_step": sharded["f2"]["launches"]["flash_fwd"],
+            "launches_per_step_pp": {
+                g: pp[g]["launches_per_step"]["flash_fwd"]
+                for g in ("g1", "g2")},
             "bound_share": fwd_bound / fwd_ms,
             "vs_library": fwd_ms / sdpa_fwd_ms,
             "shape": [bh, t, d], "causal": True,
@@ -1365,6 +1746,9 @@ def main() -> int:
             "launches_by_policy": {p: n["flash_bwd"]
                                    for p, n in by_policy.items()},
             "launches_mesh_step": sharded["f2"]["launches"]["flash_bwd"],
+            "launches_per_step_pp": {
+                g: pp[g]["launches_per_step"]["flash_bwd"]
+                for g in ("g1", "g2")},
             "bound_share": bwd_bound / bwd_ms,
             "vs_library": bwd_ms / sdpa_bwd_ms,
             "shape": [bh, t, d], "causal": True,
@@ -1385,6 +1769,7 @@ def main() -> int:
     }}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"train_sharded": sharded}))
+    print(json.dumps({"train_pp": pp}))
     if args.against:
         print(json.dumps({"against": against(
             torch, attn, args.against, randn, n_layers)}))

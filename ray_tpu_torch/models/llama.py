@@ -14,6 +14,13 @@ parameter's logical axes for the sharded train step.
 The head split reads the head count off the projection's output, so a
 layer whose projections are tensor-parallel shards (heads / tp of them)
 runs unchanged.
+
+A MoE layer (`moe_experts` > 0) keeps the JAX package's expert weights
+as they are (router [dim, E], w_in [E, dim, f], w_out [E, f, dim]) in
+place of w1/w3/w2, and runs `moe_ffn_ep` over an `ep` process group
+when one is given, else `moe_ffn_dense`. Attention "ring" runs
+`ring_attention` over an `sp` process group when one is given, else the
+reference attention, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -34,7 +42,9 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.attention import FLASH_FWD, flash_attention, mha_reference, repeat_kv
+from ..ops.moe import moe_ffn_dense, moe_ffn_ep
 from ..ops.norms import apply_rotary, rms_norm, rotary_embedding, swiglu
+from ..ops.ring_attention import ring_attention
 from ..parallel.sharding import Annotated, annotate
 
 
@@ -49,14 +59,15 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     max_seq_len: int = 4096
     dtype: Any = torch.bfloat16
-    attention: str = "flash"  # flash | reference | ring (not ported yet)
+    attention: str = "flash"  # flash | reference | ring
     remat: bool = True
     #: "full" recomputes the whole layer in backward; "dots" saves the
     #: matrix products without batch dims (JAX's
     #: dots_with_no_batch_dims_saveable); "dots_flash" also saves the
     #: flash forward's out and lse, so the kernel runs once per step.
     remat_policy: str = "full"
-    #: >0 turns every FFN into a routed MoE (not ported yet).
+    #: >0 turns every FFN into a top-k-routed MoE with this many
+    #: experts (0 = dense SwiGLU).
     moe_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 2.0
@@ -146,16 +157,8 @@ class LlamaConfig:
         )
 
 
-def _check_ported(cfg: LlamaConfig) -> None:
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "moe_experts > 0: MoE is not ported yet (ROADMAP queue 1, "
-            "parallelism slice)")
-    if cfg.attention == "ring":
-        raise NotImplementedError(
-            "attention='ring': ring/Ulysses attention is not ported yet "
-            "(ROADMAP queue 1, parallelism slice)")
-    if cfg.attention not in ("flash", "reference"):
+def _check_config(cfg: LlamaConfig) -> None:
+    if cfg.attention not in ("flash", "reference", "ring"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
@@ -236,26 +239,42 @@ def project_qkv(cfg: LlamaConfig, h, layer: "LlamaLayer"):
     return q, k, v
 
 
-def _attention(cfg: LlamaConfig, q, k, v):
+def _attention(cfg: LlamaConfig, q, k, v, sp_group=None):
     k = repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
     v = repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
+    if cfg.attention == "ring" and sp_group is not None:
+        return ring_attention(q, k, v, sp_group, causal=True)
     if cfg.attention == "flash":
         return flash_attention(q, k, v, causal=True)
     return mha_reference(q, k, v, causal=True)
 
 
-def _layer(cfg: LlamaConfig, x, layer: "LlamaLayer", cos, sin):
-    """One decoder block. x: [batch, seq, dim]."""
+def _layer(cfg: LlamaConfig, x, layer: "LlamaLayer", cos, sin,
+           sp_group=None, ep_group=None, batch_groups=()):
+    """One decoder block. x: [batch, seq, dim]. Returns (x, aux), aux
+    being the MoE load-balancing loss (0 for dense layers)."""
     b, t, _ = x.shape
     h = model_norm(cfg, x, layer.attn_norm)
     q, k, v = project_qkv(cfg, h, layer)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
-    attn = _attention(cfg, q, k, v)
+    attn = _attention(cfg, q, k, v, sp_group)
     attn = attn.transpose(1, 2).reshape(b, t, -1)
     x = x + layer.wo(attn)
     h = model_norm(cfg, x, layer.mlp_norm)
-    return x + layer.w2(model_glu(cfg, layer.w1(h), layer.w3(h)))
+    if not cfg.moe_experts:
+        x = x + layer.w2(model_glu(cfg, layer.w1(h), layer.w3(h)))
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    moe_params = {"router": layer.router, "w_in": layer.w_in,
+                  "w_out": layer.w_out}
+    flat = h.reshape(b * t, -1)
+    if ep_group is not None:
+        out, aux = moe_ffn_ep(moe_params, flat, ep_group, k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor)
+    else:
+        out, aux = moe_ffn_dense(moe_params, flat, k=cfg.moe_top_k,
+                                 batch_groups=batch_groups)
+    return x + out.reshape(b, t, -1), aux
 
 
 class LlamaLayer(nn.Module):
@@ -273,31 +292,47 @@ class LlamaLayer(nn.Module):
         if cfg.qk_norm:
             self.q_norm = nn.Parameter(torch.ones(hd, **kw))
             self.k_norm = nn.Parameter(torch.ones(hd, **kw))
-        self.w1 = nn.Linear(cfg.dim, cfg.intermediate, bias=False, **kw)
-        self.w3 = nn.Linear(cfg.dim, cfg.intermediate, bias=False, **kw)
-        self.w2 = nn.Linear(cfg.intermediate, cfg.dim, bias=False, **kw)
+        if cfg.moe_experts:
+            e, f = cfg.moe_experts, cfg.intermediate
+            self.router = nn.Parameter(torch.empty(cfg.dim, e, **kw))
+            self.w_in = nn.Parameter(torch.empty(e, cfg.dim, f, **kw))
+            self.w_out = nn.Parameter(torch.empty(e, f, cfg.dim, **kw))
+        else:
+            self.w1 = nn.Linear(cfg.dim, cfg.intermediate, bias=False, **kw)
+            self.w3 = nn.Linear(cfg.dim, cfg.intermediate, bias=False, **kw)
+            self.w2 = nn.Linear(cfg.intermediate, cfg.dim, bias=False, **kw)
 
-    def forward(self, x, cos, sin):
+    def forward(self, x, cos, sin, sp_group=None, ep_group=None,
+                batch_groups=()):
+        """(x, aux) of `_layer`; `sp_group` and `ep_group` are the
+        process groups of ring attention and of the experts, if any,
+        `batch_groups` those the batch is split over (`Llama`)."""
         cfg = self.cfg
+        args = (cfg, x, self, cos, sin, sp_group, ep_group, batch_groups)
         if not cfg.remat:
-            return _layer(cfg, x, self, cos, sin)
+            return _layer(*args)
         # Inside the module's forward, so that a sharded layer's gather
         # (FSDP's hooks on this module) wraps the recompute too. "full"
         # keeps one layer's activations in HBM at a time.
         kw = {}
         if cfg.remat_policy != "full":
             kw["context_fn"] = _remat_context_fn(cfg.remat_policy)
-        return checkpoint(_layer, cfg, x, self, cos, sin, use_reentrant=False,
-                          **kw)
+        return checkpoint(_layer, *args, use_reentrant=False, **kw)
 
 
 class Llama(nn.Module):
-    """The decoder; `forward(tokens)` returns f32 logits."""
+    """The decoder; `forward(tokens)` returns f32 logits.
+
+    `batch_groups`: the process groups over which the batch is split
+    into equal data shards (set by `make_train_step` on a mesh). A MoE
+    router takes its load-balancing statistics over them, so that the
+    aux loss is the whole batch's, as JAX computes it."""
 
     def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
-        _check_ported(cfg)
+        _check_config(cfg)
         self.cfg = cfg
+        self.batch_groups = ()
         kw = dict(device=device, dtype=cfg.dtype)
         self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, **kw)
         self.layers = nn.ModuleList(
@@ -306,11 +341,13 @@ class Llama(nn.Module):
         self.final_norm = nn.Parameter(torch.ones(cfg.dim, **kw))
         self.lm_head = nn.Linear(cfg.dim, cfg.vocab_size, bias=False, **kw)
 
-    def forward(self, tokens, positions=None, return_aux=False):
+    def forward(self, tokens, positions=None, return_aux=False,
+                sp_group=None, ep_group=None):
         """Logits, or (logits, aux) with `return_aux`. The module's own
         call is the way in, so that a sharded model's hooks (FSDP's
         gather of the root's parameters) run."""
-        logits, aux = _forward_and_aux(self, tokens, positions)
+        logits, aux = _forward_and_aux(self, tokens, positions, sp_group,
+                                       ep_group)
         return (logits, aux) if return_aux else logits
 
 
@@ -318,7 +355,9 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Llama:
     """Random initialization on `device`, drawn from `generator`:
     normal * 1/sqrt(fan_in) for matrices, ones for norms, zeros for
-    biases (as `ray_tpu.models.llama.init_params`, not its numbers)."""
+    biases (as `ray_tpu.models.llama.init_params`, not its numbers). The
+    fan-in is dim 1 of a matrix ([out, in], [vocab, dim], and the
+    experts' [E, in, out]), dim 0 of the router [dim, E]."""
     model = Llama(cfg, device=device)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -327,20 +366,27 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
             elif name.endswith(".bias"):
                 p.zero_()
             else:
-                fan_in = p.shape[1]  # [out, in] and [vocab, dim] alike
+                fan_in = p.shape[0 if name.endswith("router") else 1]
                 noise = torch.randn(p.shape, generator=generator,
                                     device=p.device, dtype=torch.float32)
                 p.copy_(noise * (1.0 / math.sqrt(fan_in)))
     return model
 
 
-def forward_and_aux(model: Llama, tokens, *, positions=None) -> tuple:
-    """Token ids [batch, seq] -> (logits [batch, seq, vocab] f32, aux),
-    aux being the MoE load-balancing loss (0: dense models only)."""
-    return model(tokens, positions=positions, return_aux=True)
+def forward_and_aux(model: Llama, tokens, *, positions=None, sp_group=None,
+                    ep_group=None) -> tuple:
+    """Token ids [batch, seq] -> (logits [batch, seq, vocab] f32, aux:
+    the MoE load-balancing loss summed over layers, 0 for dense models).
+
+    With sequence parallelism, `tokens` is the local sequence shard,
+    `positions` its global positions and `sp_group` the ring's group;
+    with expert parallelism, `ep_group` is the experts' group."""
+    return model(tokens, positions=positions, return_aux=True,
+                 sp_group=sp_group, ep_group=ep_group)
 
 
-def _forward_and_aux(model: Llama, tokens, positions) -> tuple:
+def _forward_and_aux(model: Llama, tokens, positions, sp_group=None,
+                     ep_group=None) -> tuple:
     cfg = model.cfg
     b, t = tokens.shape
     if positions is None:
@@ -349,11 +395,13 @@ def _forward_and_aux(model: Llama, tokens, positions) -> tuple:
     cos, sin = rotary_embedding(
         positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling
     )
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        x = layer(x, cos, sin)
+        x, layer_aux = layer(x, cos, sin, sp_group, ep_group,
+                             model.batch_groups)
+        aux = aux + layer_aux
     x = model_norm(cfg, x, model.final_norm)
-    logits = model.lm_head(x).float()
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return model.lm_head(x).float(), aux
 
 
 def param_annotations(cfg: LlamaConfig) -> Dict[str, Annotated]:
@@ -361,7 +409,7 @@ def param_annotations(cfg: LlamaConfig) -> Dict[str, Annotated]:
     model's layout ([out, in] matrices, [vocab, dim] embedding): the
     JAX package's `param_annotations` with each matrix's two axes
     swapped and the layer axis unstacked."""
-    _check_ported(cfg)
+    _check_config(cfg)
     layer = {
         "wq.weight": ("heads", "embed"),
         "wk.weight": ("kv_heads", "embed"),
@@ -369,10 +417,15 @@ def param_annotations(cfg: LlamaConfig) -> Dict[str, Annotated]:
         "wo.weight": ("embed", "heads"),
         "attn_norm": (None,),
         "mlp_norm": (None,),
-        "w1.weight": ("mlp", "embed"),
-        "w3.weight": ("mlp", "embed"),
-        "w2.weight": ("embed", "mlp"),
     }
+    if cfg.moe_experts:
+        layer.update({"router": ("embed", None),
+                      "w_in": ("expert", "embed", "mlp"),
+                      "w_out": ("expert", "mlp", "embed")})
+    else:
+        layer.update({"w1.weight": ("mlp", "embed"),
+                      "w3.weight": ("mlp", "embed"),
+                      "w2.weight": ("embed", "mlp")})
     if cfg.attn_bias:
         layer.update({"wq.bias": ("heads",), "wk.bias": ("kv_heads",),
                       "wv.bias": ("kv_heads",)})
@@ -389,26 +442,37 @@ def param_annotations(cfg: LlamaConfig) -> Dict[str, Annotated]:
     return out
 
 
-def forward(model: Llama, tokens, *, positions=None):
+def forward(model: Llama, tokens, *, positions=None, sp_group=None,
+            ep_group=None):
     """Token ids [batch, seq] -> logits [batch, seq, vocab] (f32)."""
-    return forward_and_aux(model, tokens, positions=positions)[0]
+    return forward_and_aux(model, tokens, positions=positions,
+                           sp_group=sp_group, ep_group=ep_group)[0]
 
 
 def masked_xent(logits, targets) -> tuple:
     """Masked next-token cross-entropy pieces: (sum_nll, token_count).
     `targets` < 0 are masked out. logsumexp minus gather: the full
-    [*, vocab] log-probability tensor is never formed."""
+    [*, vocab] log-probability tensor is never formed. Logits sharded
+    over the vocabulary (a DTensor, under tensor parallelism) go through
+    `F.cross_entropy`, which `loss_parallel` computes on the shards."""
     mask = (targets >= 0).float()
+    if isinstance(logits, DTensor):
+        nll = F.cross_entropy(logits.flatten(0, -2),
+                              targets.masked_fill(targets < 0, -100).flatten(),
+                              ignore_index=-100, reduction="sum")
+        return nll.full_tensor(), torch.sum(mask)
     safe_targets = targets.clamp(min=0)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, safe_targets[..., None])[..., 0]
     return torch.sum((lse - tgt) * mask), torch.sum(mask)
 
 
-def loss_fn(model: Llama, tokens, targets, *, positions=None):
+def loss_fn(model: Llama, tokens, targets, *, positions=None, sp_group=None,
+            ep_group=None):
     """Mean next-token cross-entropy (+ weighted MoE aux loss).
     `targets` < 0 are masked out."""
-    logits, aux = forward_and_aux(model, tokens, positions=positions)
+    logits, aux = forward_and_aux(model, tokens, positions=positions,
+                                  sp_group=sp_group, ep_group=ep_group)
     nll_sum, count = masked_xent(logits, targets)
     xent = nll_sum / torch.clamp(count, min=1.0)
     return xent + model.cfg.moe_aux_weight * aux
@@ -449,6 +513,9 @@ _LAYER_LEAVES = {
     "bv": ("wv.bias", False),
     "q_norm": ("q_norm", False),
     "k_norm": ("k_norm", False),
+    "router": ("router", False),
+    "w_in": ("w_in", False),
+    "w_out": ("w_out", False),
 }
 
 
@@ -458,7 +525,7 @@ def load_jax_params(np_tree: Dict[str, Any], cfg: LlamaConfig
     init_params` layout, leaves as numpy arrays, layers stacked on axis
     0) as this model's state dict, on the CPU in `cfg.dtype`:
     `Llama(cfg).load_state_dict(load_jax_params(tree, cfg))`."""
-    _check_ported(cfg)
+    _check_config(cfg)
 
     def tensor(a, transpose=False):
         a = np.array(a, dtype=np.float32)  # a writable copy

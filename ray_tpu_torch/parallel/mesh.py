@@ -16,6 +16,10 @@ axes, outer to inner (inner axes get the fastest links):
 package. Ranks fill the mesh in row-major order, so `dcn_dp` is
 outermost in contiguous rank blocks: the layout of JAX's hybrid mesh
 when no slice topology is reported.
+
+The pipeline step (`make_pp_train_step`) takes a mesh of its own,
+`pipeline_mesh`: axes ("pp", "sp", "ep"), where `ep` is a named axis
+that doubles as the data axis.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 AXES = ("dcn_dp", "pp", "dp", "fsdp", "sp", "tp")
+PIPELINE_AXES = ("pp", "sp", "ep")
 
 
 def group_by_slice(ranks: Sequence[int],
@@ -152,6 +157,31 @@ class MeshSpec:
 
 def single_host_mesh(device="cuda", **axis_sizes) -> DeviceMesh:
     return MeshSpec(**axis_sizes).build(device)
+
+
+def pipeline_mesh(pp: int = 1, sp: int = 1, ep: int = 1,
+                  device="cuda") -> DeviceMesh:
+    """The ("pp", "sp", "ep") mesh of `make_pp_train_step` over the first
+    pp * sp * ep ranks of the process group, filled in row-major order as
+    JAX's `Mesh(devices.reshape(pp, sp, ep))`. Every rank of the group
+    must call it; a rank outside the mesh gets None from
+    `get_coordinate()`. A NCCL group bound to its card (as
+    `init_torch_distributed` makes it) splits a mesh's groups off on
+    their members only, after which later groups differ between ranks:
+    there the mesh must span the whole group."""
+    need = pp * sp * ep
+    world = _world_size()
+    if need > world:
+        raise ValueError(f"a pp={pp} x sp={sp} x ep={ep} mesh needs {need} "
+                         f"ranks, the group has {world}")
+    bound = getattr(dist.distributed_c10d._get_default_group(),
+                    "bound_device_id", None)
+    if need < world and bound is not None:
+        raise ValueError(f"a mesh of {need} of {world} ranks on a group "
+                         "bound to its card: build it over the whole group")
+    grid = torch.arange(need).reshape(pp, sp, ep)
+    return DeviceMesh(torch.device(device).type, grid,
+                      mesh_dim_names=PIPELINE_AXES)
 
 
 def data_axes() -> Tuple[str, ...]:

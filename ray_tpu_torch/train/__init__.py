@@ -2,6 +2,8 @@
 TorchTrainer, the sharded train step, sessions, backends and
 checkpointing.
 
+`make_pp_train_step` is the pipeline-parallel step (pp x sp x ep).
+
 Not ported yet: the MPMD pipeline (`MPMDPipeline`), `WorkerGroup` and
 the multi-worker gang (ROADMAP queue 1), and the head-side step
 telemetry (`telemetry`)."""
@@ -22,6 +24,7 @@ from .config import (
     RunConfig,
     ScalingConfig,
 )
+from .pipeline_step import make_pp_train_step, stage_module, to_pipeline_params
 from .session import (
     get_checkpoint,
     get_context,
@@ -51,6 +54,9 @@ __all__ = [
     "run_local_gang",
     "TrainState",
     "make_train_step",
+    "make_pp_train_step",
+    "stage_module",
+    "to_pipeline_params",
     "default_optimizer",
     "shard_batch",
     "prefetch_to_device",

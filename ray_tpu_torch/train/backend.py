@@ -67,12 +67,13 @@ def init_torch_distributed(rank: int, world_size: int, address: str, *,
                             world_size=world_size, **kw)
 
 
-def _gang_member(fn, rank, world_size, address, device, args, results):
+def _gang_member(fn, rank, world_size, address, device, inbox, results):
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
+        args = inbox.get()
         init_torch_distributed(rank, world_size, address, device=device)
         try:
             out = fn(rank, *args)
@@ -96,16 +97,22 @@ def run_local_gang(fn: Callable[..., Any], world_size: int,
     is joined or killed before this returns."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
+    # The arguments go by queue, not with the process: a process's start
+    # blocks until the child has read what it was given, which takes the
+    # child's imports once that passes a pipe's buffer.
+    inbox = ctx.Queue()
     address = f"localhost:{free_port()}"
     procs = [
         ctx.Process(target=_gang_member,
-                    args=(fn, r, world_size, address, device, tuple(args),
+                    args=(fn, r, world_size, address, device, inbox,
                           results),
                     daemon=True)
         for r in range(world_size)
     ]
     for p in procs:
         p.start()
+    for _ in procs:
+        inbox.put(tuple(args))
     out, errors = {}, []
     deadline = time.monotonic() + timeout
     try:
@@ -142,4 +149,6 @@ def run_local_gang(fn: Callable[..., Any], world_size: int,
                 p.kill()
                 p.join()
         results.close()
+        inbox.close()
+        inbox.cancel_join_thread()
     return [out[r] for r in range(world_size)]

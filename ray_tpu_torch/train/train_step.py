@@ -5,18 +5,24 @@
 step for step: the schedule is read at the update count before it is
 incremented, so the first update is exactly zero; the clip divides by
 the global norm with no epsilon; the moments keep the parameter dtype.
-Updates are applied in place (the counterpart of buffer donation).
+Updates are applied in place (the counterpart of buffer donation) unless
+the step is built with donate=False.
 
 `make_train_step(loss_fn, optimizer, mesh, param_annotations)` lays the
 model out on a `MeshSpec` mesh where the JAX package hands shardings to
 GSPMD (`shard_module`): tensor parallelism over `tp` through
-`parallelize_module`, and FSDP2 (`fully_shard`) over the data axes,
-sharding each parameter's embed dim where the rules put it on `fsdp`.
-With `mesh=None` it is the single-device step.
+`parallelize_module`, with the logits left sharded over the vocabulary
+through the loss (`loss_parallel`), and FSDP2 (`fully_shard`) over the
+data axes, sharding each parameter's embed dim where the rules put it on
+`fsdp` and leaving whole the parameters they replicate (the norms). With
+`mesh=None` it is the single-device step. Pipeline parallelism is
+`make_pp_train_step` (`pipeline_step.py`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import math
 import time
@@ -27,8 +33,11 @@ import torch
 import torch.distributed as dist
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.parallel import loss_parallel
 
 from .._private import step_telemetry
+from ..parallel.collective import all_reduce_
+from ..parallel.mesh import axis_size
 from ..parallel.sharding import (
     ACT_RULES,
     PARAM_RULES,
@@ -90,8 +99,15 @@ def warmup_cosine_decay(init_value: float, peak_value: float,
     return schedule
 
 
-def _local(t: torch.Tensor) -> torch.Tensor:
+def local_shard(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor; a plain tensor itself."""
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The whole value of a parameter: gathered from its shards if it is
+    a DTensor (a collective: every rank of its mesh must call it)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 class AdamW:
@@ -129,7 +145,7 @@ class AdamW:
         bc2 = 1.0 - self.b2 ** count
         lr = self.schedule(state["count"])
         for p, g, mu, nu in zip(params, grads, state["mu"], state["nu"]):
-            p, g, mu, nu = _local(p), _local(g), _local(mu), _local(nu)
+            p, g, mu, nu = (local_shard(x) for x in (p, g, mu, nu))
             g = torch.where(clip, g / grad_norm.to(g.dtype) * self.grad_clip, g)
             mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu.mul_(self.b2).add_(g * g, alpha=1.0 - self.b2)
@@ -190,13 +206,25 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _check_mesh(mesh) -> Dict[str, int]:
+def _check_mesh(mesh, param_annotations) -> Dict[str, int]:
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    for axis in ("pp", "sp"):
-        if sizes.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"{axis}={sizes[axis]}: pipeline and sequence parallelism "
-                "are not ported yet (ROADMAP queue 1, parallelism slice)")
+    if sizes.get("tp", 1) > 1 and any("expert" in a.logical_axes
+                                      for a in param_annotations.values()):
+        raise NotImplementedError(
+            "MoE under tp > 1: the expert products would need DTensor "
+            "rules for the batched expert matmuls and the token dispatch "
+            "(ROADMAP queue 1, item 8); run MoE on dp/fsdp meshes, or "
+            "over ep with make_pp_train_step")
+    if sizes.get("pp", 1) > 1:
+        raise NotImplementedError(
+            f"pp={sizes['pp']}: pipeline parallelism is make_pp_train_step "
+            "(ray_tpu_torch.train.pipeline_step), on a (pp, sp, ep) mesh")
+    if sizes.get("sp", 1) > 1:
+        raise NotImplementedError(
+            f"sp={sizes['sp']}: make_train_step shards no activation over "
+            "the sequence (JAX's GSPMD sequence sharding is not ported: "
+            "ROADMAP queue 1, item 8); make_pp_train_step runs ring "
+            "attention over sp")
     return sizes
 
 
@@ -217,7 +245,10 @@ def _tp_style(module: nn.Module, dim: int, axis_name: str):
     if dim == 1:
         return RowwiseParallel()
     if axis_name == "vocab":
-        return ColwiseParallel(output_layouts=Replicate())
+        # The logits stay a DTensor sharded over the vocabulary; the
+        # loss reads them under `loss_parallel`.
+        return ColwiseParallel(output_layouts=Shard(-1),
+                               use_local_output=False)
     return ColwiseParallel()
 
 
@@ -234,16 +265,15 @@ def shard_module(model: nn.Module, mesh, param_annotations: Dict[str, Any],
       (the layers) and on the root, over the data axes as HSDP: `dcn_dp`
       and `dp` replicate (flattened into one dim when both are > 1),
       `fsdp` shards. `shard_placement_fn` shards each parameter on the
-      dim the rules put on `fsdp`.
-
-    Where FSDP2 cannot follow the rules: it shards every parameter it
-    manages, so a parameter the rules replicate (the norms; dims on
-    `tp` only) is sharded over `fsdp` on its dim 0 all the same. Its
-    values and its updates are unchanged by that; only the layout is.
+      dim the rules put on `fsdp`. A parameter with no dim on `fsdp`
+      (the norms, the biases) is left out of FSDP2 (`ignored_params`),
+      whole on every data shard as the rules have it; its gradients are
+      averaged over the data shards by `reduce_ignored_grads`. A model
+      with `batch_groups` (`Llama`) gets the data mesh's groups.
 
     The model must be whole on every rank, on the mesh's device type or
     the CPU, with the same values."""
-    sizes = _check_mesh(mesh)
+    sizes = _check_mesh(mesh, param_annotations)
     model.to(mesh.device_type)
     if sizes["tp"] > 1:
         from torch.distributed.tensor.parallel import parallelize_module
@@ -260,30 +290,62 @@ def shard_module(model: nn.Module, mesh, param_annotations: Dict[str, Any],
 
     from torch.distributed.fsdp import fully_shard
 
-    replicate = [a for a in ("dcn_dp", "dp") if sizes[a] > 1]
-    if len(replicate) == 2:
-        flat = mesh["dcn_dp", "dp"]._flatten("dcn_dp_dp")
-        dp_mesh = mesh[flat.mesh_dim_names[0], "fsdp"]
-    elif replicate:
-        dp_mesh = mesh[replicate[0], "fsdp"]
-    else:
-        dp_mesh = mesh["fsdp"]
-    fsdp_dim = {}
+    fsdp_dim, ignored = {}, set()
     for name, p in model.named_parameters():
         ann = param_annotations.get(name)
         dim = tensor_dim_on(ann.logical_axes, rules, "fsdp") if ann else None
         fsdp_dim[id(p)] = dim
+        if ann is not None and dim is None:
+            ignored.add(p)
 
     def placement(p):
         dim = fsdp_dim.get(id(p))
         return Shard(dim) if dim is not None else None  # None: Shard(0)
 
+    dp_mesh = data_mesh(mesh)
+    if hasattr(model, "batch_groups") and dp_mesh.size() > 1:
+        model.batch_groups = tuple(dp_mesh.get_group(i)
+                                   for i in range(dp_mesh.ndim))
+    kw = dict(mesh=dp_mesh, shard_placement_fn=placement,
+              ignored_params=ignored)
     for module in model.modules():
         if isinstance(module, nn.ModuleList):
             for child in module:
-                fully_shard(child, mesh=dp_mesh, shard_placement_fn=placement)
-    fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement)
+                fully_shard(child, **kw)
+    fully_shard(model, **kw)
     return model
+
+
+def data_mesh(mesh):
+    """The mesh FSDP2 runs over: the data axes as HSDP, `dcn_dp` and `dp`
+    replicating (flattened into one dim when both are > 1), `fsdp`
+    sharding."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    replicate = [a for a in ("dcn_dp", "dp") if sizes[a] > 1]
+    if len(replicate) == 2:
+        flat = mesh["dcn_dp", "dp"]._flatten("dcn_dp_dp")
+        return mesh[flat.mesh_dim_names[0], "fsdp"]
+    if replicate:
+        return mesh[replicate[0], "fsdp"]
+    return mesh["fsdp"]
+
+
+def _fsdp_managed(p: torch.Tensor) -> bool:
+    return isinstance(p, DTensor) and "fsdp" in p.device_mesh.mesh_dim_names
+
+
+def reduce_ignored_grads(model: nn.Module, dp_mesh) -> None:
+    """Average over the data shards of `dp_mesh` the gradients of the
+    parameters FSDP2 leaves alone (`shard_module`), as FSDP2 averages
+    those of the others."""
+    grads = [local_shard(p.grad) for p in model.parameters()
+             if p.grad is not None and not _fsdp_managed(p)]
+    if not grads or dp_mesh.size() == 1:
+        return
+    for dim in range(dp_mesh.ndim):
+        all_reduce_(grads, dp_mesh.get_group(dim))
+    for g in grads:
+        g.div_(dp_mesh.size())
 
 
 def _data_sum(x: torch.Tensor, data_shards: int) -> torch.Tensor:
@@ -314,8 +376,8 @@ def make_train_step(
     init_fn(model) -> TrainState: the model on `device` (mesh=None), or
     laid out on `mesh` by `shard_module(model, mesh, param_annotations,
     param_rules)`, and moments placed like their parameters.
-    step_fn(state, tokens, targets) -> (state, metrics): one step,
-    updating the parameters in place; metrics {"loss", "grad_norm"}
+    step_fn(state, tokens, targets) -> (state, metrics): one step;
+    metrics {"loss", "grad_norm"}
     stay on the device (grad_norm of the gradients before clipping, over
     every shard). On a mesh, tokens and targets are `shard_batch`'s
     DTensors or whole host batches (sharded here). Each data shard
@@ -324,13 +386,15 @@ def make_train_step(
     the mean over the whole batch, as the JAX step computes it, however
     unevenly the targets are masked.
 
-    The update is always in place, as the JAX step donates its state
-    (`donate` is taken for the JAX signature and has no effect).
+    With `donate` (the default) the step updates the state passed in,
+    in place, as the JAX step donates its buffers; with donate=False it
+    leaves that state unchanged and returns a new one (a copy of the
+    model and the optimizer state, updated).
     """
     if mesh is not None:
-        _check_mesh(mesh)
         if param_annotations is None:
             raise ValueError("a mesh needs param_annotations")
+        _check_mesh(mesh, param_annotations)
         if mesh.size() != dist.get_world_size():
             raise ValueError(f"the mesh spans {mesh.size()} ranks of a "
                              f"world of {dist.get_world_size()}: a train "
@@ -340,16 +404,37 @@ def make_train_step(
         data_shards = math.prod(mesh.size(i)
                                 for i, p in enumerate(batch_placements)
                                 if p.is_shard())
+        dp_mesh = data_mesh(mesh)
+        tp = axis_size(mesh, "tp")
     device = torch.device(device)
+
+    blank = []  # donate=False on a mesh: the model's unsharded skeleton
 
     def init_fn(model: nn.Module) -> TrainState:
         if mesh is None:
             model = model.to(device)
         else:
+            if not donate:
+                blank[:] = [copy.deepcopy(model).to("meta")]
             shard_module(model, mesh, param_annotations, param_rules)
         params = list(model.parameters())
         return TrainState(step=0, params=model,
                           opt_state=optimizer.init(params))
+
+    def copy_state(state: TrainState) -> TrainState:
+        """A new state equal to `state`. FSDP2 modules cannot be deep
+        copied: on a mesh the copy is the skeleton laid out anew, its
+        shards loaded from the state's."""
+        if mesh is None:
+            return TrainState(state.step, copy.deepcopy(state.params),
+                              copy.deepcopy(state.opt_state))
+        model = copy.deepcopy(blank[0]).to_empty(device=device)
+        shard_module(model, mesh, param_annotations, param_rules)
+        model.load_state_dict(state.params.state_dict())
+        opt = state.opt_state
+        return TrainState(state.step, model, {
+            "count": opt["count"], "mu": [m.clone() for m in opt["mu"]],
+            "nu": [n.clone() for n in opt["nu"]]})
 
     def local_batch(x):
         if mesh is None:
@@ -359,13 +444,15 @@ def make_train_step(
         return x.to_local()
 
     def step_fn(state: TrainState, tokens, targets):
+        if not donate:
+            state = copy_state(state)
         model = state.params
         tokens, targets = local_batch(tokens), local_batch(targets)
         params = list(model.parameters())
         for p in params:
             p.grad = None
-        loss = loss_fn(model, tokens, targets)
         if mesh is None:
+            loss = loss_fn(model, tokens, targets)
             loss.backward()
         else:
             # FSDP2 averages the gradients over the data shards: weight
@@ -373,7 +460,10 @@ def make_train_step(
             # targets, so they add up to the whole batch's mean.
             count = torch.sum(targets >= 0).float()
             share = count / torch.clamp(_data_sum(count, data_shards), min=1.0)
-            (loss * (share * data_shards)).backward()
+            with loss_parallel() if tp > 1 else contextlib.nullcontext():
+                loss = loss_fn(model, tokens, targets)
+                (loss * (share * data_shards)).backward()
+            reduce_ignored_grads(model, dp_mesh)
             loss = _data_sum(loss.detach() * share, data_shards)
         grads = [p.grad for p in params]
         gnorm = global_norm(grads)

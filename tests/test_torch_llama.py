@@ -124,18 +124,44 @@ def test_remat_gives_the_same_logits_and_grads():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("kw,error,match", [
-    pytest.param({"moe_experts": 4}, NotImplementedError, "MoE",
+@pytest.fixture
+def world2():
+    """A fake world of 2 ranks: its meshes build every process group and
+    move no data."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kw,spec,error,match", [
+    # MoE and ring attention run (test_torch_moe.py, test_torch_ring.py,
+    # test_torch_pipeline.py); what stays refused is MoE under tensor
+    # parallelism, and make_train_step's sequence sharding, which ring
+    # attention gets from make_pp_train_step.
+    pytest.param({"moe_experts": 4}, {"tp": 2}, NotImplementedError, "MoE",
                  id="kw0-MoE"),
-    pytest.param({"attention": "ring"}, NotImplementedError, "ring",
-                 id="kw1-ring"),
+    pytest.param({"attention": "ring"}, {"sp": 2}, NotImplementedError,
+                 "ring", id="kw1-ring"),
     # "dots" and "dots_flash" run (tests/test_torch_remat.py); a policy
     # the JAX package does not name is refused.
-    pytest.param({"remat_policy": "offload"}, ValueError, "remat",
+    pytest.param({"remat_policy": "offload"}, None, ValueError, "remat",
                  id="kw2-remat"),
-    pytest.param({"remat_policy": "nothing_saveable"}, ValueError, "remat",
-                 id="kw3-remat"),
+    pytest.param({"remat_policy": "nothing_saveable"}, None, ValueError,
+                 "remat", id="kw3-remat"),
 ])
-def test_unported_paths_raise(kw, error, match):
+def test_unported_paths_raise(request, kw, spec, error, match):
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.train import default_optimizer, make_train_step
+
+    cfg = llama.LlamaConfig.tiny(**kw)
     with pytest.raises(error, match=match):
-        llama.Llama(llama.LlamaConfig.tiny(**kw), device="meta")
+        llama.Llama(cfg, device="meta")
+        request.getfixturevalue("world2")
+        make_train_step(llama.loss_fn, default_optimizer(),
+                        MeshSpec(**spec).build("cpu"),
+                        llama.param_annotations(cfg))

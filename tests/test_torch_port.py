@@ -17,7 +17,8 @@ from ray_tpu.models import llama as jax_llama
 from ray_tpu_torch.llm import kv_slots
 from ray_tpu_torch.models import generate, hf_convert, llama
 from ray_tpu_torch import graft_entry
-from ray_tpu_torch.parallel import MeshSpec
+from ray_tpu_torch.ops import init_moe_params
+from ray_tpu_torch.parallel import MeshSpec, pipeline_mesh
 from ray_tpu_torch.train import (
     init_torch_distributed,
     make_train_step,
@@ -69,6 +70,11 @@ def test_imports_leave_jax_and_ray_tpu_out():
     "ray_tpu_torch.train.trainer",
     "ray_tpu_torch.train.checkpoint",
     "ray_tpu_torch.graft_entry",
+    "ray_tpu_torch.parallel.collective",
+    "ray_tpu_torch.parallel.pipeline",
+    "ray_tpu_torch.ops.moe",
+    "ray_tpu_torch.ops.ring_attention",
+    "ray_tpu_torch.train.pipeline_step",
 ])
 def test_sharded_training_modules_leave_jax_out(module):
     """Each alone, in a fresh interpreter."""
@@ -107,7 +113,7 @@ def test_entry_points_default_to_the_card():
     for entry in (generate.init_kv_cache, generate.init_block_pool,
                   hf_convert.load_hf_llama, kv_slots.PagedKVCache,
                   MeshSpec.build, graft_entry.entry, init_torch_distributed,
-                  run_local_gang):
+                  run_local_gang, pipeline_mesh, init_moe_params):
         assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 

@@ -142,13 +142,14 @@ def test_unevenly_masked_targets_match_jax(jax_run, port_run):
 @pytest.mark.timeout(300)
 def test_each_rank_holds_its_share_of_the_parameters(port_run):
     """About 1/(fsdp * tp) of the parameter bytes per rank: every weight
-    is split 4 ways; the norms (0.3% of the bytes) only over fsdp."""
+    is split 4 ways; the norms (0.3% of the bytes), which the rules
+    replicate, are whole on every rank."""
     cfg = llama.LlamaConfig.tiny()
     whole = cfg.num_params() * 4
     norms = (2 * cfg.n_layers + 1) * cfg.dim * 4
     for rank in port_run:
         local = rank[0]["param_bytes"]
-        assert local == (whole - norms) // 4 + norms // 2
+        assert local == (whole - norms) // 4 + norms
         assert abs(local / whole - 0.25) < 0.01
 
 
@@ -195,6 +196,43 @@ def test_dtensor_checkpoint_of_two_ranks_restores_bit_for_bit(tmp_path):
     whole = restore_checkpoint(path, target)["params"]
     assert all(v.shape == target["params"][k].shape for k, v in whole.items())
     assert not all(bool((v == 0).all()) for v in whole.values())
+
+
+@pytest.fixture(scope="module")
+def contracts():
+    return run_local_gang(_torch_gang.step_contracts, 2,
+                          (_tokens(2, 256, seed=17),), device="cpu",
+                          timeout=GANG_TIMEOUT)
+
+
+@pytest.mark.timeout(300)
+def test_logits_stay_sharded_over_tp(contracts):
+    """As JAX keeps the vocab dim sharded through the loss: a tp-2 rank
+    holds half the vocabulary's logits, the loss reads them under
+    `loss_parallel`, and the step's loss is the single-device one."""
+    for rank, got in enumerate(contracts):
+        tp = got["tp"]
+        assert tp["shard_dims"] == [2]  # the vocab dim
+        assert tp["local_shape"] == [2, 32, 128]
+        assert tp["whole_shape"] == [2, 32, 256]
+        assert abs(tp["loss"] - tp["single_loss"]) < 1e-5
+        # After the step's update (the first is zero: warmup from lr 0).
+        assert abs(tp["mean_nll"] - tp["single_loss"]) < 1e-5
+
+
+@pytest.mark.timeout(300)
+def test_donate_false_leaves_the_state_passed_in_unchanged(contracts):
+    """JAX's contract for donate=False on an fsdp 2 mesh: the state
+    passed in keeps its parameters and step, a new state is returned,
+    and the losses are those of donate=True."""
+    for got in contracts:
+        kept, donated = got["donate"][False], got["donate"][True]
+        assert kept["unchanged"] and kept["new_state"]
+        assert kept["first_step"] == 0
+        assert not donated["unchanged"] and not donated["new_state"]
+        np.testing.assert_allclose(kept["losses"], donated["losses"],
+                                   rtol=0, atol=1e-6)
+        assert kept["losses"][-1] < kept["losses"][0]
 
 
 def test_gang_failure_reports_the_rank_and_joins_every_process():

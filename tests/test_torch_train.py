@@ -94,6 +94,31 @@ def test_remat_on_and_off_agree(jax_run):
     jax.tree.map(np.testing.assert_array_equal, on[2][-1], off[2][-1])
 
 
+def test_donate_false_leaves_the_state_passed_in_unchanged(jax_run):
+    """JAX's contract: with donate=False the step returns a new state and
+    the state passed in keeps its parameters, optimizer state and step;
+    the trajectory is the donating step's."""
+    initial, losses = jax_run[:2]
+    cfg = llama.LlamaConfig.tiny()
+    model = llama.Llama(cfg, device="cpu")
+    model.load_state_dict(llama.load_jax_params(initial, cfg))
+    init_fn, step_fn = make_train_step(
+        llama.loss_fn, default_optimizer(learning_rate=1e-2, total_steps=20),
+        donate=False, device="cpu")
+    first = init_fn(model)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    inputs, targets = (torch.from_numpy(x).long() for x in _batch(cfg.vocab_size))
+    state, got = first, []
+    for _ in range(STEPS):
+        state, metrics = step_fn(state, inputs, targets)
+        got.append(metrics["loss"].item())
+    assert state is not first and first.step == 0 and state.step == STEPS
+    assert first.opt_state["count"] == 0
+    assert all(torch.equal(v, model.state_dict()[k]) for k, v in before.items())
+    assert all(not m.any() for m in first.opt_state["mu"])
+    np.testing.assert_allclose(got, losses, rtol=RTOL)
+
+
 @pytest.mark.parametrize("total", [20, 1000])
 def test_schedule_matches_optax(total):
     import optax
