@@ -27,7 +27,19 @@ Phases, none of whose failures is caught:
       writes no dq or reads `do` at the wrong rows. Then time each op
       (the backward's three launches together and each alone), its
       plain version and `scaled_dot_product_attention` (a yardstick
-      only: the port never calls it);
+      only: the port never calls it). Then the same for the "any"
+      kernels (`csrc/flash_fwd_any.cu`, `csrc/flash_bwd_any.cu`: every
+      dtype and head_dim the wgmma pair does not take) at ANY_CASES
+      (bf16 d 256, f32 d 128 and 256, f16 d 128, d 96 and 16, and their
+      tiles' edges), f32 held at F32_REL_TOL (1e-5, since f32 stays f32:
+      the plain version with TF32 or bf16 products must fall outside
+      it), with the two negative controls at bf16 d 256, the public op
+      against `mha_reference` in f32 at ANY_OP_CASES, and their times at
+      ANY_TIMED beside SDPA and their bounds (f32's at the 67 TFLOP/s of
+      the CUDA cores); at the bf16 shape also under two sharp softmaxes
+      (q not scaled by 1/sqrt(d), and 8 times that, where P underflows),
+      in turns with the op's own scaling, to show whether the time
+      depends on the data;
   (c) the slice: Llama-2-7B width (dim 4096, 32 heads, head_dim 128,
       intermediate 11008, vocab 32000, bf16, flash attention, full
       remat) cut to 4 layers (`--layers`), batch 2 x seq 4096, 8 steps
@@ -36,6 +48,21 @@ Phases, none of whose failures is caught:
       and fall, and the launch counters must show 2 forward (one under
       remat) and 1 backward op (each of its 3 launches once) per layer
       per step.
+  (h1) the runtime on the card: `ray_tpu_torch.init(num_cpus=2,
+      num_gpus=1)` before (c)'s steps, and (c)'s initial weights and
+      batch `put` into the object store (CUDA tensors, staged to the
+      host). After (c) has freed its model, a `num_gpus=1` actor gets
+      them (they arrive on the card, bit for bit by a weighted byte sum)
+      and runs RUNTIME_STEPS steps of (c)'s step: step 1's loss must
+      equal (c)'s to the bit, step 2's within RUNTIME_STEP2_REL; a CPU
+      task must see no card; a 1 GiB bf16 CPU tensor goes through
+      `put`/`get` in one out-of-band buffer, equal. The runtime is shut
+      down after.
+  (h2) Gemma-2B (`LlamaConfig.gemma_2b()`, all 18 layers, head_dim 256,
+      vocab 256000, bf16, remat "full"), random weights from a seed,
+      batch 1 x 4096, 3 steps of `make_train_step`: the loss must be
+      finite and fall, and every flash launch must go to the "any"
+      kernels (2 forward and one backward op per layer per step).
   (f) after (c) has freed its memory: (f1) the slice's model (same
       width and depth, batch 2 x 4096, bf16, flash) from one set of
       weights and one batch, 4 steps under each remat policy ("full",
@@ -110,8 +137,9 @@ phase (e)), then `{"train_sharded": {...}}` (the card; step ms,
 tokens/s, MFU, peak memory, losses and launches of each (f1) policy
 and of (f2); (f3)'s checkpoints and `ckpt_block_ms`), then
 `{"train_pp": {...}}` (step ms, tokens/s, MFU, peak memory, losses and
-launches per step of (g1) and (g2); (g3)'s errors and times), and as
-the last line `{"ok": true, "device": {...}}`. Exits non-zero with no
+launches per step of (g1) and (g2); (g3)'s errors and times), then
+`{"runtime": {...}}` ((h1)) and `{"gemma": {...}}` ((h2)), and as the
+last line `{"ok": true, "device": {...}}`. Exits non-zero with no
 result line when there is no CUDA card or the port is not beside it.
 
 `--cards 4` (never part of the plain run) builds the kernels and runs
@@ -121,8 +149,11 @@ each run against the same weights and batch on one card (a gang of one
 run first; every mesh spans its gang's whole group):
 `make_pp_train_step` at pp 2 x sp 2 with ring attention, and at pp 2 x
 ep 2 with 8 experts; `make_train_step` under "dots_flash" over
-`MeshSpec(fsdp=4)` and `MeshSpec(fsdp=2, tp=2)`. Each run's loss must
-fall and its step 1 lie within CARDS4_LOSS_REL of one card's; it prints
+`MeshSpec(fsdp=4)` and `MeshSpec(fsdp=2, tp=2)`; then
+`TorchTrainer(num_workers=4)` on a gang of the runtime's `num_gpus=1`
+actors (NCCL, `MeshSpec(fsdp=4)`), held to the local gang's fsdp4 run.
+Each run's loss must fall and its step 1 lie within CARDS4_LOSS_REL of
+one card's; it prints
 `{"four_cards": {...}}` (step ms, tokens/s, peak per card). It fails on
 a machine with fewer than 4 cards.
 
@@ -172,6 +203,11 @@ HBM_BYTES_PER_S = 3.35e12
 #: about 0.4% of max|ref|; an output left at zero or computed from the
 #: wrong rows reads order 100%.
 REL_TOL = 1e-2
+#: The same bars for f32 inputs, which the "any" kernels keep in f32 on
+#: the CUDA cores (no TF32): their f32 outputs read about 1e-7 of the
+#: plain f32 version's, while the plain version with TF32 or bf16
+#: products reads order 1e-4 or more (the controls of phase (b)).
+F32_REL_TOL = 1e-5
 #: The verify recipe's absolute bars, for its upstream gradient only.
 OUT_TOL = 0.05
 GRAD_TOL = 0.01
@@ -184,9 +220,14 @@ LOGITS_TOL = 0.1  # bf16 model, flash vs reference attention, 2 layers
 #: the serving path's bf16 arithmetic as far.
 NOISE_RATIO = 2.0
 
-#: Device-side names of every launch of the two attention ops.
+#: Device-side names of every launch of the two attention ops: the wgmma
+#: pair's and the "any" pair's (`flash_fwd_mma_kernel`,
+#: `flash_fwd_simt_kernel`, `flash_bwd_any_pre_kernel`, ...).
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_pre_kernel",
-                 "flash_bwd_kernel", "flash_bwd_dq_kernel")
+                 "flash_bwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_fwd_mma_kernel", "flash_fwd_simt_kernel",
+                 "flash_bwd_any_pre_kernel", "flash_bwd_mma_kernel",
+                 "flash_bwd_simt_kernel", "flash_bwd_any_dq_kernel")
 #: The backward op's launches, by launch counter.
 BWD_LAUNCHES = ("flash_bwd_pre", "flash_bwd", "flash_bwd_dq")
 
@@ -233,6 +274,49 @@ AUX_TOL = 1e-3
 CARDS4_LOSS_REL = 1e-2
 #: `--cards 4`: rows of the batch (ep 2 x 2 microbatches).
 CARDS4_BATCH = 4
+#: Dense f32 peak of an H100 SXM outside the tensor cores (NVIDIA data
+#: sheet): the "any" kernels keep f32 inputs in f32 (no TF32), so this is
+#: their operations bound in f32.
+PEAK_F32_FLOPS = 67e12
+#: The "any" kernels' checks (phase (b)): (label, dtype, bh, t, tk, d,
+#: causal, q_len, kv_len). bf16 at d 256 (Gemma), f32 at d 128 and 256,
+#: f16 at d 128, d 96 (Phi-3) and d 16 (`LlamaConfig.tiny`), and the
+#: edges of their 64-row q and 32-row KV tiles: t 64 (one q tile) and 192,
+#: kv_len inside a tile, causal t_q != t_k (against the plain version,
+#: whose mask is the kernels' top-left one), and q rows past q_len.
+ANY_CASES = (
+    ("bf16_d256", "bfloat16", 16, 1024, 1024, 256, True, 1024, 1024),
+    ("f32_d128", "float32", 16, 512, 512, 128, True, 512, 512),
+    ("f32_d256", "float32", 8, 512, 512, 256, True, 512, 512),
+    ("f16_d128", "float16", 16, 512, 512, 128, True, 512, 512),
+    ("bf16_d96", "bfloat16", 8, 512, 512, 96, True, 512, 512),
+    ("bf16_d16", "bfloat16", 8, 512, 512, 16, True, 512, 512),
+    ("t64_d256", "bfloat16", 8, 64, 64, 256, True, 64, 64),
+    ("t192_f32_d128", "float32", 8, 192, 192, 128, True, 192, 192),
+    ("kvlen200_d256", "bfloat16", 8, 256, 256, 256, False, 256, 200),
+    ("q128k384_causal_f32_d256", "float32", 8, 128, 384, 256, True, 128,
+     384),
+    ("ragged_f16_d96", "float16", 8, 320, 320, 96, True, 300, 300),
+)
+#: The public op against `mha_reference` in f32 on the same inputs, for
+#: the "any" kernels: (dtype, head_dim) at b 1 x h 2 x t 512, causal.
+ANY_OP_CASES = (("bfloat16", 256), ("float32", 128), ("float32", 256),
+                ("float16", 128), ("bfloat16", 96), ("bfloat16", 16))
+#: The "any" kernels' timing shapes: Gemma-2B's attention (b 2 x 8 heads,
+#: 4096, d 256, causal, bf16) and an f32 one (bh 64 x 1024 x 128, causal).
+ANY_TIMED = (("bfloat16", 16, 4096, 256), ("float32", 64, 1024, 128))
+#: The "any" backward op's launches, by launch counter.
+ANY_BWD_LAUNCHES = ("flash_bwd_any_pre", "flash_bwd_any", "flash_bwd_any_dq")
+#: (h1) the runtime phase: steps in the actor, and the bar of its step 2
+#: against the driver's (the backward's dq sums in f32 atomics, in no
+#: fixed order; step 1 is the forward alone and must be equal).
+RUNTIME_STEPS = 2
+RUNTIME_STEP2_REL = 1e-3
+#: (h1) the 1 GiB bf16 CPU tensor put and got through the object store.
+RUNTIME_PUT_BYTES = 1 << 30
+#: (h2) Gemma-2B at full width: steps, batch and sequence.
+GEMMA_STEPS = 3
+GEMMA_BATCH, GEMMA_SEQ = 1, 4096
 
 
 def cuda_ms(torch, fn, reps):
@@ -254,12 +338,12 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-def held(name, got, ref, abs_tol=None):
+def held(name, got, ref, abs_tol=None, rel_tol=REL_TOL):
     """Print `got`'s error against `ref` and return (within the bars,
-    max abs error). Bars: max abs error <= REL_TOL * max|ref|, L2 error
-    <= REL_TOL * ||ref||, and max abs error <= `abs_tol` if given."""
+    max abs error). Bars: max abs error <= rel_tol * max|ref|, L2 error
+    <= rel_tol * ||ref||, and max abs error <= `abs_tol` if given."""
     err, ref_max, rel_l2 = rel_errors(got, ref)
-    ok = err <= REL_TOL * ref_max and rel_l2 <= REL_TOL
+    ok = err <= rel_tol * ref_max and rel_l2 <= rel_tol
     if abs_tol is not None:
         ok = ok and err <= abs_tol
     print(f"  {name}: max err {err:.3g} (max|ref| {ref_max:.3g}), "
@@ -267,11 +351,11 @@ def held(name, got, ref, abs_tol=None):
     return ok, err
 
 
-def grads_held(got, ref, q_len, kv_len, abs_tol=None):
+def grads_held(got, ref, q_len, kv_len, abs_tol=None, rel_tol=REL_TOL):
     """`held` over (dq, dk, dv) on their unpadded rows: (all within the
     bars, max abs error of each)."""
     rows = (q_len, kv_len, kv_len)
-    checks = [held(name, g[:, :n], r[:, :n], abs_tol)
+    checks = [held(name, g[:, :n], r[:, :n], abs_tol, rel_tol)
               for name, g, r, n in zip(("dq", "dk", "dv"), got, ref, rows)]
     return all(ok for ok, _ in checks), [err for _, err in checks]
 
@@ -283,8 +367,8 @@ def valid_pairs(causal, q_len, kv_len):
     return sum(min(r + 1, kv_len) for r in range(q_len))
 
 
-def bound_ms(flops, nbytes):
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    ops_ms = flops / peak * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -827,8 +911,10 @@ def mesh_run(torch, llama, attn, cfg, init_state, batch, dev, profile=False):
                        "prefetch_equal": prefetched and len(fetched) == 3,
                        "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))})
         del model, state, step_fn, init_fn, params
-        # FSDP2 ties its module into reference cycles: free it now, not
-        # whenever the collector runs (it lived into phase (g) before).
+        # FSDP2 ties its module into reference cycles. The port collects
+        # where it lays out the next FSDP2 model (`shard_module`), but
+        # phase (g) lays out none, so free this one here (it lived into
+        # phase (g) before).
         gc.collect()
     finally:
         dist.destroy_process_group()
@@ -1317,12 +1403,542 @@ def four_card_phase(torch, card, n_layers):
             assert all(math.isfinite(x) for x in r["losses"])
             assert r["losses"][-1] < r["losses"][0], (name, r["losses"])
             assert r["loss_rel_to_one_card"][0] <= CARDS4_LOSS_REL, (name, r)
+    runs["trainer_gang_fsdp4"] = trainer_gang_run(
+        n_layers, runs["fsdp4"]["losses"])
     return {"card": card, "cards": 4, "batch": CARDS4_BATCH, "seq": SEQ,
             "layers": n_layers, "runs": runs,
             "peak_per_card": {name: [rk[name]["max_memory_allocated"]
                                      for rk in ranks] for name in runs
                               if all(name in rk for rk in ranks)},
             "bars": {"loss_rel_to_one_card": CARDS4_LOSS_REL}}
+
+
+def any_kernel_checks(torch, attn):
+    """(b) for the "any" kernels (`csrc/flash_fwd_any.cu`,
+    `csrc/flash_bwd_any.cu`): each against its plain version at
+    ANY_CASES under a random upstream gradient (f32 at F32_REL_TOL), the
+    two negative controls, the controls of the f32 bar (the plain version
+    with TF32 or bf16 products must lie outside it), and the public op
+    against `mha_reference` in f32 at ANY_OP_CASES. Returns {label: (out
+    err, lse err, max grad err)}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(dtype, *shape):
+        return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(
+            dtype)
+
+    results = {}
+    for label, dt, bh, t, tk, d, causal, q_len, kv_len in ANY_CASES:
+        dtype = getattr(torch, dt)
+        assert attn._kernel_for(dtype, d) == "any", (dt, d)
+        q, k, v = randn(dtype, bh, t, d), randn(dtype, bh, tk, d), \
+            randn(dtype, bh, tk, d)
+        q[:, q_len:] = 0
+        k[:, kv_len:] = 0
+        v[:, kv_len:] = 0
+        q2 = attn.prescale(q, 1.0 / math.sqrt(d))
+        attn.reset_launch_counts()
+        out, lse = attn.flash_forward(q2, k, v, causal, kv_len)
+        torch.cuda.synchronize()
+        assert attn.LAUNCHES["flash_fwd_any"] == 1, attn.LAUNCHES
+        assert out.dtype == dtype and out.shape == q2.shape, label
+        p_out, p_lse = attn.flash_forward_plain(q2, k, v, causal, kv_len)
+        f32 = dtype == torch.float32
+        tol = F32_REL_TOL if f32 else REL_TOL
+        lse_tol = (F32_REL_TOL * p_lse[:, :q_len].abs().max().item() if f32
+                   else LSE_TOL)
+        print(f"fwd any {label} {(dt, bh, t, tk, d)} causal={causal} "
+              f"(bars {tol:g}):")
+        ok, e_out = held("out", out[:, :q_len], p_out[:, :q_len],
+                         rel_tol=tol)
+        e_lse = max_err(lse[:, :q_len], p_lse[:, :q_len])
+        print(f"  lse: max err {e_lse:.3g} (bar {lse_tol:.3g})")
+        assert ok and e_lse <= lse_tol, (label, e_out, e_lse)
+        do = randn(dtype, bh, t, d)
+        do[:, q_len:] = 0
+        args = (q2, k, v, out, do, lse, 1.0 / math.sqrt(d), causal, kv_len,
+                q_len)
+        got = attn.flash_backward(*args)
+        torch.cuda.synchronize()
+        assert all(attn.LAUNCHES[n] == 1 for n in ANY_BWD_LAUNCHES), \
+            attn.LAUNCHES
+        assert all(g.dtype == dtype for g in got), label
+        ref = attn.flash_backward_plain(*args)
+        print(f"bwd any {label}, random do:")
+        ok, errs = grads_held(got, ref, q_len, kv_len, rel_tol=tol)
+        assert ok, (label, errs)
+        if label == "f32_d128":
+            f32_bar_controls(torch, attn, args, p_out, ref)
+        if label == "bf16_d256":
+            print("  negative control, dq = 0 (must be outside the bars):")
+            assert not grads_held((torch.zeros_like(got[0]),) + got[1:],
+                                  ref, q_len, kv_len)[0]
+            print("  negative control, do shifted one row (must be "
+                  "outside the bars):")
+            shifted = list(args)
+            shifted[4] = do.roll(1, dims=1)
+            assert not grads_held(attn.flash_backward(*shifted), ref,
+                                  q_len, kv_len)[0]
+        results[label] = (e_out, e_lse, max(errs))
+        del q, k, v, q2, out, lse, p_out, p_lse, do, got, ref, args
+    attn.reset_launch_counts()
+    for dt, d in ANY_OP_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (randn(dtype, 1, 2, 512, d).requires_grad_()
+                   for _ in range(3))
+        do = randn(dtype, 1, 2, 512, d)
+        out = attn.flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+        qf, kf, vf = (x.detach().float().requires_grad_() for x in (q, k, v))
+        ref = attn.mha_reference(qf, kf, vf, causal=True)
+        ref_grads = torch.autograd.grad(ref, (qf, kf, vf), do.float())
+        tol = F32_REL_TOL if dtype == torch.float32 else REL_TOL
+        print(f"flash_attention ({dt}, d {d}) vs mha_reference (f32), "
+              f"t 512 causal (bars {tol:g}):")
+        checks = [held("out", out, ref, rel_tol=tol)] + [
+            held(name, g, r, rel_tol=tol)
+            for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads)]
+        assert all(ok for ok, _ in checks), (dt, d)
+    assert attn.LAUNCHES["flash_fwd"] == attn.LAUNCHES["flash_bwd"] == 0
+    assert attn.LAUNCHES["flash_fwd_any"] == len(ANY_OP_CASES)
+    torch.cuda.empty_cache()
+    return results
+
+
+def f32_bar_controls(torch, attn, args, p_out, p_grads):
+    """Controls of F32_REL_TOL on one f32 case: the plain version with its
+    products in bf16 (inputs rounded), then in TF32, must lie outside the
+    bars that the f32 kernels meet, so a kernel that took either shortcut
+    would fail them."""
+    q2, k, v, _, do, lse, scale, causal, kv_len, q_len = args
+    rounded = [x.bfloat16().float() for x in (q2, k, v)]
+    print("  control, plain f32 with bf16 products (must be outside the "
+          "f32 bars):")
+    assert not held("out", attn.flash_forward_plain(
+        *rounded, causal, kv_len)[0][:, :q_len], p_out[:, :q_len],
+        rel_tol=F32_REL_TOL)[0]
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = True
+    try:
+        print("  control, plain f32 with TF32 products (must be outside "
+              "the f32 bars):")
+        assert not held("out", attn.flash_forward_plain(
+            q2, k, v, causal, kv_len)[0][:, :q_len], p_out[:, :q_len],
+            rel_tol=F32_REL_TOL)[0]
+        assert not grads_held(attn.flash_backward_plain(*args), p_grads,
+                              q_len, kv_len, rel_tol=F32_REL_TOL)[0]
+    finally:
+        matmul.allow_tf32 = False
+
+
+def any_kernel_times(torch, attn):
+    """The "any" kernels timed at ANY_TIMED beside their plain versions,
+    `scaled_dot_product_attention` (a yardstick only) and their bounds,
+    each held to its plain version there. Returns {dtype: record}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out_records = {}
+    for dt, bh, t, d in ANY_TIMED:
+        dtype = getattr(torch, dt)
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, do = ((torch.randn(bh, t, d, generator=gen, device=dev)
+                        * 0.5).to(dtype) for _ in range(4))
+        q2 = attn.prescale(q, scale)
+        out, lse = attn.flash_forward(q2, k, v, True, t)
+        p_out, _ = attn.flash_forward_plain(q2, k, v, True, t)
+        fwd_err = max_err(out, p_out)
+        tol = F32_REL_TOL if dtype == torch.float32 else REL_TOL
+        ok_fwd, _ = held(f"timed fwd any {dt} out", out, p_out, rel_tol=tol)
+        del p_out
+        bwd_args = (q2, k, v, out, do, lse, scale, True, t, t)
+        got = attn.flash_backward(*bwd_args)
+        ref = attn.flash_backward_plain(*bwd_args)
+        ok_bwd, errs = grads_held(got, ref, t, t, rel_tol=tol)
+        assert ok_fwd and ok_bwd, (dt, errs)
+        del got, ref
+        fwd_ms = cuda_ms(torch, lambda: attn.flash_forward(q2, k, v, True, t),
+                         5)
+        bwd_ms = cuda_ms(torch, lambda: attn.flash_backward(*bwd_args), 3)
+        fwd_plain_ms = cuda_ms(
+            torch, lambda: attn.flash_forward_plain(q2, k, v, True, t), 2)
+        bwd_plain_ms = cuda_ms(
+            torch, lambda: attn.flash_backward_plain(*bwd_args), 2)
+        b = 2 if bh == 16 else 1
+        q4, k4, v4, do4 = (x.view(b, bh // b, t, d) for x in (q, k, v, do))
+        sdpa_fwd_ms = cuda_ms(
+            torch, lambda: sdpa(q4, k4, v4, is_causal=True, scale=scale), 10)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+        sdpa_fwd_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa(qg, kg, vg, is_causal=True, scale=scale), (qg, kg, vg),
+            do4), 5)
+        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        pairs = bh * valid_pairs(True, t, t)
+        fwd_bound, fwd_by = bound_ms(
+            4 * d * pairs, nbytes(q2, k, v, out, lse), peak)
+        bwd_bound, bwd_by = bound_ms(
+            10 * d * pairs, nbytes(q2, k, v, out, do, lse) + 3 * nbytes(q2),
+            peak)
+        rec = {
+            "shape": [bh, t, d], "dtype": dt, "causal": True,
+            "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
+            "fwd_library_ms": sdpa_fwd_ms, "fwd_bound_ms": fwd_bound,
+            "fwd_bound_by": fwd_by, "fwd_max_abs_err": fwd_err,
+            "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
+            "bwd_library_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms,
+            "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
+            "bwd_max_abs_err": max(errs), "peak_flops": peak,
+        }
+        print(f"flash_fwd_any {dt} {(bh, t, d)}: {fwd_ms:.3f} ms (plain "
+              f"{fwd_plain_ms:.2f}, sdpa {sdpa_fwd_ms:.3f}, bound "
+              f"{fwd_bound:.3f} by {fwd_by}); flash_bwd_any op {bwd_ms:.3f} "
+              f"ms (plain {bwd_plain_ms:.2f}, sdpa bwd "
+              f"{rec['bwd_library_ms']:.3f}, bound {bwd_bound:.3f} by "
+              f"{bwd_by})")
+        if dtype == torch.bfloat16:
+            rec["softmax_data"] = softmax_data_times(torch, attn, q, k, v, do,
+                                                     scale, t)
+        out_records[dt] = rec
+        del q, k, v, do, q2, out, lse, bwd_args, q4, k4, v4, do4, qg, kg, vg
+        torch.cuda.empty_cache()
+    return out_records
+
+
+def card_clocks():
+    """The card's SM clock (now and its maximum, MHz), power draw (W) and
+    temperature (C), as nvidia-smi reads them; None where it cannot."""
+    try:
+        line = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+             "temperature.gpu", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30,
+            check=True).stdout.splitlines()[0]
+        return [float(x) for x in line.split(",")]
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
+
+
+def softmax_data_times(torch, attn, q, k, v, do, scale, t):
+    """Whether the "any" pair's time depends on the data: the same q, k,
+    v and do under three softmaxes. q pre-scaled as the op does (logits
+    of std about 0.36 in the log2 domain); q scaled by log2(e) alone, as
+    if 1/sqrt(d) were left out (std about 5.8: a sharp softmax, as a
+    trained model's can be); and 8 times that (std about 46: nearly one
+    hot, with P values that are subnormal or zero in f32, exp2 below
+    2^-126, whose share is counted on two heads). Timed in turns
+    pre-scaled, sharp, sharpest, sharpest, sharp, pre-scaled, each beside
+    the card's clocks read after it; both sharp variants are held to
+    their plain versions. Returns the record."""
+    variants = {}
+    rec = {"order": [], "fwd_ms": {}, "bwd_ms": {}, "clocks": {},
+           "p_subnormal_share": {}, "p_zero_share": {}}
+    for name, s in (("prescaled", scale), ("sharp", 1.0), ("sharpest", 8.0)):
+        q2 = attn.prescale(q, s)
+        out, lse = attn.flash_forward(q2, k, v, True, t)
+        args = (q2, k, v, out, do, lse, scale, True, t, t)
+        variants[name] = (q2, args)
+        if name == "prescaled":
+            continue
+        p_out, _ = attn.flash_forward_plain(q2, k, v, True, t)
+        print(f"{name} softmax, fwd any bfloat16:")
+        ok_fwd, _ = held("out", out, p_out)
+        del p_out
+        print(f"{name} softmax, bwd any bfloat16:")
+        ok_bwd, errs = grads_held(attn.flash_backward(*args),
+                                  attn.flash_backward_plain(*args), t, t)
+        assert ok_fwd and ok_bwd, (name, errs)
+        s2 = torch.matmul(q2[:2].float(), k[:2].float().transpose(1, 2))
+        valid = torch.ones(t, t, dtype=torch.bool, device=s2.device).tril()
+        e = (s2 - lse[:2, :, None]).masked_select(valid)
+        del s2
+        rec["p_subnormal_share"][name] = (
+            (e < -126) & (e >= -149)).float().mean().item()
+        rec["p_zero_share"][name] = (e < -149).float().mean().item()
+        del e
+    for name in ("prescaled", "sharp", "sharpest", "sharpest", "sharp",
+                 "prescaled"):
+        q2, args = variants[name]
+        fwd = cuda_ms(torch, lambda: attn.flash_forward(q2, k, v, True, t), 5)
+        bwd = cuda_ms(torch, lambda: attn.flash_backward(*args), 3)
+        rec["order"].append(name)
+        rec["fwd_ms"].setdefault(name, []).append(fwd)
+        rec["bwd_ms"].setdefault(name, []).append(bwd)
+        rec["clocks"].setdefault(name, []).append(card_clocks())
+    print(f"\"any\" pair by softmax (bf16 {tuple(q.shape)}, causal; turns "
+          f"{rec['order']}): fwd ms {rec['fwd_ms']}, bwd op ms "
+          f"{rec['bwd_ms']}; P subnormal {rec['p_subnormal_share']}, zero "
+          f"{rec['p_zero_share']}; clocks [sm MHz, max sm MHz, W, C] "
+          f"{rec['clocks']}")
+    del variants
+    return rec
+
+
+def weights_digest(torch, state):
+    """{name: (dtype, shape, device type, weighted sum of the bytes)}: two
+    state dicts with equal digests hold the same bytes (a changed byte
+    moves its tensor's sum by its weight, 1-251)."""
+    out = {}
+    for name, t in state.items():
+        raw = t.detach().contiguous().view(-1).view(torch.uint8)
+        total = 0
+        for chunk in raw.split(1 << 26):
+            w = torch.arange(chunk.numel(), device=chunk.device) % 251 + 1
+            total += int((chunk.long() * w).sum().item())
+        out[name] = (str(t.dtype), tuple(t.shape), t.device.type, total)
+    return out
+
+
+class CardStepper:
+    """(h1)'s actor, in a `num_gpus=1` worker of the port's runtime: the
+    weights and batch from the object store, then `RUNTIME_STEPS` steps
+    of phase (c)'s step with the flash kernels."""
+
+    def probe(self):
+        import torch
+
+        import ray_tpu_torch as rt
+
+        return {"cuda": torch.cuda.is_available(),
+                "accelerator_ids": rt.get_runtime_context()
+                .get_accelerator_ids(),
+                "device": torch.cuda.get_device_name(0)}
+
+    def train(self, weights, batch, n_layers):
+        import torch
+
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.ops import attention as attn
+        from ray_tpu_torch.train import default_optimizer, make_train_step
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        on_card = all(t.device.type == "cuda" for t in weights.values())
+        digest = weights_digest(torch, weights)
+        cfg = llama.LlamaConfig.llama2_7b(n_layers=n_layers, max_seq_len=SEQ)
+        model = llama.Llama(cfg, device="cuda")
+        model.load_state_dict(weights)
+        del weights
+        init_fn, step_fn = make_train_step(
+            llama.loss_fn, default_optimizer(learning_rate=3e-4,
+                                             total_steps=20), device="cuda")
+        state = init_fn(model)
+        rec = train_steps(torch, llama, attn, cfg, state, step_fn,
+                          batch[:, :-1], batch[:, 1:], steps=RUNTIME_STEPS)
+        rec.update({"weights_on_card": on_card, "digest": digest,
+                    "batch_on_card": batch.device.type == "cuda"})
+        return rec
+
+
+def runtime_phase(torch, card, weights_ref, batch_ref, digest, losses,
+                  step_ms, n_layers):
+    """(h1): phase (c)'s weights and batch, put by the driver before its
+    steps, go to a `num_gpus=1` actor that trains two steps; a CPU task
+    sees no card; a 1 GiB bf16 CPU tensor is put and got. Returns the
+    `{"runtime": ...}` record."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.serialization import SerializationContext
+
+    rec = {"card": card}
+    stepper = rt.remote(num_gpus=1)(CardStepper).remote()
+    t0 = time.perf_counter()
+    rec["actor_probe"] = rt.get(stepper.probe.remote(), timeout=300)
+    rec["actor_start_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = rt.get(stepper.train.remote(weights_ref, batch_ref, n_layers),
+                 timeout=600)
+    rec["actor_call_s"] = time.perf_counter() - t0
+    rt.kill(stepper)
+
+    @rt.remote
+    def cpu_probe():
+        import torch
+
+        return {"cuda": torch.cuda.is_available(),
+                "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    rec["cpu_task"] = rt.get(cpu_probe.remote(), timeout=120)
+    big = torch.arange(RUNTIME_PUT_BYTES // 2, dtype=torch.int16).view(
+        torch.bfloat16)
+    buffers = len(SerializationContext().serialize(big).buffers)
+    t0 = time.perf_counter()
+    ref = rt.put(big)
+    put_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = rt.get(ref)
+    get_ms = (time.perf_counter() - t0) * 1e3
+    equal = back.dtype == torch.bfloat16 and torch.equal(
+        back.view(torch.int16), big.view(torch.int16))
+    del ref, back, big
+    step2_rel = rel(got["losses"][1], losses[1])
+    rec.update({
+        "losses": got["losses"], "driver_losses": losses[:RUNTIME_STEPS],
+        "step1_equal": got["losses"][0] == losses[0],
+        "step2_rel": step2_rel, "step_ms": got["step_ms"],
+        "driver_step_ms": step_ms[:RUNTIME_STEPS],
+        "steady_step_ms": got["steady_step_ms"],
+        "max_memory_allocated": got["max_memory_allocated"],
+        "launches": got["launches"],
+        "weights_on_card": got["weights_on_card"],
+        "batch_on_card": got["batch_on_card"],
+        "weights_bit_for_bit": got["digest"] == digest,
+        "put_1gib_bf16": {"buffers": buffers, "put_ms": put_ms,
+                          "get_ms": get_ms, "equal": equal},
+    })
+    print(f"(h1) runtime actor (num_gpus=1) on {rec['actor_probe']}: losses "
+          f"{got['losses']} against the driver's {losses[:RUNTIME_STEPS]} "
+          f"(step 1 equal: {rec['step1_equal']}, step 2 relative "
+          f"{step2_rel:.2e}), step ms {[round(x, 2) for x in got['step_ms']]}"
+          f" against the driver's {[round(x, 2) for x in rec['driver_step_ms']]}"
+          f", weights on the card bit for bit: "
+          f"{rec['weights_on_card'] and rec['weights_bit_for_bit']}, "
+          f"launches {got['launches']}; CPU task {rec['cpu_task']}; 1 GiB "
+          f"bf16 put {put_ms:.1f} ms, get {get_ms:.1f} ms, {buffers} "
+          f"out-of-band buffer, equal {equal}")
+    assert rec["actor_probe"]["cuda"], rec
+    # The actor sees this host's cards, and is told so.
+    assert len(rec["actor_probe"]["accelerator_ids"]["GPU"]) == \
+        torch.cuda.device_count(), rec
+    assert rec["weights_on_card"] and rec["batch_on_card"], rec
+    assert rec["weights_bit_for_bit"], "weights changed in the store"
+    assert rec["step1_equal"], (got["losses"], losses)
+    assert step2_rel <= RUNTIME_STEP2_REL, step2_rel
+    assert got["launches"]["flash_fwd"] == RUNTIME_STEPS * n_layers * 2
+    assert not rec["cpu_task"]["cuda"], rec["cpu_task"]
+    assert buffers == 1 and equal, rec["put_1gib_bf16"]
+    return rec
+
+
+def gemma_phase(torch, llama, attn, card, dev, profile=False):
+    """(h2): Gemma-2B (`LlamaConfig.gemma_2b()`, 18 layers, head_dim
+    256, bf16) at full width under remat "full", random weights from a
+    seed, batch GEMMA_BATCH x GEMMA_SEQ, GEMMA_STEPS steps of
+    `make_train_step`: the loss must be finite and fall, and every flash
+    launch must go to the "any" kernels. Returns the `{"gemma": ...}`
+    record."""
+    from ray_tpu_torch.train import default_optimizer, make_train_step
+
+    cfg = llama.LlamaConfig.gemma_2b(max_seq_len=GEMMA_SEQ,
+                                     remat_policy="full")
+    g = torch.Generator(device=dev).manual_seed(9)
+    model = llama.init_params(cfg, g, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (GEMMA_BATCH, GEMMA_SEQ + 1),
+                          generator=g, device=dev)
+    init_fn, step_fn = make_train_step(
+        llama.loss_fn, default_optimizer(learning_rate=3e-4, total_steps=20),
+        device=dev)
+    state = init_fn(model)
+    del model
+    rec = train_steps(torch, llama, attn, cfg, state, step_fn, batch[:, :-1],
+                      batch[:, 1:], profile, steps=GEMMA_STEPS)
+    n = cfg.n_layers
+    launches = rec["launches"]
+    per_step = {k: v / GEMMA_STEPS for k, v in launches.items()}
+    rec.update({"card": card, "config": "gemma_2b, 18 layers, head_dim 256, "
+                "bf16, remat full", "layers": n, "params": cfg.num_params(),
+                "batch": GEMMA_BATCH, "seq": GEMMA_SEQ,
+                "launches_per_step": per_step})
+    print(f"(h2) Gemma-2B ({n} layers, {cfg.num_params()} parameters): losses "
+          f"{[round(x, 5) for x in rec['losses']]}, step ms "
+          f"{[round(x, 2) for x in rec['step_ms']]}, {rec['tokens_per_s']:.0f}"
+          f" tokens/s, MFU {rec['mfu']:.4f}, peak "
+          f"{rec['max_memory_allocated']} B, launches per step {per_step}")
+    assert all(math.isfinite(x) for x in rec["losses"] + rec["grad_norms"])
+    assert rec["losses"][-1] < rec["losses"][0], rec["losses"]
+    assert launches["flash_fwd"] == 0 and launches["flash_bwd"] == 0, launches
+    assert launches["flash_fwd_any"] == GEMMA_STEPS * n * 2, launches
+    for name in ANY_BWD_LAUNCHES:
+        assert launches[name] == GEMMA_STEPS * n, launches
+    del state, step_fn, init_fn, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cards_trainer_loop(config):
+    """`--cards 4`'s `TorchTrainer(num_workers=4)` loop, on each rank of
+    the runtime gang (NCCL, a card each): `cards_rank`'s fsdp=4 run, the
+    same weights and batch, each step reported."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.train import (
+        default_optimizer,
+        make_train_step,
+        report,
+        shard_batch,
+    )
+
+    dev = torch.device("cuda")
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=config["n_layers"],
+                                      max_seq_len=SEQ,
+                                      remat_policy="dots_flash")
+    init_state, _ = flagship_inputs(torch, llama, cfg, dev)
+    batch = torch.randint(0, cfg.vocab_size, (CARDS4_BATCH, SEQ + 1),
+                          generator=torch.Generator(device=dev).manual_seed(6),
+                          device=dev)
+    mesh = MeshSpec(fsdp=4).build("cuda")
+    model = llama.Llama(cfg, device=dev)
+    model.load_state_dict(init_state)
+    del init_state
+    init_fn, step_fn = make_train_step(
+        llama.loss_fn, default_optimizer(learning_rate=3e-4, total_steps=20),
+        mesh, llama.param_annotations(cfg))
+    rec = train_steps(torch, llama, attn, cfg, init_fn(model), step_fn,
+                      shard_batch(batch[:, :-1], mesh),
+                      shard_batch(batch[:, 1:], mesh))
+    for loss, ms in zip(rec["losses"], rec["step_ms"]):
+        report({"loss": loss, "step_ms": ms})
+    return rec
+
+
+def trainer_gang_run(n_layers, fsdp4_losses, timeout=420.0):
+    """`--cards 4`: `TorchTrainer(num_workers=4)` on a gang of the port's
+    runtime actors (`num_gpus=1` each), joined by `TorchBackend` on NCCL,
+    running `cards_trainer_loop` (fsdp=4). Its losses must equal the
+    local gang's fsdp4 run's to CARDS4_LOSS_REL. A fit still running
+    after `timeout` seconds fails the phase (the runtime's shutdown at
+    exit kills its workers)."""
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    rt.init(num_cpus=8, num_gpus=4)
+    try:
+        box = {}
+        trainer = TorchTrainer(cards_trainer_loop,
+                               train_loop_config={"n_layers": n_layers},
+                               scaling_config=ScalingConfig(num_workers=4))
+        fit = threading.Thread(target=lambda: box.update(r=trainer.fit()),
+                               daemon=True)
+        t0 = time.perf_counter()
+        fit.start()
+        fit.join(timeout)
+        if fit.is_alive():
+            raise TimeoutError(f"TorchTrainer(num_workers=4) still running "
+                               f"after {timeout} s")
+        result = box["r"]
+        wall_s = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    assert result.error is None, result.error
+    losses = [m["loss"] for m in result.metrics_history]
+    step_ms = [m["step_ms"] for m in result.metrics_history]
+    diffs = [rel(a, b) for a, b in zip(losses, fsdp4_losses)]
+    print(f"--cards 4, TorchTrainer(num_workers=4) on the runtime gang: "
+          f"losses {[round(x, 5) for x in losses]} (local gang fsdp4: "
+          f"{[round(x, 5) for x in fsdp4_losses]}), step ms "
+          f"{[round(x, 2) for x in step_ms]}, fit {wall_s:.1f} s, ranks "
+          f"reporting {len(result.metrics_by_rank)}")
+    assert len(result.metrics_by_rank) == 4, result.metrics_by_rank
+    assert all(len(h) == len(losses) for h in result.metrics_by_rank)
+    assert losses[-1] < losses[0], losses
+    assert all(d <= CARDS4_LOSS_REL for d in diffs), diffs
+    return {"losses": losses, "step_ms": step_ms,
+            "steady_step_ms": statistics.median(step_ms[1:]),
+            "loss_rel_to_local_gang": diffs, "fit_s": wall_s,
+            "ranks_reporting": len(result.metrics_by_rank)}
 
 
 def profile_serving(torch, gen, model, cfg, ec, live, dev):
@@ -1625,6 +2241,8 @@ def main() -> int:
     del (q2, k, v, q, do, out, lse, bwd_args, delta, dq_acc, q4, k4, v4, do4,
          qg, kg, vg)
     torch.cuda.empty_cache()
+    any_results = any_kernel_checks(torch, attn)
+    any_times = any_kernel_times(torch, attn)
 
     # ---- (c) the slice ------------------------------------------------
     # A small bf16 model first: flash against reference attention on
@@ -1652,6 +2270,16 @@ def main() -> int:
     batch = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), generator=gen,
                           device=dev)
     tokens, targets = batch[:, :-1], batch[:, 1:]
+    # (h1)'s inputs: the runtime up, and the weights and batch in its
+    # object store before the first step changes them.
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=2, num_gpus=1)
+    t0 = time.perf_counter()
+    weights_ref = rt.put(model.state_dict())
+    weights_put_ms = (time.perf_counter() - t0) * 1e3
+    batch_ref = rt.put(batch)
+    digest = weights_digest(torch, model.state_dict())
     init_fn, step_fn = make_train_step(
         llama.loss_fn, default_optimizer(learning_rate=3e-4, total_steps=20),
         device=dev)
@@ -1687,6 +2315,18 @@ def main() -> int:
         print(json.dumps({"profile": profile}))
     del model, state, batch, tokens, targets, step_fn, init_fn
     torch.cuda.empty_cache()
+
+    # ---- (h1) the runtime on the card --------------------------------
+    try:
+        runtime = runtime_phase(torch, card, weights_ref, batch_ref, digest,
+                                losses, [x * 1e3 for x in step_s], n_layers)
+        runtime["weights_put_ms"] = weights_put_ms
+    finally:
+        del weights_ref, batch_ref
+        rt.shutdown()
+
+    # ---- (h2) Gemma-2B at full width on the d 256 kernels -------------
+    gemma = gemma_phase(torch, llama, attn, card, dev, args.profile)
 
     # ---- (f) remat policies, the mesh step, trainer and checkpoints ----
     sharded = train_sharded_phase(torch, llama, attn, card, n_layers, dev,
@@ -1754,7 +2394,34 @@ def main() -> int:
             "shape": [bh, t, d], "causal": True,
         },
     ]
+    main_rec = any_times["bfloat16"]
+    for name, timed_key, replaces in (
+            ("flash_fwd_any", "fwd", "ray_tpu/ops/attention.py:136"),
+            ("flash_bwd_any", "bwd", "ray_tpu/ops/attention.py:302")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            # (h2)'s run, the path these kernels carry.
+            "launches": gemma["launches"][name],
+            "max_abs_err": main_rec[f"{timed_key}_max_abs_err"],
+            "ms": main_rec[f"{timed_key}_ms"],
+            "plain_ms": main_rec[f"{timed_key}_plain_ms"],
+            "bound_ms": main_rec[f"{timed_key}_bound_ms"],
+            "bound_by": main_rec[f"{timed_key}_bound_by"],
+            "library_ms": main_rec[f"{timed_key}_library_ms"],
+            "shape": main_rec["shape"], "dtype": "bfloat16", "causal": True,
+            "bound_share": main_rec[f"{timed_key}_bound_ms"]
+            / main_rec[f"{timed_key}_ms"],
+            "vs_library": main_rec[f"{timed_key}_ms"]
+            / main_rec[f"{timed_key}_library_ms"],
+            "f32": {k: v for k, v in any_times["float32"].items()
+                    if k.startswith(timed_key) or k == "shape"},
+            "launches_per_step_gemma": gemma["launches_per_step"][name],
+            "checks": {label: errs for label, errs in any_results.items()},
+        })
     print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"any_softmax_data": main_rec["softmax_data"]}))
     print(json.dumps({"slice": {
         "config": f"llama2_7b width, {n_layers} layers, bf16, flash, "
                   "remat full",
@@ -1770,6 +2437,8 @@ def main() -> int:
     print(json.dumps({"serve": serve}))
     print(json.dumps({"train_sharded": sharded}))
     print(json.dumps({"train_pp": pp}))
+    print(json.dumps({"runtime": runtime}))
+    print(json.dumps({"gemma": gemma}))
     if args.against:
         print(json.dumps({"against": against(
             torch, attn, args.against, randn, n_layers)}))

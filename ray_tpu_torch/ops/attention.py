@@ -1,7 +1,10 @@
 """Attention ops (PyTorch port of `ray_tpu/ops/attention.py`): the
 reference MHA, and flash attention carried by CUDA kernels written for
-Hopper (`csrc/flash_fwd.cu`; `csrc/flash_bwd.cu`, whose op is three
-launches).
+Hopper. Two pairs: the wgmma kernels for bf16 at head_dim 64 and 128
+(`csrc/flash_fwd.cu`; `csrc/flash_bwd.cu`, whose op is three launches),
+and the "any" kernels for bf16, f16 and f32 at every other head_dim up
+to 256 (`csrc/flash_fwd_any.cu`, `csrc/flash_bwd_any.cu`).
+`_kernel_for` picks the pair; nothing falls back from one to another.
 
 Each kernel has a plain PyTorch version here that computes the same
 function the same way: log2-domain logits (q pre-scaled by
@@ -33,8 +36,17 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 #: public wrapper pads both sequence axes to a multiple of it.
 BLOCK = 64
 
-#: Head dims the kernels are instantiated for.
+#: Head dims the wgmma kernels are instantiated for (bf16 only).
 HEAD_DIMS = (64, 128)
+#: The "any" kernels take head_dims that are multiples of ANY_D_STEP up
+#: to MAX_HEAD_DIM; their wrappers pad q, k, v (and out, do) with zero
+#: columns to the next multiple, which changes no true column of any
+#: output (the scale is applied before, from the true head_dim).
+ANY_D_STEP = 32
+MAX_HEAD_DIM = 256
+ANY_HEAD_DIMS = tuple(range(ANY_D_STEP, MAX_HEAD_DIM + 1, ANY_D_STEP))
+#: dtype -> the "any" kernels' code for it.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
@@ -43,9 +55,10 @@ _LN2 = math.log(2.0)
 #: one where it launches its kernel and nowhere else. The backward op
 #: is three launches: `flash_bwd_pre` (delta, and dq's f32 accumulator
 #: zeroed), `flash_bwd` (the fused kernel) and `flash_bwd_dq` (dq
-#: scaled and cast from the accumulator).
+#: scaled and cast from the accumulator); the "any" pair's op likewise.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_pre": 0, "flash_bwd": 0,
-            "flash_bwd_dq": 0}
+            "flash_bwd_dq": 0, "flash_fwd_any": 0, "flash_bwd_any_pre": 0,
+            "flash_bwd_any": 0, "flash_bwd_any_dq": 0}
 
 
 def reset_launch_counts() -> None:
@@ -158,7 +171,33 @@ _SIGNATURES = {
     "flash_bwd_dq": (
         "flash_bwd", "rtt_flash_bwd_dq_bf16",
         [_P] * 2 + [_I] * 3 + [ctypes.c_float, _P]),
+    # The "any" pair: the first argument is the dtype's code.
+    "flash_fwd_any": (
+        "flash_fwd_any", "rtt_flash_fwd_any", [_I] + [_P] * 5 + [_I] * 6 + [_P]),
+    "flash_bwd_any_pre": (
+        "flash_bwd_any", "rtt_flash_bwd_any_pre",
+        [_I] + [_P] * 4 + [_I] * 2 + [_P]),
+    "flash_bwd_any": (
+        "flash_bwd_any", "rtt_flash_bwd_any", [_I] + [_P] * 9 + [_I] * 7 + [_P]),
+    "flash_bwd_any_dq": (
+        "flash_bwd_any", "rtt_flash_bwd_any_dq",
+        [_I] + [_P] * 2 + [ctypes.c_longlong, ctypes.c_float, _P]),
 }
+
+
+def _kernel_for(dtype: torch.dtype, d: int) -> str:
+    """The kernel pair that takes (dtype, head_dim): "wgmma" for bf16 at
+    HEAD_DIMS, "any" for bf16, f16 or f32 at every other head_dim up to
+    MAX_HEAD_DIM. Raises ValueError on anything else."""
+    if dtype == torch.bfloat16 and d in HEAD_DIMS:
+        return "wgmma"
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash attention: dtype {dtype} not supported "
+                         f"(kernels take {list(_DTYPE_CODES)})")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash attention: head_dim {d} not supported "
+                         f"(kernels take 1..{MAX_HEAD_DIM})")
+    return "any"
 
 
 def _kernel(name: str):
@@ -182,10 +221,10 @@ def _check_cuda(name: str, device, dtype, *tensors) -> None:
                              "16-byte aligned")
 
 
-def _check_shapes(name, q, k, v):
+def _check_shapes(name, q, k, v, dims=HEAD_DIMS):
     bh, t, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
+    if d not in dims:
+        raise ValueError(f"{name}: head_dim {d} not in {tuple(dims)}")
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"{name}: q {tuple(q.shape)} / k {tuple(k.shape)}"
                          f" / v {tuple(v.shape)} mismatch")
@@ -209,6 +248,8 @@ def flash_forward(q2, k, v, causal: bool, kv_len: int):
     BLOCK. Returns (out [bh, t, d] in q's dtype, lse [bh, t] f32)."""
     if q2.device.type == "cpu":
         return flash_forward_plain(q2, k, v, causal, kv_len)
+    if _kernel_for(q2.dtype, q2.shape[-1]) == "any":
+        return _flash_forward_any(q2, k, v, causal, kv_len)
     _check_cuda("flash_fwd", q2.device, torch.bfloat16, q2, k, v)
     _check_shapes("flash_fwd", q2, k, v)
     bh, t, d = q2.shape
@@ -292,6 +333,9 @@ def flash_backward(q2, k, v, out, do, lse, scale: float, causal: bool,
         return flash_backward_plain(
             q2, k, v, out, do, lse, scale, causal, kv_len, q_len
         )
+    if _kernel_for(q2.dtype, q2.shape[-1]) == "any":
+        return _flash_backward_any(q2, k, v, out, do, lse, scale, causal,
+                                   kv_len, q_len)
     # Every input is checked before the first of the three launches.
     _check_backward("flash_bwd", q2, k, v, do, lse)
     _check_cuda("flash_bwd", q2.device, torch.bfloat16, out)
@@ -301,6 +345,72 @@ def flash_backward(q2, k, v, out, do, lse, scale: float, causal: bool,
     dk, dv = flash_backward_main(q2, k, v, do, lse, delta, dq_acc, causal,
                                  kv_len, q_len)
     return flash_backward_dq(dq_acc, q2.shape, scale), dk, dv
+
+
+# ---------------------------------------------------------------------------
+# the "any" kernels: bf16, f16 and f32 at every head_dim up to 256
+# ---------------------------------------------------------------------------
+
+def _pad_d(*tensors):
+    """Each [bh, t, d] tensor with zero columns up to the next multiple of
+    ANY_D_STEP, contiguous."""
+    d = tensors[0].shape[-1]
+    pad = -d % ANY_D_STEP
+    return [(F.pad(x, (0, pad)) if pad else x).contiguous() for x in tensors]
+
+
+def _flash_forward_any(q2, k, v, causal: bool, kv_len: int):
+    """`flash_forward` on the "any" kernel (csrc/flash_fwd_any.cu)."""
+    dtype = q2.dtype
+    _check_cuda("flash_fwd_any", q2.device, dtype, q2, k, v)
+    d = q2.shape[-1]
+    q2p, kp, vp = _pad_d(q2, k, v)
+    _check_shapes("flash_fwd_any", q2p, kp, vp, ANY_HEAD_DIMS)
+    bh, t, dp = q2p.shape
+    out = torch.empty_like(q2p)
+    lse = torch.empty(bh, t, dtype=torch.float32, device=q2.device)
+    _launch(
+        "flash_fwd_any", _kernel("flash_fwd_any"), q2.device,
+        _DTYPE_CODES[dtype], q2p.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), bh, t, kp.shape[1], dp, kv_len,
+        int(causal),
+    )
+    return (out[..., :d].contiguous() if dp != d else out), lse
+
+
+def _flash_backward_any(q2, k, v, out, do, lse, scale: float, causal: bool,
+                        kv_len: int, q_len: int):
+    """`flash_backward` on the "any" kernels (csrc/flash_bwd_any.cu):
+    delta and a zeroed f32 dq accumulator, the fused kernel, and dq's
+    scale and cast, each launch counted."""
+    dtype = q2.dtype
+    _check_cuda("flash_bwd_any", q2.device, dtype, q2, k, v, out, do)
+    _check_cuda("flash_bwd_any", q2.device, torch.float32, lse)
+    d = q2.shape[-1]
+    q2p, kp, vp, outp, dop = _pad_d(q2, k, v, out, do)
+    _check_shapes("flash_bwd_any", q2p, kp, vp, ANY_HEAD_DIMS)
+    if dop.shape != q2p.shape or outp.shape != q2p.shape \
+            or lse.shape != q2.shape[:2]:
+        raise ValueError("flash_bwd_any: out/do/lse shapes do not match q")
+    bh, t, dp = q2p.shape
+    code = _DTYPE_CODES[dtype]
+    delta = torch.empty(bh, t, dtype=torch.float32, device=q2.device)
+    dq_acc = torch.empty(bh * t * dp, dtype=torch.float32, device=q2.device)
+    _launch("flash_bwd_any_pre", _kernel("flash_bwd_any_pre"), q2.device,
+            code, outp.data_ptr(), dop.data_ptr(), delta.data_ptr(),
+            dq_acc.data_ptr(), bh * t, dp)
+    dk = torch.empty_like(kp)
+    dv = torch.empty_like(vp)
+    _launch("flash_bwd_any", _kernel("flash_bwd_any"), q2.device,
+            code, q2p.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), bh, t, kp.shape[1], dp, kv_len, q_len, int(causal))
+    dq = torch.empty_like(q2p)
+    _launch("flash_bwd_any_dq", _kernel("flash_bwd_any_dq"), q2.device,
+            code, dq_acc.data_ptr(), dq.data_ptr(), dq.numel(), float(scale))
+    if dp != d:
+        dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------

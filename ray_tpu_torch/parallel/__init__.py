@@ -4,8 +4,8 @@ explicit collectives over a mesh dimension's process group, and the
 SPMD GPipe pipeline.
 
 The JAX package's pipeline schedules (`schedule`: 1F1B, interleaved)
-are not ported yet: they go with the MPMD pipeline, which waits for the
-actor runtime (ROADMAP queue 1, item 8)."""
+are not ported yet: they go with the MPMD pipeline (ROADMAP queue 1,
+item 4), which the copied actor runtime now carries."""
 
 from .collective import (
     all_to_all,

@@ -55,6 +55,23 @@ def _world_size() -> int:
     return max(torch.cuda.device_count(), 1)
 
 
+def _refuse_part_of_a_bound_group(need: int, what: str) -> None:
+    """A NCCL group bound to its card (as `init_torch_distributed` makes
+    it) splits a mesh's groups off on their members only, after which
+    later groups differ between ranks and the gang hangs: a mesh of
+    `need` ranks must then span the whole group. Checked before any
+    group is made."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    world = dist.get_world_size()
+    bound = getattr(dist.distributed_c10d._get_default_group(),
+                    "bound_device_id", None)
+    if need < world and bound is not None:
+        raise ValueError(f"{what}: a mesh of {need} of {world} ranks on a "
+                         "group bound to its card: build it over the whole "
+                         "group")
+
+
 @dataclass(frozen=True)
 class MeshSpec:
     """Logical parallelism layout; `build()` realizes it on the ranks."""
@@ -99,13 +116,16 @@ class MeshSpec:
         """The DeviceMesh over `ranks` (default: every rank of the
         process group) on `device`'s type: "cuda" for a world on NCCL,
         "cpu" for one on gloo. `slice_of(rank)` names a rank's slice for
-        `dcn_dp > 1`; without it the ranks split into contiguous blocks."""
+        `dcn_dp > 1`; without it the ranks split into contiguous blocks.
+        On a group bound to its card the mesh must span the whole group
+        (`_refuse_part_of_a_bound_group`)."""
         ranks = list(ranks if ranks is not None else range(_world_size()))
         need = self.num_devices()
         if len(ranks) < need:
             raise ValueError(
                 f"MeshSpec needs {need} devices, have {len(ranks)}"
             )
+        _refuse_part_of_a_bound_group(need, f"MeshSpec {self.axis_sizes()}")
         if self.dcn_dp > 1:
             grid = self._hybrid_grid(ranks, slice_of)
         else:
@@ -174,11 +194,7 @@ def pipeline_mesh(pp: int = 1, sp: int = 1, ep: int = 1,
     if need > world:
         raise ValueError(f"a pp={pp} x sp={sp} x ep={ep} mesh needs {need} "
                          f"ranks, the group has {world}")
-    bound = getattr(dist.distributed_c10d._get_default_group(),
-                    "bound_device_id", None)
-    if need < world and bound is not None:
-        raise ValueError(f"a mesh of {need} of {world} ranks on a group "
-                         "bound to its card: build it over the whole group")
+    _refuse_part_of_a_bound_group(need, f"pipeline_mesh({pp}, {sp}, {ep})")
     grid = torch.arange(need).reshape(pp, sp, ep)
     return DeviceMesh(torch.device(device).type, grid,
                       mesh_dim_names=PIPELINE_AXES)

@@ -4,9 +4,11 @@ checkpointing.
 
 `make_pp_train_step` is the pipeline-parallel step (pp x sp x ep).
 
-Not ported yet: the MPMD pipeline (`MPMDPipeline`), `WorkerGroup` and
-the multi-worker gang (ROADMAP queue 1), and the head-side step
-telemetry (`telemetry`)."""
+`TorchTrainer(num_workers > 1)` runs on a `WorkerGroup` of the port's
+runtime actors (`worker_group.py`, copied), joined by `TorchBackend`.
+
+Not ported yet: the MPMD pipeline (`MPMDPipeline`), datasets (ROADMAP
+queue 1), and the head-side step telemetry re-exports (`telemetry`)."""
 
 from .backend import Backend, TorchBackend, init_torch_distributed, run_local_gang
 from .checkpoint import (

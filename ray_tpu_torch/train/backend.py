@@ -6,9 +6,9 @@ worker of the gang. The port's rendezvous is `torch.distributed`'s:
 `init_torch_distributed` joins one process group, NCCL on CUDA (one
 card per rank) and gloo on the CPU, with rank 0 hosting the TCP store.
 `run_local_gang` starts such a gang of local processes, which is how
-the CPU tests and `graft_entry.dryrun_multichip` run a mesh here.
-Running the rendezvous across a `WorkerGroup` (`TorchBackend.on_start`)
-waits for the copied actor runtime.
+the CPU tests and `graft_entry.dryrun_multichip` run a mesh here;
+`TorchBackend.on_start` runs the same rendezvous across a `WorkerGroup`
+of the port's runtime actors, as `TorchTrainer(num_workers > 1)` does.
 """
 
 from __future__ import annotations
@@ -29,17 +29,57 @@ class Backend:
         """Called when training finishes."""
 
 
+#: Seconds `TorchBackend.on_shutdown` waits for the ranks to leave.
+LEAVE_TIMEOUT_S = 60.0
+
+
 class TorchBackend(Backend):
     """Joins the gang's workers into one `torch.distributed` process
-    group (replaces `JaxBackend`'s `jax.distributed.initialize`): each
-    worker calls `init_torch_distributed(rank, size, address)` with
-    rank 0's address."""
+    group (replaces `JaxBackend`'s `jax.distributed.initialize`): rank 0
+    picks its address and a free port, and every worker calls
+    `init_torch_distributed(rank, size, address, device=...)` with it,
+    all at once. `backend_config["device"]`: "cuda" (the default; NCCL,
+    rank r on the worker's card r modulo its cards) or "cpu" (gloo).
+    `on_shutdown` destroys each worker's group."""
 
     def on_start(self, worker_group, backend_config: dict) -> None:
-        raise NotImplementedError(
-            "TorchBackend.on_start over a WorkerGroup waits for the copied "
-            "actor runtime (ROADMAP queue 1, trainer gang); run_local_gang "
-            "starts a local gang meanwhile")
+        device = backend_config.get("device", "cuda")
+        hosts = worker_group.run_all(_host_and_port)
+        host, port = hosts[0]
+        # One host: the loopback. Across hosts, rank 0's name.
+        if all(h == host for h, _ in hosts):
+            host = "localhost"
+        address = f"{host}:{port}"
+        worker_group.run_per_rank(
+            _join_group,
+            lambda rank: (rank, worker_group.size, address, device))
+
+    def on_shutdown(self, worker_group) -> None:
+        """Destroy each worker's group. A rank still blocked in a
+        collective (its loop failed on another rank) never takes the
+        call: after LEAVE_TIMEOUT_S the gang's shutdown kills it."""
+        from .. import api as rt
+
+        refs = [w.run.remote(_leave_group) for w in worker_group.workers]
+        try:
+            rt.get(refs, timeout=LEAVE_TIMEOUT_S)
+        except Exception:  # noqa: BLE001 -- the actors are killed next
+            pass
+
+
+def _host_and_port():
+    return socket.gethostname(), free_port()
+
+
+def _join_group(rank, world_size, address, device):
+    init_torch_distributed(rank, world_size, address, device=device)
+
+
+def _leave_group():
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def free_port() -> int:

@@ -15,8 +15,8 @@ class ScalingConfig:
     """How to scale training.
 
     The unit of scale is a device mesh: `num_workers` is the number of
-    processes in the gang (1 = this process; more wait for the copied
-    actor runtime); `mesh` is the gang's parallelism layout, one card
+    processes in the gang (1 = this process; more are actors of the
+    port's runtime, one card each when `use_gpu`, else on the CPU); `mesh` is the gang's parallelism layout, one card
     per rank; `resources_per_worker` feeds the placement-group request
     when the gang is scheduled on a cluster.
     """
@@ -67,3 +67,6 @@ class Result:
     checkpoint_path: Optional[str]
     error: Optional[BaseException] = None
     metrics_history: list = dataclasses.field(default_factory=list)
+    #: A gang's reports, one history per rank (rank 0's is
+    #: `metrics_history`); empty for a loop run in this process.
+    metrics_by_rank: list = dataclasses.field(default_factory=list)

@@ -173,7 +173,7 @@ def get_dataset_shard(name: str = "train"):
     for the copied data runtime."""
     raise NotImplementedError(
         "get_dataset_shard: the data runtime (ray_tpu.data) is not copied "
-        "into the port yet (ROADMAP queue 1, trainer gang and datasets)")
+        "into the port yet (ROADMAP queue 1, item 2, \"Data\")")
 
 
 def get_device_batches(name: str = "train", **kwargs):
@@ -182,5 +182,5 @@ def get_device_batches(name: str = "train", **kwargs):
     works meanwhile)."""
     raise NotImplementedError(
         "get_device_batches: the data runtime (ray_tpu.data) is not copied "
-        "into the port yet (ROADMAP queue 1, trainer gang and datasets); "
+        "into the port yet (ROADMAP queue 1, item 2, \"Data\"); "
         "prefetch_to_device takes any iterator of host batches")

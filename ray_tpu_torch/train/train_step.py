@@ -24,6 +24,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import math
 import time
 from collections import deque
@@ -272,7 +273,17 @@ def shard_module(model: nn.Module, mesh, param_annotations: Dict[str, Any],
       with `batch_groups` (`Llama`) gets the data mesh's groups.
 
     The model must be whole on every rank, on the mesh's device type or
-    the CPU, with the same values."""
+    the CPU, with the same values.
+
+    FSDP2 ties a sharded model into reference cycles (the state and the
+    hooks it puts on each module refer back to the module), so a model
+    dropped by its caller outlives `del` until the cyclic collector
+    runs, where JAX frees arrays by refcount. Laying out a new model is
+    where an earlier one is replaced (a second mesh step in a process, a
+    retried fit, `donate=False`'s copy of every step): it runs the
+    cyclic collector first, so the old one's memory is free before the
+    new one takes its own."""
+    gc.collect()
     sizes = _check_mesh(mesh, param_annotations)
     model.to(mesh.device_type)
     if sizes["tp"] > 1:

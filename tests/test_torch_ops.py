@@ -226,13 +226,110 @@ class TestFlashBackwardKernel:
                                        rtol=GRAD_TOL, err_msg=name)
 
 
+class TestKernelDispatch:
+    """`_kernel_for` pins which kernel pair takes each (dtype, head_dim):
+    the wgmma kernels take bf16 at 64 and 128, the "any" kernels every
+    other head_dim up to 256 in bf16, f16 and f32; nothing else."""
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                       torch.float32])
+    def test_every_head_dim_up_to_256(self, dtype):
+        for d in range(1, attn.MAX_HEAD_DIM + 1):
+            want = ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
+                    else "any")
+            assert attn._kernel_for(dtype, d) == want, d
+
+    @pytest.mark.parametrize("dtype,d,match", [
+        (torch.bfloat16, 257, "head_dim"), (torch.float32, 512, "head_dim"),
+        (torch.float16, 0, "head_dim"), (torch.float64, 64, "dtype"),
+        (torch.int32, 128, "dtype"),
+    ])
+    def test_what_no_kernel_takes_raises(self, dtype, d, match):
+        with pytest.raises(ValueError, match=match):
+            attn._kernel_for(dtype, d)
+
+    def test_zero_padded_head_dim_is_exact(self):
+        """The "any" wrappers pad d with zero columns to a multiple of 32
+        (`_pad_d`): on the plain versions out and lse are unchanged to the
+        bit, the padded columns of every output are zero, and the true
+        columns of dq, dk and dv move by f32 rounding only (the CPU's
+        blocked sums over d group the terms otherwise once d grows; the
+        kernels add the zero columns last, which changes nothing)."""
+        d, scale = 96 - 16, 1.0 / math.sqrt(80)
+        q, k, v, do = (torch.from_numpy(_rand(60 + i, 2, 128, d))
+                       for i in range(4))
+        q2 = attn.prescale(q, scale)
+        out, lse = attn.flash_forward_plain(q2, k, v, True, 128)
+        grads = attn.flash_backward_plain(q2, k, v, out, do, lse, scale, True,
+                                          128, 128)
+        q2p, kp, vp, outp, dop = attn._pad_d(q2, k, v, out, do)
+        assert q2p.shape[-1] == 96 and q2p.is_contiguous()
+        out_p, lse_p = attn.flash_forward_plain(q2p, kp, vp, True, 128)
+        grads_p = attn.flash_backward_plain(q2p, kp, vp, outp, dop, lse_p,
+                                            scale, True, 128, 128)
+        assert torch.equal(out_p[..., :d], out) and torch.equal(lse_p, lse)
+        assert not out_p[..., d:].any()
+        for g, gp in zip(grads, grads_p):
+            torch.testing.assert_close(gp[..., :d], g, rtol=1e-5, atol=1e-6)
+            assert not gp[..., d:].any()
+
+
+class TestAnyHeadDimsMatchPallas:
+    """Where the "any" kernels take over on the card (f32, head_dim 256,
+    96 and 16), the port's plain path (what a CPU tensor runs) equals the
+    JAX package's `flash_attention` with its Pallas kernels in interpret
+    mode, forward and gradients, at b 1 x h 2 x t 256, causal. f32 at
+    `FWD_TOL`/`GRAD_TOL` (as tests/test_ops.py holds the JAX kernels);
+    bf16 within BF16_REL_TOL of each output's largest element (both
+    round P, dS and the outputs to bf16; their f32 sums differ in
+    order only)."""
+
+    @pytest.mark.parametrize("dtype,d", [("float32", 256), ("bfloat16", 256),
+                                         ("float32", 96), ("float32", 16)])
+    def test_forward_and_gradients(self, dtype, d):
+        q, k, v, g = (_rand(70 + i, 1, 2, 256, d) for i in range(4))
+        jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+        jq, jk, jv, jg = (jnp.asarray(x, jdt) for x in (q, k, v, g))
+
+        def jax_loss(q, k, v):
+            out = jax_attn.flash_attention(q, k, v, causal=True,
+                                           force_pallas=True)
+            return jnp.sum(out.astype(jnp.float32) * jg.astype(jnp.float32))
+
+        want_out = jax_attn.flash_attention(jq, jk, jv, causal=True,
+                                            force_pallas=True)
+        want = jax.grad(jax_loss, argnums=(0, 1, 2))(jq, jk, jv)
+        tdt = getattr(torch, dtype)
+
+        def t(x):
+            return torch.from_numpy(np.asarray(x, np.float32)).to(tdt)
+
+        qt, kt, vt = (t(x).requires_grad_() for x in (jq, jk, jv))
+        out = attn.flash_attention(qt, kt, vt, causal=True)
+        got = torch.autograd.grad(out, (qt, kt, vt), t(jg))
+        pairs = [(out, want_out, "out")] + list(zip(got, want,
+                                                    ("dq", "dk", "dv")))
+        for a, w, name in pairs:
+            assert a.dtype == tdt, name
+            a, w = a.detach().float().numpy(), np.asarray(w, np.float32)
+            if dtype == "float32":
+                tol = FWD_TOL if name == "out" else GRAD_TOL
+                np.testing.assert_allclose(a, w, atol=tol, rtol=tol,
+                                           err_msg=name)
+            else:
+                err = np.abs(a - w).max()
+                assert err <= BF16_REL_TOL * np.abs(w).max(), (name, err)
+
+
 class TestKernelWrappers:
     def test_cpu_tensor_takes_plain_version_without_launch(self):
         attn.reset_launch_counts()
         q = torch.zeros(1, 64, 64)
         attn.flash_forward(q, q, q, True, 64)
         assert attn.LAUNCHES == {"flash_fwd": 0, "flash_bwd_pre": 0,
-                                 "flash_bwd": 0, "flash_bwd_dq": 0}
+                                 "flash_bwd": 0, "flash_bwd_dq": 0,
+                                 "flash_fwd_any": 0, "flash_bwd_any_pre": 0,
+                                 "flash_bwd_any": 0, "flash_bwd_any_dq": 0}
 
     def test_cpu_backward_takes_plain_version_without_launch(self):
         attn.reset_launch_counts()

@@ -69,6 +69,59 @@ def test_mesh_spec_build(world8):
     assert list(mesh.get_coordinate()) == [0, 0, 0, 2, 0, 1]
 
 
+def test_mesh_spec_build_spans_the_whole_of_a_bound_group(world8):
+    """A NCCL group bound to its card (`init_torch_distributed`) splits
+    a mesh's groups on their members only, after which the ranks' later
+    groups differ (a four-card run hung so): there `MeshSpec.build`
+    refuses a mesh over part of the group, before it makes any group.
+    Unbound (gloo) it is built."""
+    groups = dist.distributed_c10d._world.pg_map
+    assert MeshSpec(fsdp=4).build("cpu").get_coordinate() is None  # rank 5
+    group = dist.distributed_c10d._get_default_group()
+    group.bound_device_id = torch.device("cuda", 0)
+    try:
+        before = len(groups)
+        with pytest.raises(ValueError, match="whole group"):
+            MeshSpec(fsdp=4).build("cpu")
+        with pytest.raises(ValueError, match="whole group"):
+            MeshSpec(fsdp=2, tp=2).build("cpu", ranks=range(8))
+        assert len(groups) == before
+        assert MeshSpec(fsdp=4, tp=2).build("cpu").size() == 8
+    finally:
+        group.bound_device_id = None
+
+
+def test_a_dropped_fsdp2_model_is_freed_when_the_next_is_laid_out(world8):
+    """FSDP2 ties a sharded model into reference cycles, so `del` alone
+    does not free it (JAX frees by refcount); laying out the next model
+    (`shard_module`, here through `make_train_step`'s init) frees it
+    first. With the collector off and no `gc.collect()` here."""
+    import gc
+    import weakref
+
+    cfg = llama.LlamaConfig.tiny()
+    mesh = MeshSpec(fsdp=8).build("cpu")
+
+    def laid_out():
+        model = llama.Llama(cfg, device="cpu")
+        init_fn, _ = make_train_step(llama.loss_fn, default_optimizer(), mesh,
+                                     llama.param_annotations(cfg))
+        init_fn(model)
+        return weakref.ref(model)
+
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        first = laid_out()
+        assert first() is not None  # the cycles outlive the last reference
+        second = laid_out()
+        assert first() is None
+        assert second() is not None
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def test_mesh_auto(world8):
     spec = MeshSpec.auto(8, tp=2)
     assert spec.fsdp == 4

@@ -106,6 +106,83 @@ def test_source_has_no_jax_or_ray_tpu_import(path):
         assert not any(_forbidden(n) for n in names), (path, node.lineno, names)
 
 
+def test_runtime_and_its_workers_leave_jax_and_ray_tpu_out():
+    """`ray_tpu_torch.init()`, a task and an actor in a fresh
+    interpreter: neither the driver nor the workers the runtime starts
+    import JAX or anything of `ray_tpu` (a copied module name left as
+    `ray_tpu.…` would start the JAX package's workers)."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch as rt\n"
+        "def bad():\n"
+        "    import sys\n"
+        "    return sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                  ('jax', 'jaxlib', 'optax', 'ray_tpu'))\n"
+        "rt.init(num_cpus=2)\n"
+        "task = rt.remote(bad)\n"
+        "@rt.remote\n"
+        "class Actor:\n"
+        "    def bad(self):\n"
+        "        return bad()\n"
+        "    def module(self):\n"
+        "        import sys\n"
+        "        return sys.modules['__main__'].__spec__.name\n"
+        "a = Actor.remote()\n"
+        "out = {'task': rt.get(task.remote(), timeout=60),\n"
+        "       'actor': rt.get(a.bad.remote(), timeout=60),\n"
+        "       'worker_main': rt.get(a.module.remote(), timeout=60)}\n"
+        "rt.shutdown()\n"
+        "out['driver'] = bad()\n"
+        "print(out)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = eval(proc.stdout.strip().splitlines()[-1])
+    # A worker runs the port's entry point: forked from the port's warm
+    # template, or started fresh as its worker_main.
+    assert out.pop("worker_main") in (
+        "ray_tpu_torch._private.worker_forkserver",
+        "ray_tpu_torch._private.worker_main"), out
+    assert out == {"task": [], "actor": [], "driver": []}, out
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_string_names_a_ray_tpu_module(path):
+    """Module names in the port's strings read `ray_tpu_torch.`: no
+    string (docstrings aside) is a dotted `ray_tpu.…` module path, runs
+    `-m ray_tpu.…`, imports `ray_tpu` by text, or names `ray_tpu.init()`
+    (the copied runtime's daemon and fork server start workers by such
+    strings). `ray_tpu.wire`, the protobuf package of the byte-identical
+    `protocol_pb2.py`, is in bytes, and prose that names a JAX-package
+    module as a reference is not a module name."""
+    import re
+
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(
+                    getattr(body[0], "value", None), ast.Constant):
+                docstrings.add(id(body[0].value))
+    hits = []
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings):
+            continue
+        text = node.value
+        if (re.fullmatch(r"\s*ray_tpu(\.\w+)+\s*", text)
+                or re.search(r"(-m|import|from)\s+ray_tpu\b(?!_)", text)
+                or "ray_tpu.init(" in text):
+            hits.append((node.lineno, text[:80]))
+    assert not hits, hits
+
+
 def test_entry_points_default_to_the_card():
     assert inspect.signature(llama.Llama).parameters["device"].default == "cuda"
     assert inspect.signature(llama.init_params).parameters["device"].default == "cuda"

@@ -346,21 +346,57 @@ class TestTorchTrainer:
             report({"x": 1})
 
     @pytest.mark.parametrize("kw,match", [
-        ({"scaling_config": ScalingConfig(num_workers=2)}, "WorkerGroup"),
         ({"datasets": {"train": [1, 2]}}, "data runtime"),
+        ({"datasets": {"train": [1, 2]},
+          "scaling_config": ScalingConfig(num_workers=2)}, "item 2"),
     ])
     def test_what_waits_for_the_runtime_raises(self, kw, match):
+        """Datasets wait for the copied data runtime (ROADMAP queue 1,
+        item 2, "Data"), with a gang or without."""
         with pytest.raises(NotImplementedError, match=match):
             TorchTrainer(lambda: None, **kw)
 
     @pytest.mark.parametrize("call", [
         lambda: get_dataset_shard("train"),
         lambda: get_device_batches("train"),
-        lambda: TorchBackend().on_start(None, {}),
     ])
     def test_runtime_entry_points_raise(self, call):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+
+    def test_a_failed_attempts_mesh_model_is_freed_by_the_retry(
+            self, world_of_one):
+        """A retried fit frees the failed attempt's FSDP2 model, which
+        its reference cycles would keep alive until the collector ran:
+        with the collector off and no `gc.collect()` here."""
+        import gc
+        import weakref
+
+        cfg = llama.LlamaConfig.tiny()
+        dropped = []
+
+        def loop():
+            if not dropped:
+                model = llama.Llama(cfg, device="cpu")
+                init_fn, _ = make_train_step(
+                    llama.loss_fn, default_optimizer(),
+                    MeshSpec(fsdp=1).build("cpu"),
+                    llama.param_annotations(cfg))
+                init_fn(model)
+                dropped.append(weakref.ref(model))
+                raise RuntimeError("first attempt fails")
+            report({"ok": 1})
+
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            result = TorchTrainer(loop, run_config=RunConfig(
+                failure_config=FailureConfig(max_failures=1))).fit()
+            assert result.error is None and result.metrics == {"ok": 1}
+            assert dropped[0]() is None
+        finally:
+            if enabled:
+                gc.enable()
 
 
 @pytest.fixture
@@ -417,3 +453,128 @@ class TestDeviceBatchPrefetch:
             losses.append([step_fn(state, toks[:, :-1], toks[:, 1:])[1]
                            ["loss"].item() for _ in range(3)])
         assert losses[0] == losses[1]
+
+
+@pytest.fixture(scope="module")
+def cluster():
+    """The port's runtime, for the trainer gang: one per module."""
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=4)
+    try:
+        yield rt
+    finally:
+        rt.shutdown()
+
+
+class TestTrainerGang:
+    """`TorchTrainer(num_workers=2)` on a gang of the port's runtime
+    actors, joined by `TorchBackend` into a gloo group (`use_gpu=False`),
+    against JAX's `make_train_step` on a 2-device CPU mesh: the same
+    parameters (JAX init through `load_jax_params`) and batch, f32, under
+    `test_torch_sharded.py`'s bars (rtol 1e-4 on the losses)."""
+
+    STEPS = 3
+
+    @pytest.mark.timeout(300)
+    def test_gang_of_two_matches_jax_fsdp2(self, cluster, tmp_path):
+        cfg_j = jax_llama.LlamaConfig.tiny()
+        mesh_j = JaxMeshSpec(fsdp=2).build(jax.devices()[:2])
+        init_fn, step_fn = jax_train.make_train_step(
+            lambda p, t, y: jax_llama.loss_fn(p, t, y, cfg_j),
+            jax_train.default_optimizer(learning_rate=1e-2, total_steps=20),
+            mesh_j, jax_llama.param_annotations(cfg_j), donate=False)
+        state = init_fn(jax.random.PRNGKey(0),
+                        lambda k: jax_llama.init_params(k, cfg_j))
+        start = {k: v.numpy() for k, v in llama.load_jax_params(
+            jax.tree.map(np.array, state.params),
+            llama.LlamaConfig.tiny()).items()}
+        tokens = np.random.default_rng(4).integers(
+            0, cfg_j.vocab_size, (4, 33)).astype(np.int32)
+        want = []
+        for _ in range(self.STEPS):
+            state, metrics = step_fn(state, tokens[:, :-1], tokens[:, 1:])
+            want.append(float(metrics["loss"]))
+
+        def loop(config):
+            # Runs in each gang actor: port code only, no JAX.
+            import torch
+
+            from ray_tpu_torch.models import llama
+            from ray_tpu_torch.parallel import MeshSpec
+            from ray_tpu_torch.train import (
+                default_optimizer,
+                get_context,
+                make_train_step,
+                report,
+                save_checkpoint,
+                shard_batch,
+            )
+
+            cfg = llama.LlamaConfig.tiny()
+            mesh = MeshSpec(fsdp=2).build("cpu")
+            model = llama.Llama(cfg, device="cpu")
+            model.load_state_dict({k: torch.from_numpy(v.copy())
+                                   for k, v in config["start"].items()})
+            init_fn, step_fn = make_train_step(
+                llama.loss_fn,
+                default_optimizer(learning_rate=1e-2, total_steps=20),
+                mesh, llama.param_annotations(cfg))
+            st = init_fn(model)
+            batch = torch.from_numpy(config["tokens"]).long()
+            inputs = shard_batch(batch[:, :-1], mesh)
+            labels = shard_batch(batch[:, 1:], mesh)
+            for step in range(config["steps"]):
+                st, metrics = step_fn(st, inputs, labels)
+                ckpt = None
+                if step == config["steps"] - 1:
+                    ckpt = config["path"]
+                    save_checkpoint(ckpt, st.state_dict(), {"step": step})
+                report({"loss": metrics["loss"].item(), "step": step,
+                        "rank": get_context().world_rank,
+                        "world": get_context().world_size}, checkpoint=ckpt)
+
+        path = str(tmp_path / "ckpt")
+        result = TorchTrainer(
+            loop, train_loop_config={"start": start, "tokens": tokens,
+                                     "steps": self.STEPS, "path": path},
+            scaling_config=ScalingConfig(num_workers=2, use_gpu=False),
+            backend=TorchBackend(),
+            run_config=RunConfig(storage_path=str(tmp_path / "storage")),
+        ).fit()
+        assert result.error is None, result.error
+        assert len(result.metrics_by_rank) == 2
+        for rank, history in enumerate(result.metrics_by_rank):
+            assert [m["rank"] for m in history] == [rank] * self.STEPS
+            assert all(m["world"] == 2 for m in history)
+            np.testing.assert_allclose([m["loss"] for m in history], want,
+                                       rtol=1e-4)
+        assert result.metrics_history == result.metrics_by_rank[0]
+        assert result.checkpoint_path == path
+        assert load_metadata(path) == {"step": self.STEPS - 1}
+
+    @pytest.mark.timeout(200)
+    def test_a_failing_rank_fails_the_fit(self, cluster):
+        """A rank's error comes back as the fit's error (no retry left),
+        and the gang is torn down: the next fit starts a fresh one."""
+
+        def loop():
+            from ray_tpu_torch.train import get_context, report
+
+            if get_context().world_rank == 1:
+                raise ValueError("rank one fails")
+            report({"ok": 1})
+
+        scaling = ScalingConfig(num_workers=2, use_gpu=False)
+        result = TorchTrainer(loop, scaling_config=scaling).fit()
+        assert isinstance(result.error, ValueError)
+        assert "rank one fails" in str(result.error)
+
+        def fine():
+            from ray_tpu_torch.train import get_context, report
+
+            report({"rank": get_context().world_rank})
+
+        result = TorchTrainer(fine, scaling_config=scaling).fit()
+        assert result.error is None
+        assert [h[0]["rank"] for h in result.metrics_by_rank] == [0, 1]
