@@ -27,16 +27,17 @@ Phases, none of whose failures is caught:
       writes no dq or reads `do` at the wrong rows. Then time each op
       (the backward's three launches together and each alone), its
       plain version and `scaled_dot_product_attention` (a yardstick
-      only: the port never calls it). Then the same for the "any"
-      kernels (`csrc/flash_fwd_any.cu`, `csrc/flash_bwd_any.cu`: every
-      dtype and head_dim the wgmma pair does not take) at ANY_CASES
-      (bf16 d 256, f32 d 128 and 256, f16 d 128, d 96 and 16, and their
-      tiles' edges), f32 held at F32_REL_TOL (1e-5, since f32 stays f32:
-      the plain version with TF32 or bf16 products must fall outside
-      it), with the two negative controls at bf16 d 256, the public op
-      against `mha_reference` in f32 at ANY_OP_CASES, and their times at
-      ANY_TIMED beside SDPA and their bounds (f32's at the 67 TFLOP/s of
-      the CUDA cores); at the bf16 shape also under two sharp softmaxes
+      only: the port never calls it). Then the same for the "any" and
+      "wide" kernels (`csrc/flash_fwd_any.cu`, `csrc/flash_bwd_any.cu`:
+      every dtype and head_dim the wgmma pair does not take, the "wide"
+      ones above 256) at ANY_CASES (16-bit and f32 at d 16 to 512, and
+      their tiles' edges), f32 held at F32_REL_TOL (1e-5, since f32
+      stays f32: the plain version with TF32 or bf16 products must fall
+      outside it), with the two negative controls at bf16 d 256 and 512,
+      the public op against `mha_reference` in f32 at ANY_OP_CASES, and
+      their times at ANY_TIMED beside SDPA and their bounds (f32's at the
+      67 TFLOP/s of the CUDA cores); at Gemma's bf16 shape also under two
+      sharp softmaxes
       (q not scaled by 1/sqrt(d), and 8 times that, where P underflows),
       in turns with the op's own scaling, to show whether the time
       depends on the data;
@@ -63,6 +64,10 @@ Phases, none of whose failures is caught:
       batch 1 x 4096, 3 steps of `make_train_step`: the loss must be
       finite and fall, and every flash launch must go to the "any"
       kernels (2 forward and one backward op per layer per step).
+  (h3) the "wide" kernels' path: Gemma-2B's geometry with head_dim 512
+      (`WIDE_HEAD_DIM`; no preset has a head_dim above 256), 2 layers,
+      batch 1 x 1024, 3 steps under remat "full": the loss must be finite
+      and fall, and every flash launch must go to the "wide" kernels.
   (f) after (c) has freed its memory: (f1) the slice's model (same
       width and depth, batch 2 x 4096, bf16, flash) from one set of
       weights and one batch, 4 steps under each remat policy ("full",
@@ -138,8 +143,9 @@ tokens/s, MFU, peak memory, losses and launches of each (f1) policy
 and of (f2); (f3)'s checkpoints and `ckpt_block_ms`), then
 `{"train_pp": {...}}` (step ms, tokens/s, MFU, peak memory, losses and
 launches per step of (g1) and (g2); (g3)'s errors and times), then
-`{"runtime": {...}}` ((h1)) and `{"gemma": {...}}` ((h2)), and as the
-last line `{"ok": true, "device": {...}}`. Exits non-zero with no
+`{"runtime": {...}}` ((h1)), `{"gemma": {...}}` ((h2)) and `{"wide":
+{...}}` ((h3)), then the card's name and power limit, and as the last
+line `{"ok": true, "device": {...}}`. Exits non-zero with no
 result line when there is no CUDA card or the port is not beside it.
 
 `--cards 4` (never part of the plain run) builds the kernels and runs
@@ -172,8 +178,9 @@ the repo at ROOT (for example `git archive <commit>` unpacked into a
 gitignored directory). Its `ray_tpu_torch` is imported beside this one
 and builds its kernels from its own sources. At the slice's shape its
 forward kernel and its backward op (every launch its autograd backward
-makes) are held to this tree's plain versions and timed in turns ROOT,
-this, this, ROOT. Then each tree, ROOT first, trains two steps of the
+makes), and at Gemma-2B's (ANY_TIMED's first) its "any" forward and
+backward op, are held to this tree's plain versions and timed in turns
+ROOT, this, this, ROOT. Then each tree, ROOT first, trains two steps of the
 slice from the same seed with the allocator's history recorded: the
 peak of device memory and the largest allocations alive at it, by the
 innermost line of the port that made them. Prints `{"against": ...}`.
@@ -220,14 +227,17 @@ LOGITS_TOL = 0.1  # bf16 model, flash vs reference attention, 2 layers
 #: the serving path's bf16 arithmetic as far.
 NOISE_RATIO = 2.0
 
-#: Device-side names of every launch of the two attention ops: the wgmma
-#: pair's and the "any" pair's (`flash_fwd_mma_kernel`,
-#: `flash_fwd_simt_kernel`, `flash_bwd_any_pre_kernel`, ...).
+#: Device-side names of every launch of the attention ops: the wgmma
+#: pair's, the "any" pair's (`flash_fwd_wgmma_kernel`,
+#: `flash_fwd_simt_kernel`, `flash_bwd_any_pre_kernel`, ...) and the
+#: "wide" pair's.
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_pre_kernel",
                  "flash_bwd_kernel", "flash_bwd_dq_kernel",
-                 "flash_fwd_mma_kernel", "flash_fwd_simt_kernel",
-                 "flash_bwd_any_pre_kernel", "flash_bwd_mma_kernel",
-                 "flash_bwd_simt_kernel", "flash_bwd_any_dq_kernel")
+                 "flash_fwd_wgmma_kernel", "flash_fwd_simt_kernel",
+                 "flash_bwd_any_pre_kernel", "flash_bwd_wgmma_kernel",
+                 "flash_bwd_simt_kernel", "flash_bwd_any_dq_kernel",
+                 "flash_bwd_any_dq_ordered_kernel", "flash_fwd_wide_kernel",
+                 "flash_bwd_wide_kernel")
 #: The backward op's launches, by launch counter.
 BWD_LAUNCHES = ("flash_bwd_pre", "flash_bwd", "flash_bwd_dq")
 
@@ -278,12 +288,15 @@ CARDS4_BATCH = 4
 #: sheet): the "any" kernels keep f32 inputs in f32 (no TF32), so this is
 #: their operations bound in f32.
 PEAK_F32_FLOPS = 67e12
-#: The "any" kernels' checks (phase (b)): (label, dtype, bh, t, tk, d,
-#: causal, q_len, kv_len). bf16 at d 256 (Gemma), f32 at d 128 and 256,
-#: f16 at d 128, d 96 (Phi-3) and d 16 (`LlamaConfig.tiny`), and the
-#: edges of their 64-row q and 32-row KV tiles: t 64 (one q tile) and 192,
-#: kv_len inside a tile, causal t_q != t_k (against the plain version,
-#: whose mask is the kernels' top-left one), and q rows past q_len.
+#: The "any" and "wide" kernels' checks (phase (b)): (label, dtype, bh,
+#: t, tk, d, causal, q_len, kv_len). bf16 and f16 at d 256 (Gemma), f32
+#: at d 128 and 256, f16 at d 128, bf16 at d 192, d 96 (Phi-3) and d 16
+#: (`LlamaConfig.tiny`), whose last 64-column box overhangs the row; d
+#: 320 and 512 in every dtype (the "wide" kernels); and the edges of the
+#: 16-bit kernels' 128-row q and 64-row KV tiles and of the f32 kernels'
+#: 64-row q and 32-row KV tiles: t 64 (half a q tile) and 192, kv_len
+#: inside a tile, causal t_q != t_k (against the plain version, whose
+#: mask is the kernels' top-left one), and q rows past q_len.
 ANY_CASES = (
     ("bf16_d256", "bfloat16", 16, 1024, 1024, 256, True, 1024, 1024),
     ("f32_d128", "float32", 16, 512, 512, 128, True, 512, 512),
@@ -297,16 +310,38 @@ ANY_CASES = (
     ("q128k384_causal_f32_d256", "float32", 8, 128, 384, 256, True, 128,
      384),
     ("ragged_f16_d96", "float16", 8, 320, 320, 96, True, 300, 300),
+    ("f16_d256", "float16", 16, 1024, 1024, 256, True, 1024, 1024),
+    ("bf16_d192", "bfloat16", 8, 512, 512, 192, True, 512, 512),
+    ("t192_d256", "bfloat16", 8, 192, 192, 256, True, 192, 192),
+    ("t64_f16_d192", "float16", 8, 64, 64, 192, True, 64, 64),
+    ("kvlen40_d192", "bfloat16", 8, 128, 128, 192, False, 128, 40),
+    ("kvlen100_f16_d256", "float16", 8, 256, 256, 256, False, 256, 100),
+    ("ragged_d256", "bfloat16", 8, 320, 320, 256, True, 300, 300),
+    ("q128k384_causal_d256", "bfloat16", 8, 128, 384, 256, True, 128, 384),
+    ("q384k128_causal_f16_d160", "float16", 8, 384, 128, 160, True, 384,
+     128),
+    ("bf16_d320", "bfloat16", 8, 512, 512, 320, True, 512, 512),
+    ("f16_d320", "float16", 8, 256, 256, 320, True, 256, 256),
+    ("f32_d320", "float32", 8, 256, 256, 320, True, 256, 256),
+    ("bf16_d512", "bfloat16", 8, 512, 512, 512, True, 512, 512),
+    ("ragged_f16_d512", "float16", 4, 320, 320, 512, True, 300, 280),
+    ("f32_d512", "float32", 4, 256, 256, 512, False, 256, 200),
 )
 #: The public op against `mha_reference` in f32 on the same inputs, for
-#: the "any" kernels: (dtype, head_dim) at b 1 x h 2 x t 512, causal.
+#: the "any" and "wide" kernels: (dtype, head_dim) at b 1 x h 2 x t 512,
+#: causal.
 ANY_OP_CASES = (("bfloat16", 256), ("float32", 128), ("float32", 256),
-                ("float16", 128), ("bfloat16", 96), ("bfloat16", 16))
-#: The "any" kernels' timing shapes: Gemma-2B's attention (b 2 x 8 heads,
-#: 4096, d 256, causal, bf16) and an f32 one (bh 64 x 1024 x 128, causal).
-ANY_TIMED = (("bfloat16", 16, 4096, 256), ("float32", 64, 1024, 128))
-#: The "any" backward op's launches, by launch counter.
-ANY_BWD_LAUNCHES = ("flash_bwd_any_pre", "flash_bwd_any", "flash_bwd_any_dq")
+                ("float16", 128), ("bfloat16", 96), ("bfloat16", 16),
+                ("float16", 256), ("bfloat16", 192),
+                ("bfloat16", 320), ("float16", 320), ("float32", 320),
+                ("bfloat16", 512), ("float16", 512), ("float32", 512))
+#: The "any" and "wide" kernels' timing shapes, by label: Gemma-2B's
+#: attention (b 2 x 8 heads, 4096, d 256, causal, bf16), an f32 one (bh
+#: 64 x 1024 x 128, causal) and a "wide" one (bf16, bh 16 x 1024 x 512,
+#: causal).
+ANY_TIMED = (("bf16_d256", "bfloat16", 16, 4096, 256),
+             ("f32_d128", "float32", 64, 1024, 128),
+             ("bf16_d512", "bfloat16", 16, 1024, 512))
 #: (h1) the runtime phase: steps in the actor, and the bar of its step 2
 #: against the driver's (the backward's dq sums in f32 atomics, in no
 #: fixed order; step 1 is the forward alone and must be equal).
@@ -317,6 +352,10 @@ RUNTIME_PUT_BYTES = 1 << 30
 #: (h2) Gemma-2B at full width: steps, batch and sequence.
 GEMMA_STEPS = 3
 GEMMA_BATCH, GEMMA_SEQ = 1, 4096
+#: (h3) the "wide" kernels' path: Gemma-2B's geometry at this head_dim,
+#: depth, sequence (batch 1) and steps.
+WIDE_HEAD_DIM = 512
+WIDE_LAYERS, WIDE_SEQ, WIDE_STEPS = 2, 1024, 3
 
 
 def cuda_ms(torch, fn, reps):
@@ -378,10 +417,21 @@ def nbytes(*tensors):
 
 
 def print_ptxas(reports, prefix=""):
+    """ptxas's report of each kernel: its name (demangled where c++filt
+    is at hand), registers, spills and wgmma advisories."""
     for name, report in reports.items():
         for line in report.splitlines():
+            if "Compiling entry function" in line:
+                mangled = line.split("'")[1] if "'" in line else line
+                try:
+                    line = subprocess.run(
+                        ["c++filt", mangled], capture_output=True, text=True,
+                        timeout=30, check=True).stdout.strip()
+                except (OSError, subprocess.SubprocessError):
+                    line = mangled
+                print(f"  {prefix}{name}: {line[:160]}")
             # C75xx: ptxas's wgmma advisories (a serialised pipeline).
-            if "registers" in line or "spill" in line or "C75" in line:
+            elif "registers" in line or "spill" in line or "C75" in line:
                 print(f"  {prefix}{name}: {line.strip()}")
 
 
@@ -517,6 +567,7 @@ def against(torch, attn, root, randn, n_layers, reps=20):
               f"this {ms[1]:.3f} / {ms[2]:.3f} ms")
     del fwd, bwd, fns, q, k, v, do, q2
     torch.cuda.empty_cache()
+    any_times = any_against(torch, trees, reps)
     this_port = sys.modules["ray_tpu_torch"]
     memory = {name: step_memory(torch, port, n_layers)
               for name, port in (("against", other), ("this", this_port))}
@@ -527,7 +578,54 @@ def against(torch, attn, root, randn, n_layers, reps=20):
             print(f"    {row['bytes']:>12} {row['site']}")
     return {"root": root, "shape": [bh, t, d], "causal": True,
             "errors": errors, "times": times, "layers": n_layers,
-            "memory": memory}
+            "memory": memory, "any": any_times}
+
+
+def any_against(torch, trees, reps):
+    """Phase (d) for the "any" pair: each tree's forward kernel and
+    backward op (its `flash_forward` and `flash_backward`, which take
+    bf16 at d 256 to the "any" kernels in both) at ANY_TIMED's Gemma-2B
+    shape, held to this tree's plain versions and timed in turns ROOT,
+    this, this, ROOT."""
+    attn = trees["this"]
+    _, dt, bh, t, d = ANY_TIMED[0]
+    dtype = getattr(torch, dt)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    scale = 1.0 / math.sqrt(d)
+    q, k, v, do = ((torch.randn(bh, t, d, generator=gen, device=dev) * 0.5)
+                   .to(dtype) for _ in range(4))
+    q2 = attn.prescale(q, scale)
+    ref_out, ref_lse = attn.flash_forward_plain(q2, k, v, True, t)
+    ref_grads = attn.flash_backward_plain(q2, k, v, ref_out, do, ref_lse,
+                                          scale, True, t, t)
+    errors, fwd, bwd = {}, {}, {}
+    for name, tree in trees.items():
+        out, lse = tree.flash_forward(q2, k, v, True, t)
+        args = (q2, k, v, out, do, lse, scale, True, t, t)
+        print(f"against, {name} tree's \"any\" pair ({dt}, {(bh, t, d)}), "
+              "held to this tree's plain versions:")
+        checks = [held("out", out, ref_out)] + [
+            held(n, g, r) for n, g, r in zip(
+                ("dq", "dk", "dv"), tree.flash_backward(*args), ref_grads)]
+        errors[name] = {"out": checks[0][1], "lse": max_err(lse, ref_lse),
+                        "grads": [e for _, e in checks[1:]],
+                        "within_bars": all(ok for ok, _ in checks)}
+        fwd[name] = lambda tree=tree: tree.flash_forward(q2, k, v, True, t)
+        bwd[name] = lambda tree=tree, args=args: tree.flash_backward(*args)
+    assert errors["this"]["within_bars"], errors
+    del ref_out, ref_lse, ref_grads
+    times = {}
+    for op, fns, n in (("fwd", fwd, reps), ("bwd_op", bwd, reps // 2)):
+        ms = [cuda_ms(torch, fns[name], n)
+              for name in ("against", "this", "this", "against")]
+        times[op] = {"against_ms": ms[::3], "this_ms": ms[1:3]}
+        print(f"against, \"any\" {op}: other {ms[0]:.3f} / {ms[3]:.3f} ms, "
+              f"this {ms[1]:.3f} / {ms[2]:.3f} ms")
+    del fwd, bwd, q, k, v, do, q2
+    torch.cuda.empty_cache()
+    return {"shape": [bh, t, d], "dtype": dt, "causal": True,
+            "errors": errors, "times": times}
 
 
 def rel_errors(got, ref):
@@ -1414,7 +1512,7 @@ def four_card_phase(torch, card, n_layers):
 
 
 def any_kernel_checks(torch, attn):
-    """(b) for the "any" kernels (`csrc/flash_fwd_any.cu`,
+    """(b) for the "any" and "wide" kernels (`csrc/flash_fwd_any.cu`,
     `csrc/flash_bwd_any.cu`): each against its plain version at
     ANY_CASES under a random upstream gradient (f32 at F32_REL_TOL), the
     two negative controls, the controls of the f32 bar (the plain version
@@ -1431,7 +1529,8 @@ def any_kernel_checks(torch, attn):
     results = {}
     for label, dt, bh, t, tk, d, causal, q_len, kv_len in ANY_CASES:
         dtype = getattr(torch, dt)
-        assert attn._kernel_for(dtype, d) == "any", (dt, d)
+        pair = attn._kernel_for(dtype, d)
+        assert pair in ("any", "wide"), (dt, d)
         q, k, v = randn(dtype, bh, t, d), randn(dtype, bh, tk, d), \
             randn(dtype, bh, tk, d)
         q[:, q_len:] = 0
@@ -1441,14 +1540,14 @@ def any_kernel_checks(torch, attn):
         attn.reset_launch_counts()
         out, lse = attn.flash_forward(q2, k, v, causal, kv_len)
         torch.cuda.synchronize()
-        assert attn.LAUNCHES["flash_fwd_any"] == 1, attn.LAUNCHES
+        assert attn.LAUNCHES[f"flash_fwd_{pair}"] == 1, attn.LAUNCHES
         assert out.dtype == dtype and out.shape == q2.shape, label
         p_out, p_lse = attn.flash_forward_plain(q2, k, v, causal, kv_len)
         f32 = dtype == torch.float32
         tol = F32_REL_TOL if f32 else REL_TOL
         lse_tol = (F32_REL_TOL * p_lse[:, :q_len].abs().max().item() if f32
                    else LSE_TOL)
-        print(f"fwd any {label} {(dt, bh, t, tk, d)} causal={causal} "
+        print(f"fwd {pair} {label} {(dt, bh, t, tk, d)} causal={causal} "
               f"(bars {tol:g}):")
         ok, e_out = held("out", out[:, :q_len], p_out[:, :q_len],
                          rel_tol=tol)
@@ -1461,16 +1560,16 @@ def any_kernel_checks(torch, attn):
                 q_len)
         got = attn.flash_backward(*args)
         torch.cuda.synchronize()
-        assert all(attn.LAUNCHES[n] == 1 for n in ANY_BWD_LAUNCHES), \
+        assert all(attn.LAUNCHES[n] == 1 for n in bwd_launches(pair)), \
             attn.LAUNCHES
         assert all(g.dtype == dtype for g in got), label
         ref = attn.flash_backward_plain(*args)
-        print(f"bwd any {label}, random do:")
+        print(f"bwd {pair} {label}, random do:")
         ok, errs = grads_held(got, ref, q_len, kv_len, rel_tol=tol)
         assert ok, (label, errs)
         if label == "f32_d128":
             f32_bar_controls(torch, attn, args, p_out, ref)
-        if label == "bf16_d256":
+        if label in ("bf16_d256", "bf16_d512"):
             print("  negative control, dq = 0 (must be outside the bars):")
             assert not grads_held((torch.zeros_like(got[0]),) + got[1:],
                                   ref, q_len, kv_len)[0]
@@ -1501,9 +1600,18 @@ def any_kernel_checks(torch, attn):
             for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads)]
         assert all(ok for ok, _ in checks), (dt, d)
     assert attn.LAUNCHES["flash_fwd"] == attn.LAUNCHES["flash_bwd"] == 0
-    assert attn.LAUNCHES["flash_fwd_any"] == len(ANY_OP_CASES)
+    for pair in ("any", "wide"):
+        n = sum(attn._kernel_for(getattr(torch, dt), d) == pair
+                for dt, d in ANY_OP_CASES)
+        assert attn.LAUNCHES[f"flash_fwd_{pair}"] == n, attn.LAUNCHES
+        assert attn.LAUNCHES[f"flash_bwd_{pair}"] == n, attn.LAUNCHES
     torch.cuda.empty_cache()
     return results
+
+
+def bwd_launches(pair):
+    """The launch counters of the "any" or "wide" backward op."""
+    return ("flash_bwd_any_pre", f"flash_bwd_{pair}", "flash_bwd_any_dq")
 
 
 def f32_bar_controls(torch, attn, args, p_out, p_grads):
@@ -1533,14 +1641,15 @@ def f32_bar_controls(torch, attn, args, p_out, p_grads):
 
 
 def any_kernel_times(torch, attn):
-    """The "any" kernels timed at ANY_TIMED beside their plain versions,
-    `scaled_dot_product_attention` (a yardstick only) and their bounds,
-    each held to its plain version there. Returns {dtype: record}."""
+    """The "any" and "wide" kernels timed at ANY_TIMED beside their plain
+    versions, `scaled_dot_product_attention` (a yardstick only) and their
+    bounds, each held to its plain version there. Returns {label:
+    record}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(8)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     out_records = {}
-    for dt, bh, t, d in ANY_TIMED:
+    for label, dt, bh, t, d in ANY_TIMED:
         dtype = getattr(torch, dt)
         scale = 1.0 / math.sqrt(d)
         q, k, v, do = ((torch.randn(bh, t, d, generator=gen, device=dev)
@@ -1582,6 +1691,7 @@ def any_kernel_times(torch, attn):
             peak)
         rec = {
             "shape": [bh, t, d], "dtype": dt, "causal": True,
+            "pair": attn._kernel_for(dtype, d),
             "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
             "fwd_library_ms": sdpa_fwd_ms, "fwd_bound_ms": fwd_bound,
             "fwd_bound_by": fwd_by, "fwd_max_abs_err": fwd_err,
@@ -1590,16 +1700,17 @@ def any_kernel_times(torch, attn):
             "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
             "bwd_max_abs_err": max(errs), "peak_flops": peak,
         }
-        print(f"flash_fwd_any {dt} {(bh, t, d)}: {fwd_ms:.3f} ms (plain "
+        pair = rec["pair"]
+        print(f"flash_fwd_{pair} {dt} {(bh, t, d)}: {fwd_ms:.3f} ms (plain "
               f"{fwd_plain_ms:.2f}, sdpa {sdpa_fwd_ms:.3f}, bound "
-              f"{fwd_bound:.3f} by {fwd_by}); flash_bwd_any op {bwd_ms:.3f} "
+              f"{fwd_bound:.3f} by {fwd_by}); flash_bwd_{pair} op {bwd_ms:.3f} "
               f"ms (plain {bwd_plain_ms:.2f}, sdpa bwd "
               f"{rec['bwd_library_ms']:.3f}, bound {bwd_bound:.3f} by "
               f"{bwd_by})")
-        if dtype == torch.bfloat16:
+        if label == "bf16_d256":
             rec["softmax_data"] = softmax_data_times(torch, attn, q, k, v, do,
                                                      scale, t)
-        out_records[dt] = rec
+        out_records[label] = rec
         del q, k, v, do, q2, out, lse, bwd_args, q4, k4, v4, do4, qg, kg, vg
         torch.cuda.empty_cache()
     return out_records
@@ -1846,8 +1957,53 @@ def gemma_phase(torch, llama, attn, card, dev, profile=False):
     assert rec["losses"][-1] < rec["losses"][0], rec["losses"]
     assert launches["flash_fwd"] == 0 and launches["flash_bwd"] == 0, launches
     assert launches["flash_fwd_any"] == GEMMA_STEPS * n * 2, launches
-    for name in ANY_BWD_LAUNCHES:
+    for name in bwd_launches("any"):
         assert launches[name] == GEMMA_STEPS * n, launches
+    del state, step_fn, init_fn, batch
+    torch.cuda.empty_cache()
+    return rec
+
+
+def wide_phase(torch, llama, attn, card, dev):
+    """(h3): the "wide" kernels on a training path. Gemma-2B's geometry
+    with head_dim WIDE_HEAD_DIM (no preset has one above 256), WIDE_LAYERS
+    layers, random weights from a seed, batch 1 x WIDE_SEQ, WIDE_STEPS
+    steps of `make_train_step` under remat "full": the loss must be finite
+    and fall, and every flash launch must go to the "wide" kernels.
+    Returns the `{"wide": ...}` record."""
+    from ray_tpu_torch.train import default_optimizer, make_train_step
+
+    cfg = dataclasses.replace(
+        llama.LlamaConfig.gemma_2b(max_seq_len=WIDE_SEQ, remat_policy="full"),
+        n_layers=WIDE_LAYERS, custom_head_dim=WIDE_HEAD_DIM)
+    g = torch.Generator(device=dev).manual_seed(10)
+    model = llama.init_params(cfg, g, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (1, WIDE_SEQ + 1), generator=g,
+                          device=dev)
+    init_fn, step_fn = make_train_step(
+        llama.loss_fn, default_optimizer(learning_rate=3e-4, total_steps=20),
+        device=dev)
+    state = init_fn(model)
+    del model
+    rec = train_steps(torch, llama, attn, cfg, state, step_fn, batch[:, :-1],
+                      batch[:, 1:], False, steps=WIDE_STEPS)
+    n = cfg.n_layers
+    launches = rec["launches"]
+    per_step = {k: v / WIDE_STEPS for k, v in launches.items()}
+    rec.update({"card": card, "config": f"gemma_2b geometry, {n} layers, "
+                f"head_dim {WIDE_HEAD_DIM}, bf16, remat full", "layers": n,
+                "batch": 1, "seq": WIDE_SEQ, "launches_per_step": per_step})
+    print(f"(h3) head_dim {WIDE_HEAD_DIM} ({n} layers): losses "
+          f"{[round(x, 5) for x in rec['losses']]}, step ms "
+          f"{[round(x, 2) for x in rec['step_ms']]}, launches per step "
+          f"{per_step}")
+    assert all(math.isfinite(x) for x in rec["losses"] + rec["grad_norms"])
+    assert rec["losses"][-1] < rec["losses"][0], rec["losses"]
+    assert launches["flash_fwd"] == launches["flash_fwd_any"] == 0, launches
+    assert launches["flash_bwd"] == launches["flash_bwd_any"] == 0, launches
+    assert launches["flash_fwd_wide"] == WIDE_STEPS * n * 2, launches
+    for name in bwd_launches("wide"):
+        assert launches[name] == WIDE_STEPS * n, launches
     del state, step_fn, init_fn, batch
     torch.cuda.empty_cache()
     return rec
@@ -2328,6 +2484,9 @@ def main() -> int:
     # ---- (h2) Gemma-2B at full width on the d 256 kernels -------------
     gemma = gemma_phase(torch, llama, attn, card, dev, args.profile)
 
+    # ---- (h3) head_dim above 256 on the "wide" kernels ------------------
+    wide = wide_phase(torch, llama, attn, card, dev)
+
     # ---- (f) remat policies, the mesh step, trainer and checkpoints ----
     sharded = train_sharded_phase(torch, llama, attn, card, n_layers, dev,
                                   args.profile)
@@ -2394,32 +2553,42 @@ def main() -> int:
             "shape": [bh, t, d], "causal": True,
         },
     ]
-    main_rec = any_times["bfloat16"]
-    for name, timed_key, replaces in (
-            ("flash_fwd_any", "fwd", "ray_tpu/ops/attention.py:136"),
-            ("flash_bwd_any", "bwd", "ray_tpu/ops/attention.py:302")):
-        kernels.append({
+    main_rec = any_times["bf16_d256"]
+    # The "any" pair on (h2)'s path, the "wide" pair on (h3)'s; each timed
+    # at its ANY_TIMED shape.
+    for name, source, timed_key, replaces, label, path in (
+            ("flash_fwd_any", "flash_fwd_any", "fwd",
+             "ray_tpu/ops/attention.py:136", "bf16_d256", gemma),
+            ("flash_bwd_any", "flash_bwd_any", "bwd",
+             "ray_tpu/ops/attention.py:302", "bf16_d256", gemma),
+            ("flash_fwd_wide", "flash_fwd_any", "fwd",
+             "ray_tpu/ops/attention.py:136", "bf16_d512", wide),
+            ("flash_bwd_wide", "flash_bwd_any", "bwd",
+             "ray_tpu/ops/attention.py:302", "bf16_d512", wide)):
+        rec = any_times[label]
+        entry = {
             "name": name, "route": "cuda",
-            "source": f"ray_tpu_torch/csrc/{name}.cu",
+            "source": f"ray_tpu_torch/csrc/{source}.cu",
             "replaces": replaces,
-            # (h2)'s run, the path these kernels carry.
-            "launches": gemma["launches"][name],
-            "max_abs_err": main_rec[f"{timed_key}_max_abs_err"],
-            "ms": main_rec[f"{timed_key}_ms"],
-            "plain_ms": main_rec[f"{timed_key}_plain_ms"],
-            "bound_ms": main_rec[f"{timed_key}_bound_ms"],
-            "bound_by": main_rec[f"{timed_key}_bound_by"],
-            "library_ms": main_rec[f"{timed_key}_library_ms"],
-            "shape": main_rec["shape"], "dtype": "bfloat16", "causal": True,
-            "bound_share": main_rec[f"{timed_key}_bound_ms"]
-            / main_rec[f"{timed_key}_ms"],
-            "vs_library": main_rec[f"{timed_key}_ms"]
-            / main_rec[f"{timed_key}_library_ms"],
-            "f32": {k: v for k, v in any_times["float32"].items()
-                    if k.startswith(timed_key) or k == "shape"},
-            "launches_per_step_gemma": gemma["launches_per_step"][name],
-            "checks": {label: errs for label, errs in any_results.items()},
-        })
+            "launches": path["launches"][name],
+            "max_abs_err": rec[f"{timed_key}_max_abs_err"],
+            "ms": rec[f"{timed_key}_ms"],
+            "plain_ms": rec[f"{timed_key}_plain_ms"],
+            "bound_ms": rec[f"{timed_key}_bound_ms"],
+            "bound_by": rec[f"{timed_key}_bound_by"],
+            "library_ms": rec[f"{timed_key}_library_ms"],
+            "shape": rec["shape"], "dtype": rec["dtype"], "causal": True,
+            "bound_share": rec[f"{timed_key}_bound_ms"]
+            / rec[f"{timed_key}_ms"],
+            "vs_library": rec[f"{timed_key}_ms"]
+            / rec[f"{timed_key}_library_ms"],
+            "launches_per_step": path["launches_per_step"][name],
+        }
+        if label == "bf16_d256":
+            entry["f32"] = {k: v for k, v in any_times["f32_d128"].items()
+                            if k.startswith(timed_key) or k == "shape"}
+            entry["checks"] = dict(any_results)
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"any_softmax_data": main_rec["softmax_data"]}))
     print(json.dumps({"slice": {
@@ -2439,6 +2608,7 @@ def main() -> int:
     print(json.dumps({"train_pp": pp}))
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"gemma": gemma}))
+    print(json.dumps({"wide": wide}))
     if args.against:
         print(json.dumps({"against": against(
             torch, attn, args.against, randn, n_layers)}))

@@ -1,50 +1,79 @@
 // Flash-attention backward for every (dtype, head_dim) that the wgmma
-// kernels (flash_bwd.cu: bf16, d 64 or 128) do not take: bf16, f16 and f32
-// inputs, head_dim a multiple of 32 up to 256 (the op pads a head_dim with
-// zero columns to the next multiple of 32, which leaves every gradient's
-// true columns unchanged).
+// kernels of flash_bwd.cu (bf16, d 64 or 128) do not take: bf16, f16 and
+// f32 inputs at any head_dim (the op pads a head_dim with zero columns to
+// the next multiple of 32, which leaves every gradient's true columns
+// unchanged).
 //
 // Replaces the TPU kernel `_bwd_fused_kernel` launched by
 // `_flash_backward_fused` (ray_tpu/ops/attention.py:302, pallas_call at
 // :489) for those inputs. The op is three launches, as flash_bwd.cu's:
 //   flash_bwd_any_pre_kernel: delta = rowsum(out * do) in f32; dq_acc = 0
-//   flash_bwd_any_kernel:     P  = exp2(q2 k^T - lse)       (masked entries 0)
+//   main kernel:              P  = exp2(q2 k^T - lse)       (masked entries 0)
 //                             dv = P^T do                   (P rounded to T)
 //                             dS = P * (do v^T - delta)     rounded to T
 //                             dk = (dS^T q2) * ln2
 //                             dq_acc += dS k                (f32 reductions)
-//   flash_bwd_any_dq_kernel:  dq = dq_acc * scale           in T
+//   dq kernel:                dq = dq_acc * scale           in T
 // Masks: KV columns >= kv_len, q rows >= q_len, and if causal column > row
 // (top-left aligned). dk, dv and dq come out in the input dtype, as the
 // reference's (attention.py:514-515). In f32 everything stays f32.
 //
 // Bound on an H100 SXM: operations (five products of 2*d FLOP per unmasked
-// pair), at 989 TFLOP/s for bf16/f16 and 67 TFLOP/s for f32.
+// pair), at 989 TFLOP/s for bf16/f16 and 67 TFLOP/s for f32. At Gemma-2B's
+// shape (bh 16 x 4096 x d 256, causal) that is 0.348 ms; the bytes (q2,
+// k, v, out, do, lse and the three gradients) 0.09 ms at 3.35 TB/s.
 //
-// Design of the main kernel: right and simple first; two paths by type.
-//   - bf16/f16 (`flash_bwd_mma_kernel`): one block per (64-row KV tile,
-//     bh) of 4 warps at d <= 128, 8 at d > 128. Each 16-row group of KV
-//     rows belongs to CS warps (CS = 1, or 2 at d > 128), each holding
-//     d/CS columns of dK and dV in f32 registers for the whole loop (d
-//     columns of both would not fit a thread's 255 registers at d 256);
-//     the CS warps of a group each form that group's S^T = K Q2^T and
-//     dP^T = V dO^T (the same products, made CS times). K and V stay in
-//     shared memory; Q2 and dO tiles of 32 rows, with their lse and
-//     delta, come in a 2-stage ring by cp.async, the next tile's copies
-//     in flight under this tile's products (causal: from the KV tile's
-//     first row on). Rows are padded by 16 bytes for ldmatrix.
-//     P^T and dS^T, rounded to T, are the A operands of dV += P^T dO and
-//     dK += dS^T Q2 straight from registers; dS^T also goes to shared
-//     memory, where every warp reads it back (transposed by ldmatrix) for
-//     its rows and columns of dQ_tile = dS K, added to the f32
-//     accumulator by 16-byte vector reductions (neighbouring lanes trade
-//     halves of their fragments first). 140 KB of shared memory at d 256.
-//   - f32 (`flash_bwd_simt_kernel`): CUDA-core FMA, one block of 256
-//     threads per (32-row KV tile, bh); K and V stay in shared memory as
+// Three main kernels:
+//   - bf16/f16, d <= 256 (`flash_bwd_wgmma_kernel`; hopper.cuh has the
+//     primitives and the tile layout): one block per (64-row KV tile, bh)
+//     of three warpgroups. Warpgroup 2 is the producer: one thread issues
+//     every TMA load (setmaxnreg 24). K and V stay resident; Q2 and dO
+//     tiles of 64 rows, with their lse and delta rows (bulk copies), come
+//     through a 2-stage mbarrier ring. Warpgroups 0 and 1 (setmaxnreg 240)
+//     split dK and dV by 64-column boxes (at d 256 two boxes each: dK and
+//     dV 64 f32 registers each a thread; d columns of both in one
+//     warpgroup would be 256), and each product is made once:
+//       warpgroup 0: S^T = K Q2^T (SS wgmma m64n64k16), P^T;
+//       warpgroup 1: dP^T = V dO^T, and dS^T = P^T (dP^T - delta) from
+//                    P^T in f32, which warpgroup 0 hands over through
+//                    shared memory in its accumulator order;
+//       both, from P^T and dS^T in T, written once to shared memory in
+//       the swizzled layout: dQ_tile = dS K, dV += P^T dO and dK += dS^T
+//       Q2 on their own boxes, one SS wgmma of N = 64 * boxes each
+//       (m64n128k16 at d 256; dO, Q2, dS^T and K read transposed). Five
+//       products for the five the work needs (the old mma.sync kernel
+//       made S^T and dP^T twice at d > 128: seven).
+//     The handovers are three named barriers a q tile: both warpgroups
+//     done with the last tile's P^T, dS^T (1); P^T in place (2); dS^T in
+//     place (3). dQ_tile's product is committed first, and while dV's
+//     and dK's run it is added to an f32 accumulator from registers by
+//     16-byte vector reductions (red.global.add.v4.f32, 16 per thread a
+//     tile at d 256) into dq_acc laid out in the accumulator's register
+//     order per (bh, 64-row q tile, 64-column box), as flash_bwd.cu does;
+//     the dq kernel undoes the order. At d = 96, 160, 224 TMA fills the
+//     overhanging box with zeros and only the true columns are stored.
+//     Shared memory at d 256 (226 KB of the 227 KB a block may use): K
+//     and V 64 KB, the Q2/dO ring 128 KB, P^T and dS^T 16 KB, P^T in f32
+//     16 KB, lse and delta 1 KB.
+//   - f32, d <= 256 (`flash_bwd_simt_kernel`): CUDA-core FMA, one block of
+//     256 threads per (32-row KV tile, bh); K and V stay in shared memory as
 //     f32, Q2 and dO tiles of 32 rows come in turn; eight threads share a
 //     row for S and dP (P and dS through shared memory), for dK and dV
 //     (d/8 columns each in registers) and for dQ (summed in registers,
 //     then atomicAdd). Rows padded by one float. 140 KB at d 256.
+//   - every dtype, d > 256 (`flash_bwd_wide_kernel`), a simple kernel (no
+//     model the repo names has such a head_dim): the f32 kernel's work
+//     split by output columns, one block per (32-row KV tile, bh, chunk
+//     of at most 256 columns). Each block forms S and dP over all of d,
+//     streaming 32-column slices of Q2, dO, K and V through shared memory
+//     in the same order in every chunk (so P and dS agree to the bit
+//     across chunks), then adds its own columns of dK, dV and dQ. 124 KB
+//     of shared memory at any d.
+// What still holds the wgmma kernel back: within a q tile the warpgroups
+// wait on each other twice (P^T, then dS^T), so their elementwise steps
+// do not overlap the other's products; the SS products at m64n64 read
+// both operands from shared memory; dq's reductions (64 KB of L2 traffic
+// a q tile at d 256) double with the 64-row KV tile.
 #include <cmath>
 #include <cstddef>
 #include <type_traits>
@@ -55,7 +84,6 @@ namespace rtt {
 namespace any {
 
 constexpr int THREADS = 256;
-constexpr float LN2 = 0.6931471805599453f;
 
 namespace bwd {
 
@@ -199,257 +227,628 @@ flash_bwd_simt_kernel(const T* __restrict__ q2, const T* __restrict__ k,
   }
 }
 
-// Warps of the mma kernel's 16-row KV groups (CS) and of the block.
-template <int D>
-__host__ __device__ constexpr int mma_cs() {
-  return D > 128 ? 2 : 1;
-}
+// ---------------------------------------------------------------------------
+// bf16/f16 at d <= 256: wgmma on a TMA ring
+// ---------------------------------------------------------------------------
 
+namespace wg {
+
+constexpr int BN = 64;  // KV rows of a block
+constexpr int BM = 64;  // q rows of a tile
+constexpr int STAGES = 2;
+constexpr int CONSUMERS = 2;  // warpgroups, each on its own dK/dV boxes
+constexpr int THREADS = (CONSUMERS + 1) * WG_THREADS;
+constexpr int DQ_CHUNK = 64 * 64;  // f32 of dq_acc's (q tile, box) chunk
+constexpr int CONSUMER_THREADS = CONSUMERS * WG_THREADS;
+// Named barriers between the two consumers (0 is __syncthreads's).
+constexpr int BAR_FREE = 1;   // the last tile's P^T, dS^T are read
+constexpr int BAR_P = 2;      // P^T is in place
+constexpr int BAR_DS = 3;     // dS^T is in place
+
+// D is d rounded up to a multiple of 64 (whole boxes). At D 256: 64 KB
+// of K and V, 128 KB of Q2/dO ring, 32 KB of P^T and dS^T, 1 KB of
+// lse/delta rows: 231,488 bytes with the barriers and alignment slack,
+// of the 232,448 a block may use.
 template <int D>
-struct MmaSmem {
-  static constexpr int BKM = 64;  // KV rows of a block
-  static constexpr int BQM = 32;  // q rows of a tile
-  static constexpr int LD = D + 8;
-  static constexpr int SLD = BQM + 8;
-  static constexpr int k = 0;
-  static constexpr int v = k + BKM * LD;
-  static constexpr int ring = v + BKM * LD;  // stage i: Q2, then dO
-  static constexpr int stage = 2 * BQM * LD;
-  static constexpr int ds = ring + 2 * stage;
-  static constexpr int stats = (ds + BKM * SLD) * 2;  // bytes: lse, delta
-  static constexpr int bytes = stats + 2 * 2 * BQM * 4;
+struct Smem {
+  static constexpr int kv_bytes = BN * D * 2;
+  static constexpr int q_bytes = BM * D * 2;
+  static constexpr int k_off = 0;
+  static constexpr int v_off = kv_bytes;
+  static constexpr int q_off = 2 * kv_bytes;                  // [STAGES]
+  static constexpr int o_off = q_off + STAGES * q_bytes;      // [STAGES]
+  static constexpr int pt_off = o_off + STAGES * q_bytes;     // P^T [BN][BM]
+  static constexpr int ds_off = pt_off + BN * BM * 2;         // dS^T
+  static constexpr int x_off = ds_off + BN * BM * 2;          // P^T, f32
+  static constexpr int lse_off = x_off + BN * BM * 4;         // [STAGES][BM]
+  static constexpr int delta_off = lse_off + STAGES * BM * 4;  // [STAGES][BM]
+  static constexpr int bar_off = delta_off + STAGES * BM * 4;
+  static constexpr int bytes = bar_off + 64 + 1024;  // + alignment slack
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(128 * mma_cs<D>())
-flash_bwd_mma_kernel(const T* __restrict__ q2, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dq_acc, T* __restrict__ dk,
-                     T* __restrict__ dv, int t, int tk, int kv_len, int q_len,
-                     int causal) {
-  using S = MmaSmem<D>;
-  constexpr int CS = mma_cs<D>();
-  constexpr int NWARP = 4 * CS;
-  constexpr int BKM = S::BKM, BQM = S::BQM, LD = S::LD, SLD = S::SLD;
-  constexpr int DC = D / CS;            // dK/dV columns of a warp
-  constexpr int NTC = DC / 8;
-  constexpr int SN = BQM / 8;           // S^T's n-tiles (q columns)
-  constexpr int WD = NWARP / 2;         // dQ: 2 row groups x WD column parts
-  constexpr int DQ = D / WD;
-  constexpr int NTQ = DQ / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* base = reinterpret_cast<T*>(smem_raw);
-  T* sk = base + S::k;
-  T* sv = base + S::v;
-  T* sds = base + S::ds;
-  float* stats = reinterpret_cast<float*>(smem_raw + S::stats);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int tq = lane % 4;
-  const int grp = warp / CS;   // 16-row KV group
-  const int part = warp % CS;  // its dK/dV columns: [part * DC, + DC)
-  const int bh = blockIdx.y;
-  const int j0 = blockIdx.x * BKM;
-  const size_t kv_at = (static_cast<size_t>(bh) * tk + j0) * D;
-  const size_t q_base = static_cast<size_t>(bh) * t;
-  const int kv_row0 = j0 + grp * 16 + g;  // this thread's KV rows: +0, +8
-  const int i_start = (causal && j0 < kv_len) ? j0 : 0;
-  const int i_end = j0 < kv_len ? q_len : 0;
-  const int n_tiles = i_end > i_start ? (i_end - i_start + BQM - 1) / BQM : 0;
-
-  // Stage s holds Q2 rows at base + ring + s * stage, dO after them, and
-  // lse / delta at stats + s * 2 * BQM.
-  auto load_tile = [&](int it, int st) {
-    const int i0 = i_start + it * BQM;
-    const size_t q_at = (q_base + i0) * D;
-    T* sq = base + S::ring + st * S::stage;
-    copy_rows_async<T, D, LD>(sq, q2 + q_at, BQM, tid, NWARP * 32);
-    copy_rows_async<T, D, LD>(sq + BQM * LD, dout + q_at, BQM, tid,
-                              NWARP * 32);
-    if (tid < BQM) {
-      stats[st * 2 * BQM + tid] = lse[q_base + i0 + tid];
-      stats[st * 2 * BQM + BQM + tid] = delta[q_base + i0 + tid];
-    }
-  };
-  copy_rows_async<T, D, LD>(sk, k + kv_at, BKM, tid, NWARP * 32);
-  copy_rows_async<T, D, LD>(sv, v + kv_at, BKM, tid, NWARP * 32);
-  if (n_tiles > 0) load_tile(0, 0);
-  cp_async_commit();
-  float dk_acc[NTC][4], dv_acc[NTC][4];
+// The A fragments of a 64 x 64 accumulator's four 16-column slices (rows
+// kv, columns q), rounded to T, written to a swizzled box of 64 rows as
+// TMA would have placed them: row r's 16-byte chunk j at chunk j ^ (r %
+// 8). Thread (warp, g, c) owns rows 16 * warp + g (+ 8), columns 2c (+1)
+// of each 8-column chunk.
+__device__ __forceinline__ void store_box(unsigned char* box,
+                                          const uint32_t (&fr)[4][4],
+                                          int warp, int g, int c) {
+  unsigned char* row = box + (warp * 16 + g) * BOX_ROW_BYTES + 4 * c;
 #pragma unroll
-  for (int n = 0; n < NTC; ++n)
+  for (int k = 0; k < 4; ++k) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int i0 = i_start + it * BQM;
-    if (it + 1 < n_tiles) {
-      // The stage it overwrites was last read before the previous
-      // iteration's middle barrier.
-      load_tile(it + 1, (it + 1) % 2);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // this tile (and K, V) visible to every warp
-    const T* sq = base + S::ring + (it % 2) * S::stage;
-    const T* sdo = sq + BQM * LD;
-    const float* slse = stats + (it % 2) * 2 * BQM;
-    const float* sdelta = slse + BQM;
-
-    // S^T = K Q2^T and dP^T = V dO^T on this group's 16 KV rows.
-    float s[SN][4], dp[SN][4];
-#pragma unroll
-    for (int n = 0; n < SN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll 4
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const int a_at = (grp * 16 + lane % 16) * LD + ks * 16 + (lane / 16) * 8;
-      uint32_t ak[4], av[4];
-      ldsm_x4(ak, sk + a_at);
-      ldsm_x4(av, sv + a_at);
-#pragma unroll
-      for (int n2 = 0; n2 < SN / 2; ++n2) {
-        const int b_at = (n2 * 16 + lane % 8 + (lane / 16) * 8) * LD +
-                         ks * 16 + ((lane / 8) % 2) * 8;
-        uint32_t b[4];
-        ldsm_x4(b, sq + b_at);
-        mma16816<T>(s[2 * n2], ak, b[0], b[1]);
-        mma16816<T>(s[2 * n2 + 1], ak, b[2], b[3]);
-        ldsm_x4(b, sdo + b_at);
-        mma16816<T>(dp[2 * n2], av, b[0], b[1]);
-        mma16816<T>(dp[2 * n2 + 1], av, b[2], b[3]);
-      }
-    }
-    // P^T and dS^T (s and dp now hold them).
-#pragma unroll
-    for (int n = 0; n < SN; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + tq * 2 + (e & 1);
-        const int row = i0 + qc;
-        const int col = kv_row0 + (e >> 1) * 8;
-        const bool valid =
-            row < q_len && col < kv_len && !(causal && col > row);
-        const float p = valid ? exp2f(s[n][e] - slse[qc]) : 0.f;
-        s[n][e] = p;
-        dp[n][e] = p * (dp[n][e] - sdelta[qc]);
-      }
-    }
-    if (part == 0) {
-#pragma unroll
-      for (int n = 0; n < SN; ++n)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<uint32_t*>(
-              sds + (grp * 16 + g + h * 8) * SLD + n * 8 + tq * 2) =
-              pack2<T>(dp[n][2 * h], dp[n][2 * h + 1]);
-    }
-    // dV += P^T dO and dK += dS^T Q2 on this warp's columns.
-#pragma unroll
-    for (int kk = 0; kk < BQM / 16; ++kk) {
-      const uint32_t ap[4] = {
-          pack2<T>(s[2 * kk][0], s[2 * kk][1]),
-          pack2<T>(s[2 * kk][2], s[2 * kk][3]),
-          pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint32_t ads[4] = {
-          pack2<T>(dp[2 * kk][0], dp[2 * kk][1]),
-          pack2<T>(dp[2 * kk][2], dp[2 * kk][3]),
-          pack2<T>(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-          pack2<T>(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-      const int row_at = (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD;
-#pragma unroll
-      for (int n = 0; n < NTC; ++n) {
-        const int c0 = part * DC + n * 8;
-        uint32_t b[2];
-        ldsm_x2_t(b, sdo + row_at + c0);
-        mma16816<T>(dv_acc[n], ap, b[0], b[1]);
-        ldsm_x2_t(b, sq + row_at + c0);
-        mma16816<T>(dk_acc[n], ads, b[0], b[1]);
-      }
-    }
-    __syncthreads();  // dS^T is whole; this stage's Q2 and dO are read
-    // dQ_tile = dS K: q rows [16 qg, + 16), columns [DQ dpart, + DQ).
-    const int qg = warp / WD;
-    const int dpart = warp % WD;
-    float dq[NTQ][4];
-#pragma unroll
-    for (int n = 0; n < NTQ; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < BKM / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4_t(a, sds + (kk * 16 + lane % 8 + (lane / 16) * 8) * SLD +
-                       qg * 16 + ((lane / 8) % 2) * 8);
-      const int row_at = (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD;
-#pragma unroll
-      for (int n = 0; n < NTQ; ++n) {
-        uint32_t b[2];
-        ldsm_x2_t(b, sk + row_at + dpart * DQ + n * 8);
-        mma16816<T>(dq[n], a, b[0], b[1]);
-      }
-    }
-    // Lanes 2u and 2u + 1 trade halves, so that the even one holds row
-    // g's columns [4u, 4u + 4) of each n-tile and the odd one row g + 8's:
-    // one 16-byte reduction each in place of four scalar atomics.
-    const bool odd = tq & 1;
-    const int row = i0 + qg * 16 + g + (odd ? 8 : 0);
-    float* dq_row = dq_acc + (q_base + row) * D + dpart * DQ + (tq >> 1) * 4;
-#pragma unroll
-    for (int n = 0; n < NTQ; ++n) {
-      const float r0 = __shfl_xor_sync(0xffffffffu, odd ? dq[n][0] : dq[n][2], 1);
-      const float r1 = __shfl_xor_sync(0xffffffffu, odd ? dq[n][1] : dq[n][3], 1);
-      if (row < q_len) {
-        if (odd)
-          red_add_v4(dq_row + n * 8, r0, r1, dq[n][2], dq[n][3]);
-        else
-          red_add_v4(dq_row + n * 8, dq[n][0], dq[n][1], r0, r1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const size_t row_at = (static_cast<size_t>(bh) * tk + kv_row0 + h * 8) * D;
-#pragma unroll
-    for (int n = 0; n < NTC; ++n) {
-      const int c = part * DC + n * 8 + tq * 2;
-      *reinterpret_cast<uint32_t*>(dk + row_at + c) = pack2<T>(
-          dk_acc[n][2 * h] * LN2, dk_acc[n][2 * h + 1] * LN2);
-      *reinterpret_cast<uint32_t*>(dv + row_at + c) =
-          pack2<T>(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+    for (int h = 0; h < 2; ++h) {  // the two 8-column halves of slice k
+      unsigned char* p = row + (((2 * k + h) ^ g) << 4);
+      *reinterpret_cast<uint32_t*>(p) = fr[k][2 * h];
+      *reinterpret_cast<uint32_t*>(p + 8 * BOX_ROW_BYTES) = fr[k][2 * h + 1];
     }
   }
 }
 
-// One warp per row: delta[row] = sum(out * do) in f32, and the row of the
-// f32 dq accumulator zeroed.
+// One consumer warpgroup's loop. W 0 forms S^T and P^T, W 1 dP^T and
+// dS^T; each then adds its own boxes of dV, dK and dQ.
+template <typename T, int D, int W>
+__device__ __forceinline__ void consumer(
+    unsigned char* smem, uint64_t* kv_full, uint64_t* full, uint64_t* empty,
+    float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv,
+    int bh, int t, int tk, int d, int k0, int i0, int i1, int kv_len,
+    int q_len, int causal) {
+  using S = Smem<D>;
+  constexpr int NB = D / BOX_COLS;
+  constexpr int NB0 = (NB + 1) / 2;
+  constexpr int MYB = W == 0 ? NB0 : NB - NB0;  // this warpgroup's boxes
+  constexpr int BOX0 = W == 0 ? 0 : NB0;
+  constexpr int NA = MYB > 0 ? MYB : 1;
+  const int tid = threadIdx.x % WG_THREADS;
+  const int warp = tid / 32;
+  const int g = (tid % 32) >> 2;
+  const int c = tid & 3;
+  const int r0 = warp * 16 + g;  // this thread's KV rows: r0, r0 + 8
+  const uint32_t k_tile = smem_u32(smem + S::k_off);
+  const uint32_t v_tile = smem_u32(smem + S::v_off);
+  const uint32_t pt_tile = smem_u32(smem + S::pt_off);
+  const uint32_t ds_tile = smem_u32(smem + S::ds_off);
+  float* xch = reinterpret_cast<float*>(smem + S::x_off) + tid;
+  const float* s_lse = reinterpret_cast<const float*>(smem + S::lse_off);
+  const float* s_delta = reinterpret_cast<const float*>(smem + S::delta_off);
+  const int n_qt = t / BM;
+
+  // dK, dV and dQ_tile over this warpgroup's boxes: one m64n{64 * MYB}
+  // accumulator each, box h's 32 registers at [32h, 32h + 32).
+  float dK[NA * 32], dV[NA * 32];
+#pragma unroll
+  for (int i = 0; i < NA * 32; ++i) dK[i] = dV[i] = 0.f;
+
+  if (i0 < i1) mbar_wait(kv_full, 0);
+  for (int i = i0; i < i1; ++i) {
+    const int n = i - i0;
+    const int s = n % STAGES;
+    const uint32_t q_tile = smem_u32(smem + S::q_off + s * S::q_bytes);
+    const uint32_t o_tile = smem_u32(smem + S::o_off + s * S::q_bytes);
+    const float* lse_s = s_lse + s * BM;
+    const float* delta_s = s_delta + s * BM;
+    mbar_wait(&full[s], (n / STAGES) & 1);
+
+    // W 0: S^T = K Q2^T; W 1: dP^T = V dO^T. [64 kv, 64 q] each.
+    float st[BM / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      wgmma_ss<0, 0, T>(st, kmajor_desc(W == 0 ? k_tile : v_tile, BN, k),
+                        kmajor_desc(W == 0 ? q_tile : o_tile, BM, k), k > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(st);
+
+    uint32_t fr[BM / 16][4];  // P^T (W 0) or dS^T (W 1) in T
+    if constexpr (W == 0) {
+      // P^T = exp2(S^T - lse[q]), zero where masked.
+      const int q0 = i * BM;
+      const bool masked = k0 + BN - 1 >= kv_len || q0 + BM > q_len ||
+                          (causal && k0 + BN - 1 > q0);
+#pragma unroll
+      for (int e = 0; e < BM / 2; ++e) {
+        const int qc = 8 * (e >> 2) + 2 * c + (e & 1);
+        float p = exp2f(st[e] - lse_s[qc]);
+        if (masked) {
+          const int kv_row = k0 + r0 + 8 * ((e >> 1) & 1);
+          const int q_row = q0 + qc;
+          if (kv_row >= kv_len || q_row >= q_len ||
+              (causal && q_row < kv_row))
+            p = 0.f;
+        }
+        st[e] = p;
+      }
+      named_barrier(BAR_FREE, CONSUMER_THREADS);
+#pragma unroll
+      for (int e = 0; e < BM / 2; ++e) xch[e * WG_THREADS] = st[e];
+#pragma unroll
+      for (int k = 0; k < BM / 16; ++k)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          fr[k][r] = pack2<T>(st[8 * k + 2 * r], st[8 * k + 2 * r + 1]);
+      store_box(smem + S::pt_off, fr, warp, g, c);
+      fence_proxy_async();
+      named_barrier_arrive(BAR_P, CONSUMER_THREADS);
+      named_barrier(BAR_DS, CONSUMER_THREADS);
+    } else {
+      // dS^T = P^T * (dP^T - delta[q]), P^T from warpgroup 0's thread
+      // of the same rank (the same accumulator element).
+      named_barrier(BAR_FREE, CONSUMER_THREADS);
+      named_barrier(BAR_P, CONSUMER_THREADS);
+#pragma unroll
+      for (int e = 0; e < BM / 2; ++e) {
+        const int qc = 8 * (e >> 2) + 2 * c + (e & 1);
+        st[e] = xch[e * WG_THREADS] * (st[e] - delta_s[qc]);
+      }
+#pragma unroll
+      for (int k = 0; k < BM / 16; ++k)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          fr[k][r] = pack2<T>(st[8 * k + 2 * r], st[8 * k + 2 * r + 1]);
+      store_box(smem + S::ds_off, fr, warp, g, c);
+      fence_proxy_async();
+      named_barrier_arrive(BAR_DS, CONSUMER_THREADS);
+    }
+
+    // On this warpgroup's boxes: dV += P^T dO, dK += dS^T Q2 (A K-major
+    // from the P^T / dS^T box, B read transposed), and dQ_tile = dS K (A
+    // = (dS^T)^T and B = K, both read transposed; the contraction runs
+    // over the block's 64 KV rows).
+    float dq[NA * 32];
+    if constexpr (MYB > 0) {
+      fence_operands(dV);
+      fence_operands(dK);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BN / 16; ++k)
+        wgmma_ss<1, 1, T>(
+            dq, mnmajor_desc(ds_tile, BN, k),
+            mnmajor_desc(k_tile + BOX0 * BN * BOX_ROW_BYTES, BN, k), k > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int k = 0; k < BM / 16; ++k)
+        wgmma_ss<0, 1, T>(
+            dV, kmajor_desc(pt_tile, BN, k),
+            mnmajor_desc(o_tile + BOX0 * BM * BOX_ROW_BYTES, BM, k), 1);
+#pragma unroll
+      for (int k = 0; k < BM / 16; ++k)
+        wgmma_ss<0, 1, T>(
+            dK, kmajor_desc(ds_tile, BN, k),
+            mnmajor_desc(q_tile + BOX0 * BM * BOX_ROW_BYTES, BM, k), 1);
+      wgmma_commit();
+      // dQ_tile is done (its group was committed first): added into
+      // dq_acc while dV's and dK's products run. dq_acc is in the
+      // accumulator's register order: float4 r of thread tid at (r * 128
+      // + tid) * 4 of the (bh, q tile, box) chunk, so each warp's
+      // reduction covers 512 contiguous bytes.
+      wgmma_wait<1>();
+      fence_operands(dq);
+#pragma unroll
+      for (int h = 0; h < MYB; ++h) {
+        float* dst = dq_acc +
+                     ((static_cast<size_t>(bh) * n_qt + i) * NB + BOX0 + h) *
+                         DQ_CHUNK +
+                     tid * 4;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          red_add_v4(dst + r * WG_THREADS * 4, dq[32 * h + 4 * r],
+                     dq[32 * h + 4 * r + 1], dq[32 * h + 4 * r + 2],
+                     dq[32 * h + 4 * r + 3]);
+      }
+      wgmma_wait<0>();
+      fence_operands(dV);
+      fence_operands(dK);
+    }
+    if (tid == 0) mbar_arrive(&empty[s]);
+  }
+
+  // dk = dK * ln2, dv = dV, on this warpgroup's true columns.
+  const size_t base = (static_cast<size_t>(bh) * tk + k0 + r0) * d + 2 * c;
+#pragma unroll
+  for (int h = 0; h < MYB; ++h) {
+#pragma unroll
+    for (int nt = 0; nt < BOX_COLS / 8; ++nt) {
+      const int col = (BOX0 + h) * BOX_COLS + 8 * nt;  // + 2c, in one box
+      if (col >= d) continue;
+      *reinterpret_cast<uint32_t*>(dk + base + col) =
+          pack2<T>(dK[32 * h + 4 * nt] * LN2, dK[32 * h + 4 * nt + 1] * LN2);
+      *reinterpret_cast<uint32_t*>(dv + base + col) =
+          pack2<T>(dV[32 * h + 4 * nt], dV[32 * h + 4 * nt + 1]);
+      *reinterpret_cast<uint32_t*>(dk + base + 8 * d + col) =
+          pack2<T>(dK[32 * h + 4 * nt + 2] * LN2, dK[32 * h + 4 * nt + 3] * LN2);
+      *reinterpret_cast<uint32_t*>(dv + base + 8 * d + col) =
+          pack2<T>(dV[32 * h + 4 * nt + 2], dV[32 * h + 4 * nt + 3]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dq_acc, T* __restrict__ dk,
+                       T* __restrict__ dv, int t, int tk, int d, int kv_len,
+                       int q_len, int causal) {
+  using S = Smem<D>;
+  constexpr int NB = D / BOX_COLS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  float* s_lse = reinterpret_cast<float*>(smem + S::lse_off);
+  float* s_delta = reinterpret_cast<float*>(smem + S::delta_off);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + S::bar_off);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int k0 = kt * BN;
+  const int n_q = (q_len + BM - 1) / BM;
+  // q tiles [i0, i1): from the causal start; none for a KV tile wholly
+  // past kv_len.
+  const int i0 = causal ? k0 / BM : 0;
+  const int i1 = k0 < kv_len ? n_q : i0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == CONSUMERS) {
+    // ---- producer ----------------------------------------------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x % WG_THREADS == 0 && i0 < i1) {
+      mbar_arrive_expect_tx(kv_full, 2 * S::kv_bytes);
+      for (int h = 0; h < NB; ++h) {
+        tma_load_3d(smem + S::k_off + h * BN * BOX_ROW_BYTES, &tm_k, kv_full,
+                    h * BOX_COLS, k0, bh);
+        tma_load_3d(smem + S::v_off + h * BN * BOX_ROW_BYTES, &tm_v, kv_full,
+                    h * BOX_COLS, k0, bh);
+      }
+      for (int i = i0; i < i1; ++i) {
+        const int n = i - i0;
+        const int s = n % STAGES;
+        mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+        unsigned char* sq = smem + S::q_off + s * S::q_bytes;
+        unsigned char* so = smem + S::o_off + s * S::q_bytes;
+        mbar_arrive_expect_tx(&full[s], 2 * S::q_bytes + 2 * BM * 4);
+        for (int h = 0; h < NB; ++h) {
+          tma_load_3d(sq + h * BM * BOX_ROW_BYTES, &tm_q, &full[s],
+                      h * BOX_COLS, i * BM, bh);
+          tma_load_3d(so + h * BM * BOX_ROW_BYTES, &tm_do, &full[s],
+                      h * BOX_COLS, i * BM, bh);
+        }
+        const size_t row = static_cast<size_t>(bh) * t + i * BM;
+        bulk_load(s_lse + s * BM, lse + row, BM * 4, &full[s]);
+        bulk_load(s_delta + s * BM, delta + row, BM * 4, &full[s]);
+      }
+    }
+  } else {
+    // ---- consumers ---------------------------------------------------
+    setmaxnreg_inc<240>();
+    if (wg == 0)
+      consumer<T, D, 0>(smem, kv_full, full, empty, dq_acc, dk, dv, bh, t, tk,
+                        d, k0, i0, i1, kv_len, q_len, causal);
+    else
+      consumer<T, D, 1>(smem, kv_full, full, empty, dq_acc, dk, dv, bh, t, tk,
+                        d, k0, i0, i1, kv_len, q_len, causal);
+  }
+}
+
+template <typename T, int D>
+static cudaError_t launch(const void* q2, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta,
+                          void* dq_acc, void* dk, void* dv, int bh, int t,
+                          int tk, int d, int kv_len, int q_len, int causal,
+                          cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err = make_tile_map(&tm_q, q2, d, t, bh, BM, tma_type<T>());
+  if (err == cudaSuccess)
+    err = make_tile_map(&tm_do, dout, d, t, bh, BM, tma_type<T>());
+  if (err == cudaSuccess)
+    err = make_tile_map(&tm_k, k, d, tk, bh, BN, tma_type<T>());
+  if (err == cudaSuccess)
+    err = make_tile_map(&tm_v, v, d, tk, bh, BN, tma_type<T>());
+  if (err != cudaSuccess) return err;
+  const int bytes = Smem<D>::bytes;
+  err = cudaFuncSetAttribute(flash_bwd_wgmma_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tk / BN, bh);
+  flash_bwd_wgmma_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq_acc),
+      static_cast<T*>(dk), static_cast<T*>(dv), t, tk, d, kv_len, q_len,
+      causal);
+  return cudaGetLastError();
+}
+
+// d a multiple of 32 up to 256, run at d rounded up to 64.
+template <typename T>
+static cudaError_t launch_d(const void* q2, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, void* dq_acc, void* dk,
+                            void* dv, int bh, int t, int tk, int d, int kv_len,
+                            int q_len, int causal, cudaStream_t s) {
+  switch ((d + BOX_COLS - 1) / BOX_COLS) {
+#define RTT_BWD_WG_D(N, D)                                                    \
+  case N:                                                                     \
+    return launch<T, D>(q2, k, v, dout, lse, delta, dq_acc, dk, dv, bh, t, \
+                        tk, d, kv_len, q_len, causal, s);
+    RTT_BWD_WG_D(1, 64)
+    RTT_BWD_WG_D(2, 128)
+    RTT_BWD_WG_D(3, 192)
+    RTT_BWD_WG_D(4, 256)
+#undef RTT_BWD_WG_D
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dq = dq_acc * scale in T, undoing dq_acc's order: chunk (bh, q tile,
+// box) holds float4 r of accumulator thread tid at (r * 128 + tid) * 4,
+// i.e. rows 16 * (tid / 32) + (tid % 32) / 4 (+ 8), columns 8r + 2 * (tid
+// % 4) (+ 1) of the box. Columns past d (an overhanging box) are dropped.
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_bwd_any_dq_ordered_kernel(const float* __restrict__ dq_acc,
+                                T* __restrict__ dq, int t, int d, int nb,
+                                size_t n_float4, float scale) {
+  const size_t f = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (f >= n_float4) return;
+  const size_t chunk = f / (DQ_CHUNK / 4);
+  const int within = static_cast<int>(f % (DQ_CHUNK / 4));
+  const int r = within / WG_THREADS;
+  const int tid = within % WG_THREADS;
+  const int box = static_cast<int>(chunk % nb);
+  const size_t tile = chunk / nb;  // bh * (t / 64) + q tile
+  const int n_qt = t / BM;
+  const size_t bh = tile / n_qt;
+  const int qt = static_cast<int>(tile % n_qt);
+  const int row = qt * BM + 16 * (tid / 32) + (tid % 32) / 4;
+  const int col = box * BOX_COLS + 8 * r + 2 * (tid % 4);
+  if (col >= d) return;
+  const float4 a = reinterpret_cast<const float4*>(dq_acc)[f];
+  T* p = dq + (bh * t + row) * d + col;
+  *reinterpret_cast<uint32_t*>(p) = pack2<T>(a.x * scale, a.y * scale);
+  *reinterpret_cast<uint32_t*>(p + 8 * static_cast<size_t>(d)) =
+      pack2<T>(a.z * scale, a.w * scale);
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// every dtype at d > 256: the gradients split by columns
+// ---------------------------------------------------------------------------
+
+namespace wide {
+
+constexpr int BK = 32;              // KV rows of a block
+constexpr int BQ = 32;              // q rows of a tile
+constexpr int SL = 32;              // columns of a slice of Q2, dO, K, V
+constexpr int DC = 256;             // gradient columns of a block (a chunk)
+constexpr int TPR = THREADS / 32;   // threads of one row (q or KV)
+constexpr int CPT = BK / TPR;       // S columns of a thread
+constexpr int LDC = DC + 1;         // padded rows, in floats
+constexpr int LDS = SL + 1;
+constexpr int PLD = BK + 1;
+constexpr int SKC = 0;                     // K's chunk [BK][LDC]
+constexpr int SQC = SKC + BK * LDC;        // Q2's chunk [BQ][LDC]
+constexpr int SDOC = SQC + BQ * LDC;       // dO's chunk [BQ][LDC]
+constexpr int SQS = SDOC + BQ * LDC;       // slices [32][LDS]: Q2, K, dO, V
+constexpr int SKS = SQS + BQ * LDS;
+constexpr int SDOS = SKS + BK * LDS;
+constexpr int SVS = SDOS + BQ * LDS;
+constexpr int SP = SVS + BK * LDS;         // P and dS [BQ][PLD]
+constexpr int SDS = SP + BQ * PLD;
+constexpr int SLSE = SDS + BQ * PLD;
+constexpr int SDELTA = SLSE + BQ;
+constexpr int BYTES = (SDELTA + BQ) * 4;
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_wide_kernel(const T* __restrict__ q2, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dq_acc, T* __restrict__ dk,
+                      T* __restrict__ dv, int t, int tk, int d, int kv_len,
+                      int q_len, int causal) {
+  extern __shared__ float smem[];
+  float* skc = smem + SKC;
+  float* sqc = smem + SQC;
+  float* sdoc = smem + SDOC;
+  float* sqs = smem + SQS;
+  float* sks = smem + SKS;
+  float* sdos = smem + SDOS;
+  float* svs = smem + SVS;
+  float* sp = smem + SP;
+  float* sds = smem + SDS;
+  float* slse = smem + SLSE;
+  float* sdelta = smem + SDELTA;
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int j0 = blockIdx.x * BK;
+  const int c0 = blockIdx.z * DC;        // this block's gradient columns:
+  const int cw = min(DC, d - c0);        // [c0, c0 + cw)
+  const int a = tid / TPR;  // row of the tile this thread works on
+  const int lane = tid % TPR;
+  const size_t kv_at = (static_cast<size_t>(bh) * tk + j0) * d;
+  const size_t q_base = static_cast<size_t>(bh) * t;
+
+  for (int e = tid; e < BK * cw; e += THREADS)
+    skc[(e / cw) * LDC + e % cw] =
+        to_f(k[kv_at + static_cast<size_t>(e / cw) * d + c0 + e % cw]);
+  float dk_acc[DC / TPR], dv_acc[DC / TPR];
+#pragma unroll
+  for (int x = 0; x < DC / TPR; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+
+  const int i_start = (causal && j0 < kv_len) ? j0 : 0;
+  const int i_end = j0 < kv_len ? q_len : 0;
+  for (int i0 = i_start; i0 < i_end; i0 += BQ) {
+    const size_t q_at = (q_base + i0) * d;
+    // S = q2 k^T and dP = do v^T on (row a, columns lane + TPR*u), over
+    // all of d in slices, in the same order in every chunk.
+    float s[CPT], dp[CPT];
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) s[u] = dp[u] = 0.f;
+    for (int d0 = 0; d0 < d; d0 += SL) {
+      __syncthreads();  // the last slice (and the last tile's chunks) read
+      for (int e = tid; e < BQ * SL; e += THREADS) {
+        const int at = (e / SL) * LDS + e % SL;
+        const size_t qe = q_at + static_cast<size_t>(e / SL) * d + d0 + e % SL;
+        const size_t ke = kv_at + static_cast<size_t>(e / SL) * d + d0 + e % SL;
+        sqs[at] = to_f(q2[qe]);
+        sdos[at] = to_f(dout[qe]);
+        sks[at] = to_f(k[ke]);
+        svs[at] = to_f(v[ke]);
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < SL; ++c) {
+        const float qv = sqs[a * LDS + c];
+        const float dov = sdos[a * LDS + c];
+#pragma unroll
+        for (int u = 0; u < CPT; ++u) {
+          const int j = lane + TPR * u;
+          s[u] = fmaf(qv, sks[j * LDS + c], s[u]);
+          dp[u] = fmaf(dov, svs[j * LDS + c], dp[u]);
+        }
+      }
+    }
+    // This chunk's columns of Q2 and dO, and the tile's lse and delta.
+    for (int e = tid; e < BQ * cw; e += THREADS) {
+      const size_t qe = q_at + static_cast<size_t>(e / cw) * d + c0 + e % cw;
+      sqc[(e / cw) * LDC + e % cw] = to_f(q2[qe]);
+      sdoc[(e / cw) * LDC + e % cw] = to_f(dout[qe]);
+    }
+    if (tid < BQ) {
+      slse[tid] = lse[q_base + i0 + tid];
+      sdelta[tid] = delta[q_base + i0 + tid];
+    }
+    __syncthreads();
+    const int row = i0 + a;
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      const int j = lane + TPR * u;
+      const int col = j0 + j;
+      const bool valid =
+          row < q_len && col < kv_len && !(causal && col > row);
+      const float p = valid ? exp2f(s[u] - slse[a]) : 0.f;
+      sp[a * PLD + j] = round_to<T>(p);
+      sds[a * PLD + j] = round_to<T>(p * (dp[u] - sdelta[a]));
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q2 on (KV row a, columns lane + TPR*x).
+#pragma unroll 2
+    for (int i = 0; i < BQ; ++i) {
+      const float pv = sp[i * PLD + a];
+      const float dsv = sds[i * PLD + a];
+#pragma unroll
+      for (int x = 0; x < DC / TPR; ++x) {
+        const int cc = lane + TPR * x;
+        if (cc < cw) {
+          dv_acc[x] = fmaf(pv, sdoc[i * LDC + cc], dv_acc[x]);
+          dk_acc[x] = fmaf(dsv, sqc[i * LDC + cc], dk_acc[x]);
+        }
+      }
+    }
+    // dQ += dS K on (q row a, columns lane + TPR*x).
+    if (row < q_len) {
+      float dq[DC / TPR];
+#pragma unroll
+      for (int x = 0; x < DC / TPR; ++x) dq[x] = 0.f;
+#pragma unroll 2
+      for (int j = 0; j < BK; ++j) {
+        const float dsv = sds[a * PLD + j];
+#pragma unroll
+        for (int x = 0; x < DC / TPR; ++x)
+          dq[x] = fmaf(dsv, skc[j * LDC + lane + TPR * x], dq[x]);
+      }
+      float* dq_row = dq_acc + (q_base + row) * d + c0;
+#pragma unroll
+      for (int x = 0; x < DC / TPR; ++x)
+        if (lane + TPR * x < cw) atomicAdd(dq_row + lane + TPR * x, dq[x]);
+    }
+  }
+
+  T* dk_row = dk + kv_at + static_cast<size_t>(a) * d + c0;
+  T* dv_row = dv + kv_at + static_cast<size_t>(a) * d + c0;
+#pragma unroll
+  for (int x = 0; x < DC / TPR; ++x) {
+    if (lane + TPR * x < cw) {
+      dk_row[lane + TPR * x] = from_f<T>(dk_acc[x] * LN2);
+      dv_row[lane + TPR * x] = from_f<T>(dv_acc[x]);
+    }
+  }
+}
+
+template <typename T>
+static cudaError_t launch(const void* q2, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta,
+                          void* dq_acc, void* dk, void* dv, int bh, int t,
+                          int tk, int d, int kv_len, int q_len, int causal,
+                          cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tk / BK, bh, (d + DC - 1) / DC);
+  flash_bwd_wide_kernel<T><<<grid, THREADS, BYTES, stream>>>(
+      static_cast<const T*>(q2), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq_acc), static_cast<T*>(dk), static_cast<T*>(dv),
+      t, tk, d, kv_len, q_len, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace wide
+
+// One warp per row: delta[row] = sum(out * do) in f32 over d columns, and
+// the row's acc_d floats of the f32 dq accumulator zeroed; 16 bytes a
+// lane at a time (d is a multiple of 32, acc_d of 4).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_any_pre_kernel(const T* __restrict__ out, const T* __restrict__ dout,
                          float* __restrict__ delta, float* __restrict__ dq_acc,
-                         int rows, int d) {
+                         int rows, int d, int acc_d) {
+  constexpr int VEC = 16 / sizeof(T);
   const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   const size_t at = static_cast<size_t>(row) * d;
   float sum = 0.f;
-  for (int c = lane; c < d; c += 32) {
-    sum = fmaf(to_f(out[at + c]), to_f(dout[at + c]), sum);
-    dq_acc[at + c] = 0.f;
+  for (int c = lane * VEC; c < d; c += 32 * VEC) {
+    const uint4 a = *reinterpret_cast<const uint4*>(out + at + c);
+    const uint4 b = *reinterpret_cast<const uint4*>(dout + at + c);
+    const T* av = reinterpret_cast<const T*>(&a);
+    const T* bv = reinterpret_cast<const T*>(&b);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sum = fmaf(to_f(av[i]), to_f(bv[i]), sum);
   }
+  float4* acc = reinterpret_cast<float4*>(dq_acc + static_cast<size_t>(row) * acc_d);
+  for (int c = lane; c < acc_d / 4; c += 32)
+    acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (lane == 0) delta[row] = sum;
 }
 
+// dq = dq_acc * scale in T, both row-major.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_any_dq_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq,
@@ -458,54 +857,38 @@ flash_bwd_any_dq_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq,
   if (i < n) dq[i] = from_f<T>(dq_acc[i] * scale);
 }
 
-template <typename T, int D>
-static cudaError_t launch_main(const void* q2, const void* k, const void* v,
+template <int D>
+static cudaError_t launch_simt(const void* q2, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dq_acc, void* dk,
                                void* dv, int bh, int t, int tk, int kv_len,
                                int q_len, int causal, cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value) {
-    const int bytes = Smem<D>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_simt_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid(tk / BK, bh);
-    flash_bwd_simt_kernel<T, D><<<grid, THREADS, bytes, stream>>>(
-        static_cast<const T*>(q2), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dq_acc), static_cast<T*>(dk), static_cast<T*>(dv),
-        t, tk, kv_len, q_len, causal);
-  } else {
-    const int bytes = MmaSmem<D>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_mma_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid(tk / MmaSmem<D>::BKM, bh);
-    flash_bwd_mma_kernel<T, D><<<grid, 128 * mma_cs<D>(), bytes, stream>>>(
-        static_cast<const T*>(q2), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<float*>(dq_acc), static_cast<T*>(dk), static_cast<T*>(dv),
-        t, tk, kv_len, q_len, causal);
-  }
+  const int bytes = Smem<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_simt_kernel<float, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tk / BK, bh);
+  flash_bwd_simt_kernel<float, D><<<grid, THREADS, bytes, stream>>>(
+      static_cast<const float*>(q2), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq_acc), static_cast<float*>(dk),
+      static_cast<float*>(dv), t, tk, kv_len, q_len, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t launch_main_d(const void* q2, const void* k, const void* v,
+static cudaError_t launch_simt_d(const void* q2, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq_acc, void* dk,
                                  void* dv, int bh, int t, int tk, int d,
                                  int kv_len, int q_len, int causal,
                                  cudaStream_t s) {
   switch (d) {
-#define RTT_BWD_ANY_D(D)                                                      \
-  case D:                                                                     \
-    return launch_main<T, D>(q2, k, v, dout, lse, delta, dq_acc, dk, dv, bh, \
-                             t, tk, kv_len, q_len, causal, s);
+#define RTT_BWD_ANY_D(D)                                                    \
+  case D:                                                                   \
+    return launch_simt<D>(q2, k, v, dout, lse, delta, dq_acc, dk, dv, bh, \
+                          t, tk, kv_len, q_len, causal, s);
     RTT_BWD_ANY_D(32)
     RTT_BWD_ANY_D(64)
     RTT_BWD_ANY_D(96)
@@ -523,16 +906,20 @@ static cudaError_t launch_main_d(const void* q2, const void* k, const void* v,
 }  // namespace any
 }  // namespace rtt
 
-// dtype: 0 f32, 1 bf16, 2 f16 (out, dout); delta f32 [rows]; dq_acc f32
-// [rows * d]; all contiguous. Returns the CUDA error of the launch.
+// dtype: 0 f32, 1 bf16, 2 f16 (out, dout [rows, d], d a multiple of 32);
+// delta f32 [rows];
+// dq_acc f32 [rows * acc_d], zeroed here: acc_d is d for the f32 and wide
+// kernels' row-major accumulator, d rounded up to 64 for the wgmma
+// kernel's. All contiguous. Returns the CUDA error of the launch.
 extern "C" int rtt_flash_bwd_any_pre(int dtype, const void* out,
                                      const void* dout, void* delta,
-                                     void* dq_acc, int rows, int d,
+                                     void* dq_acc, int rows, int d, int acc_d,
                                      void* stream) {
   using namespace rtt::any::bwd;
   using rtt::any::THREADS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || d <= 0 || d % 32 || acc_d < d || acc_d % 4)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
   float* dl = static_cast<float*>(delta);
   float* acc = static_cast<float*>(dq_acc);
@@ -540,17 +927,17 @@ extern "C" int rtt_flash_bwd_any_pre(int dtype, const void* out,
     case 0:
       flash_bwd_any_pre_kernel<float><<<blocks, THREADS, 0, s>>>(
           static_cast<const float*>(out), static_cast<const float*>(dout), dl,
-          acc, rows, d);
+          acc, rows, d, acc_d);
       break;
     case 1:
       flash_bwd_any_pre_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
           static_cast<const __nv_bfloat16*>(out),
-          static_cast<const __nv_bfloat16*>(dout), dl, acc, rows, d);
+          static_cast<const __nv_bfloat16*>(dout), dl, acc, rows, d, acc_d);
       break;
     case 2:
       flash_bwd_any_pre_kernel<__half><<<blocks, THREADS, 0, s>>>(
           static_cast<const __half*>(out), static_cast<const __half*>(dout),
-          dl, acc, rows, d);
+          dl, acc, rows, d, acc_d);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -559,9 +946,11 @@ extern "C" int rtt_flash_bwd_any_pre(int dtype, const void* out,
 }
 
 // dtype as above for q2, k, v, dout, dk, dv; lse, delta [bh, t] and dq_acc
-// [bh * t * d] f32, dq_acc zeroed (rtt_flash_bwd_any_pre); all contiguous;
-// t and tk multiples of 64; d a multiple of 32 up to 256. Returns the CUDA
-// error of the launch (0 on success).
+// f32, dq_acc zeroed (rtt_flash_bwd_any_pre): [bh * t * d] row-major for
+// f32, [bh * t * round_up(d, 64)] in the wgmma kernel's order for bf16 and
+// f16. All contiguous and 16-byte aligned; t and tk multiples of 64; d a
+// multiple of 32 up to 256. Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int rtt_flash_bwd_any(int dtype, const void* q2, const void* k,
                                  const void* v, const void* dout,
                                  const void* lse, const void* delta,
@@ -571,45 +960,93 @@ extern "C" int rtt_flash_bwd_any(int dtype, const void* q2, const void* k,
   using namespace rtt::any::bwd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bh <= 0 || t % 64 || tk % 64 || q_len <= 0 || q_len > t ||
-      kv_len <= 0 || kv_len > tk)
+      kv_len <= 0 || kv_len > tk || d <= 0 || d % 32 || d > 256)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:
-      return launch_main_d<float>(q2, k, v, dout, lse, delta, dq_acc, dk, dv,
-                                  bh, t, tk, d, kv_len, q_len, causal, s);
+      return launch_simt_d(q2, k, v, dout, lse, delta, dq_acc, dk, dv, bh, t,
+                           tk, d, kv_len, q_len, causal, s);
     case 1:
-      return launch_main_d<__nv_bfloat16>(q2, k, v, dout, lse, delta, dq_acc,
-                                          dk, dv, bh, t, tk, d, kv_len, q_len,
-                                          causal, s);
+      return wg::launch_d<__nv_bfloat16>(q2, k, v, dout, lse, delta, dq_acc,
+                                         dk, dv, bh, t, tk, d, kv_len, q_len,
+                                         causal, s);
     case 2:
-      return launch_main_d<__half>(q2, k, v, dout, lse, delta, dq_acc, dk, dv,
-                                   bh, t, tk, d, kv_len, q_len, causal, s);
+      return wg::launch_d<__half>(q2, k, v, dout, lse, delta, dq_acc, dk, dv,
+                                  bh, t, tk, d, kv_len, q_len, causal, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dq [n] in T = dq_acc * scale (dq_acc row-major, as the main kernel left
-// it). Returns the CUDA error of the launch (0 on success).
-extern "C" int rtt_flash_bwd_any_dq(int dtype, const void* dq_acc, void* dq,
-                                    long long n, float scale, void* stream) {
+// The same for any d that is a multiple of 32 (the op takes it for d >
+// 256), every dtype on the column-split kernel; dq_acc row-major [bh * t *
+// d].
+extern "C" int rtt_flash_bwd_wide(int dtype, const void* q2, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dq_acc, void* dk, void* dv, int bh,
+                                  int t, int tk, int d, int kv_len, int q_len,
+                                  int causal, void* stream) {
+  using namespace rtt::any::bwd;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bh <= 0 || t % 64 || tk % 64 || q_len <= 0 || q_len > t ||
+      kv_len <= 0 || kv_len > tk || d <= 0 || d % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case 0:
+      return wide::launch<float>(q2, k, v, dout, lse, delta, dq_acc, dk, dv,
+                                 bh, t, tk, d, kv_len, q_len, causal, s);
+    case 1:
+      return wide::launch<__nv_bfloat16>(q2, k, v, dout, lse, delta, dq_acc,
+                                         dk, dv, bh, t, tk, d, kv_len, q_len,
+                                         causal, s);
+    case 2:
+      return wide::launch<__half>(q2, k, v, dout, lse, delta, dq_acc, dk, dv,
+                                  bh, t, tk, d, kv_len, q_len, causal, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dq [bh, t, d] in T = dq_acc * scale. `ordered`: dq_acc in the wgmma
+// kernel's order ([bh * t * round_up(d, 64)]); else row-major [bh * t *
+// d] (the f32 and wide kernels'). Returns the CUDA error of the launch.
+extern "C" int rtt_flash_bwd_any_dq(int dtype, int ordered, const void* dq_acc,
+                                    void* dq, int bh, int t, int d,
+                                    float scale, void* stream) {
   using namespace rtt::any::bwd;
   using rtt::any::THREADS;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>((n + THREADS - 1) / THREADS);
+  if (bh <= 0 || t <= 0 || t % 64 || d <= 0 || d % 32 ||
+      (ordered && dtype == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const float* acc = static_cast<const float*>(dq_acc);
+  if (ordered) {
+    const int nb = (d + rtt::BOX_COLS - 1) / rtt::BOX_COLS;
+    const size_t n4 = static_cast<size_t>(bh) * t * nb * rtt::BOX_COLS / 4;
+    const unsigned blocks = static_cast<unsigned>((n4 + 255) / 256);
+    if (dtype == 1)
+      wg::flash_bwd_any_dq_ordered_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+          acc, static_cast<__nv_bfloat16*>(dq), t, d, nb, n4, scale);
+    else if (dtype == 2)
+      wg::flash_bwd_any_dq_ordered_kernel<__half><<<blocks, 256, 0, s>>>(
+          acc, static_cast<__half*>(dq), t, d, nb, n4, scale);
+    else
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t n = static_cast<size_t>(bh) * t * d;
+  const unsigned blocks = static_cast<unsigned>((n + THREADS - 1) / THREADS);
   switch (dtype) {
     case 0:
       flash_bwd_any_dq_kernel<float><<<blocks, THREADS, 0, s>>>(
-          acc, static_cast<float*>(dq), static_cast<size_t>(n), scale);
+          acc, static_cast<float*>(dq), n, scale);
       break;
     case 1:
       flash_bwd_any_dq_kernel<__nv_bfloat16><<<blocks, THREADS, 0, s>>>(
-          acc, static_cast<__nv_bfloat16*>(dq), static_cast<size_t>(n), scale);
+          acc, static_cast<__nv_bfloat16*>(dq), n, scale);
       break;
     case 2:
       flash_bwd_any_dq_kernel<__half><<<blocks, THREADS, 0, s>>>(
-          acc, static_cast<__half*>(dq), static_cast<size_t>(n), scale);
+          acc, static_cast<__half*>(dq), n, scale);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -12,9 +12,10 @@ about 1e-7, and a TF32 or bf16 product reads order 1e-4 or more, which
 `test_f32_bar_rejects_tf32_and_bf16_products` checks). The backward
 runs under a random upstream gradient, so that every row of `do`
 matters to dq, dk and dv. The shapes include the edges of the kernels'
-128-row tiles: a partial last tile (t 192), a single partial tile
-(t 64), q and KV of different lengths, kv_len inside a tile, and one
-head.
+128-row q tiles and 64-row KV tiles: a partial last tile (t 192), a
+single partial tile (t 64), q and KV of different lengths, kv_len inside
+a tile, q rows past q_len, and one head; and head_dims that overhang a
+64-column box (96, 160), and above 256 (320, 512: the "wide" kernels).
 """
 
 import math
@@ -106,19 +107,22 @@ def test_backward_op_is_three_launches_and_returns_q_dtype(gen):
     assert attn.LAUNCHES == {"flash_fwd": 0, "flash_bwd_pre": 1,
                              "flash_bwd": 1, "flash_bwd_dq": 1,
                              "flash_fwd_any": 0, "flash_bwd_any_pre": 0,
-                             "flash_bwd_any": 0, "flash_bwd_any_dq": 0}
+                             "flash_bwd_any": 0, "flash_bwd_any_dq": 0,
+                             "flash_fwd_wide": 0, "flash_bwd_wide": 0}
     assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
-    """Every head_dim up to 256 in bf16, f16 and f32 has a kernel; a
-    larger head_dim or another dtype raises before any launch."""
-    q = _randn(gen, 1, 64, 288)
+    """Every head_dim in bf16, f16 and f32 has a kernel; an empty
+    head_dim or another dtype raises before any launch."""
+    attn.reset_launch_counts()
+    q = _randn(gen, 1, 64, 0)
     with pytest.raises(ValueError, match="head_dim"):
         attn.flash_forward(q, q, q, True, 64)
     q = _randn(gen, 1, 64, 96).double()
     with pytest.raises(ValueError, match="dtype"):
         attn.flash_forward(q, q, q, True, 64)
+    assert all(n == 0 for n in attn.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("dtype,t,tk,d,causal,q_len,kv_len,bh", [
@@ -129,12 +133,30 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
     (torch.bfloat16, 64, 64, 96, True, 64, 64, 2),
     (torch.bfloat16, 320, 320, 16, True, 300, 300, 2),
     (torch.float32, 128, 384, 256, True, 128, 384, 2),
+    # The 16-bit wgmma kernels at the edges of their 128-row q tile and
+    # 64-row KV tile, and at head_dims that overhang a 64-column box.
+    (torch.float16, 256, 256, 256, True, 256, 256, 4),
+    (torch.bfloat16, 64, 64, 256, True, 64, 64, 4),
+    (torch.float16, 192, 192, 256, True, 192, 192, 4),
+    (torch.bfloat16, 192, 192, 192, True, 192, 192, 4),
+    (torch.bfloat16, 64, 64, 192, False, 64, 40, 4),
+    (torch.bfloat16, 256, 256, 256, False, 256, 100, 2),
+    (torch.float16, 320, 320, 256, True, 300, 300, 2),
+    (torch.bfloat16, 128, 384, 256, True, 128, 384, 2),
+    (torch.bfloat16, 384, 128, 192, True, 384, 128, 2),
+    (torch.bfloat16, 256, 256, 160, True, 256, 256, 2),
+    # The "wide" kernels, head_dim above 256.
+    (torch.bfloat16, 256, 256, 320, True, 256, 256, 2),
+    (torch.float16, 192, 192, 512, True, 192, 170, 2),
+    (torch.float32, 128, 256, 512, True, 128, 256, 2),
+    (torch.float32, 256, 256, 320, False, 250, 200, 2),
 ])
 def test_any_kernels_match_plain_versions(gen, monkeypatch, dtype, t, tk, d,
                                           causal, q_len, kv_len, bh):
-    """The "any" kernels (csrc/flash_fwd_any.cu, flash_bwd_any.cu) in
-    every dtype, at head_dims off the wgmma kernels' and the edges of
-    their tiles, against their plain versions under a random `do`."""
+    """The "any" and "wide" kernels (csrc/flash_fwd_any.cu,
+    flash_bwd_any.cu) in every dtype, at head_dims off the wgmma
+    kernels' and the edges of their tiles, against their plain versions
+    under a random `do`."""
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     def randn(*shape):
         return (torch.randn(*shape, generator=gen, device="cuda")
@@ -160,8 +182,12 @@ def test_any_kernels_match_plain_versions(gen, monkeypatch, dtype, t, tk, d,
     got, ref = attn.flash_backward(*args), attn.flash_backward_plain(*args)
     for g, r, n in zip(got, ref, (q_len, kv_len, kv_len)):
         assert g.dtype == dtype and _within(g[:, :n], r[:, :n], tol)
+    pair = attn._kernel_for(dtype, d)
     assert attn.LAUNCHES["flash_fwd"] == attn.LAUNCHES["flash_bwd"] == 0
-    assert attn.LAUNCHES["flash_fwd_any"] == attn.LAUNCHES["flash_bwd_any"] == 1
+    assert attn.LAUNCHES[f"flash_fwd_{pair}"] == 1
+    assert attn.LAUNCHES[f"flash_bwd_{pair}"] == 1
+    assert attn.LAUNCHES["flash_bwd_any_pre"] == 1
+    assert attn.LAUNCHES["flash_bwd_any_dq"] == 1
 
 
 def test_f32_bar_rejects_tf32_and_bf16_products(gen, monkeypatch):

@@ -229,20 +229,30 @@ class TestFlashBackwardKernel:
 class TestKernelDispatch:
     """`_kernel_for` pins which kernel pair takes each (dtype, head_dim):
     the wgmma kernels take bf16 at 64 and 128, the "any" kernels every
-    other head_dim up to 256 in bf16, f16 and f32; nothing else."""
+    other head_dim up to 256 in bf16, f16 and f32, the "wide" kernels
+    every head_dim above 256 in those dtypes; nothing else."""
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
                                        torch.float32])
     def test_every_head_dim_up_to_256(self, dtype):
-        for d in range(1, attn.MAX_HEAD_DIM + 1):
+        """Every head_dim up to 256, and on to 2 * 256 + 1, has its pair."""
+        for d in range(1, 2 * attn.MAX_HEAD_DIM + 2):
             want = ("wgmma" if dtype == torch.bfloat16 and d in (64, 128)
-                    else "any")
+                    else "any" if d <= attn.MAX_HEAD_DIM else "wide")
             assert attn._kernel_for(dtype, d) == want, d
 
+    @pytest.mark.parametrize("dtype,d", [
+        (torch.bfloat16, 257), (torch.float32, 512), (torch.float16, 320),
+        (torch.bfloat16, 4096),
+    ])
+    def test_head_dims_above_256_pick_the_wide_pair(self, dtype, d):
+        assert attn._kernel_for(dtype, d) == "wide"
+        assert d + (-d % attn.ANY_D_STEP) in attn.WIDE_HEAD_DIMS
+
     @pytest.mark.parametrize("dtype,d,match", [
-        (torch.bfloat16, 257, "head_dim"), (torch.float32, 512, "head_dim"),
-        (torch.float16, 0, "head_dim"), (torch.float64, 64, "dtype"),
-        (torch.int32, 128, "dtype"),
+        (torch.float16, 0, "head_dim"), (torch.bfloat16, -32, "head_dim"),
+        (torch.float64, 64, "dtype"), (torch.int32, 128, "dtype"),
+        (torch.float64, 512, "dtype"),
     ])
     def test_what_no_kernel_takes_raises(self, dtype, d, match):
         with pytest.raises(ValueError, match=match):
@@ -274,9 +284,101 @@ class TestKernelDispatch:
             assert not gp[..., d:].any()
 
 
+def _split_forward(q2, k, v, causal, kv_len, chunk=256, width=32):
+    """The forward as the "wide" kernel computes it: S summed over
+    `width`-column slices of d in order, then out chunk by chunk of
+    `chunk` columns, each from the same P."""
+    t, tk, d = q2.shape[1], k.shape[1], q2.shape[2]
+    s = torch.zeros(q2.shape[0], t, tk)
+    for d0 in range(0, d, width):
+        s += torch.matmul(q2[..., d0:d0 + width].float(),
+                          k[..., d0:d0 + width].float().transpose(1, 2))
+    s.masked_fill_(~attn._valid_mask(t, tk, causal, kv_len, s.device),
+                   attn.DEFAULT_MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = (s - m).exp2()
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    pt = p.to(v.dtype).float()
+    out = torch.cat([torch.matmul(pt, v[..., c0:c0 + chunk].float()) / l_safe
+                     for c0 in range(0, d, chunk)], dim=-1)
+    return out.to(q2.dtype), (m + torch.log2(l_safe))[..., 0]
+
+
+def _split_backward(q2, k, v, out, do, lse, scale, causal, kv_len, q_len,
+                    chunk=256, width=32):
+    """The backward as the "wide" kernel computes it: S and dP summed over
+    slices of d, then dq, dk and dv chunk by chunk from the same P, dS."""
+    t, tk, d = q2.shape[1], k.shape[1], q2.shape[2]
+    delta = (out.float() * do.float()).sum(dim=-1)
+    s = torch.zeros(q2.shape[0], t, tk)
+    dp = torch.zeros_like(s)
+    for d0 in range(0, d, width):
+        sl = slice(d0, d0 + width)
+        s += torch.matmul(q2[..., sl].float(), k[..., sl].float().transpose(1, 2))
+        dp += torch.matmul(do[..., sl].float(), v[..., sl].float().transpose(1, 2))
+    valid = attn._valid_mask(t, tk, causal, kv_len, s.device)
+    valid = valid & (torch.arange(t)[:, None] < q_len)
+    p = torch.where(valid, (s - lse[..., None]).exp2(), torch.zeros_like(s))
+    ds = (p * (dp - delta[..., None])).to(q2.dtype).float()
+    pt = p.to(do.dtype).float().transpose(1, 2)
+    grads = [[], [], []]
+    for c0 in range(0, d, chunk):
+        cs = slice(c0, c0 + chunk)
+        grads[0].append(torch.matmul(ds, k[..., cs].float()) * scale)
+        grads[1].append(torch.matmul(ds.transpose(1, 2), q2[..., cs].float())
+                        * math.log(2.0))
+        grads[2].append(torch.matmul(pt, do[..., cs].float()))
+    return tuple(torch.cat(g, dim=-1).to(x.dtype)
+                 for g, x in zip(grads, (q2, k, v)))
+
+
+class TestColumnSplitPlainVersion:
+    """The algorithm of the "wide" kernels (head_dim above 256), held on
+    the CPU: S (and dP) summed over 32-column slices of d, the outputs
+    formed in chunks of 256 columns from one P (and dS), equal the unsplit
+    plain versions. f32 within f32 rounding of the regrouped sums over d
+    (rtol 1e-5, atol 1e-5); bf16, where P and dS round to bf16 and a sum
+    regrouped in f32 may tip a rounding, within BF16_REL_TOL of each
+    output's largest element."""
+
+    @pytest.mark.parametrize("dtype,d,causal,kv_len,q_len", [
+        (torch.float32, 320, True, 128, 128),
+        (torch.float32, 512, False, 100, 128),
+        (torch.bfloat16, 512, True, 128, 90),
+        (torch.float16, 320, True, 128, 128),
+    ])
+    def test_split_equals_unsplit(self, dtype, d, causal, kv_len, q_len):
+        q, k, v, do = (torch.from_numpy(_rand(90 + i, 2, 128, d)).to(dtype)
+                       for i in range(4))
+        k[:, kv_len:] = 0
+        v[:, kv_len:] = 0
+        q[:, q_len:] = 0
+        do[:, q_len:] = 0
+        scale = 1.0 / math.sqrt(d)
+        q2 = attn.prescale(q, scale)
+        out, lse = attn.flash_forward_plain(q2, k, v, causal, kv_len)
+        s_out, s_lse = _split_forward(q2, k, v, causal, kv_len)
+        args = (q2, k, v, out, do, lse, scale, causal, kv_len, q_len)
+        want = attn.flash_backward_plain(*args)
+        got = _split_backward(*args)
+        torch.testing.assert_close(s_lse, lse, rtol=1e-5, atol=1e-5)
+        for a, w, name in [(s_out, out, "out")] + list(
+                zip(got, want, ("dq", "dk", "dv"))):
+            assert a.dtype == w.dtype == dtype and a.shape == w.shape, name
+            if dtype == torch.float32:
+                torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5,
+                                           msg=name)
+            else:
+                err = (a.float() - w.float()).abs().max().item()
+                assert err <= BF16_REL_TOL * w.float().abs().max().item(), \
+                    (name, err)
+
+
 class TestAnyHeadDimsMatchPallas:
     """Where the "any" kernels take over on the card (f32, head_dim 256,
-    96 and 16), the port's plain path (what a CPU tensor runs) equals the
+    96 and 16), and the "wide" ones (head_dim 320 and 512, f32 and bf16),
+    the port's plain path (what a CPU tensor runs) equals the
     JAX package's `flash_attention` with its Pallas kernels in interpret
     mode, forward and gradients, at b 1 x h 2 x t 256, causal. f32 at
     `FWD_TOL`/`GRAD_TOL` (as tests/test_ops.py holds the JAX kernels);
@@ -285,7 +387,9 @@ class TestAnyHeadDimsMatchPallas:
     order only)."""
 
     @pytest.mark.parametrize("dtype,d", [("float32", 256), ("bfloat16", 256),
-                                         ("float32", 96), ("float32", 16)])
+                                         ("float32", 96), ("float32", 16),
+                                         ("float32", 320), ("bfloat16", 320),
+                                         ("float32", 512), ("bfloat16", 512)])
     def test_forward_and_gradients(self, dtype, d):
         q, k, v, g = (_rand(70 + i, 1, 2, 256, d) for i in range(4))
         jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
@@ -329,7 +433,8 @@ class TestKernelWrappers:
         assert attn.LAUNCHES == {"flash_fwd": 0, "flash_bwd_pre": 0,
                                  "flash_bwd": 0, "flash_bwd_dq": 0,
                                  "flash_fwd_any": 0, "flash_bwd_any_pre": 0,
-                                 "flash_bwd_any": 0, "flash_bwd_any_dq": 0}
+                                 "flash_bwd_any": 0, "flash_bwd_any_dq": 0,
+                                 "flash_fwd_wide": 0, "flash_bwd_wide": 0}
 
     def test_cpu_backward_takes_plain_version_without_launch(self):
         attn.reset_launch_counts()
