@@ -30,15 +30,17 @@ Phases, none of whose failures is caught:
       only: the port never calls it). Then the same for the "any" and
       "wide" kernels (`csrc/flash_fwd_any.cu`, `csrc/flash_bwd_any.cu`:
       every dtype and head_dim the wgmma pair does not take, the "wide"
-      ones above 256) at ANY_CASES (16-bit and f32 at d 16 to 512, and
-      their tiles' edges), f32 held at F32_REL_TOL (1e-5, since f32
-      stays f32: the plain version with TF32 or bf16 products must fall
-      outside it), with the two negative controls at bf16 d 256 and 512,
-      the public op against `mha_reference` in f32 at ANY_OP_CASES, and
-      their times at ANY_TIMED beside SDPA and their bounds (f32's at the
-      67 TFLOP/s of the CUDA cores); at Gemma's bf16 shape also under two
-      sharp softmaxes
-      (q not scaled by 1/sqrt(d), and 8 times that, where P underflows),
+      ones above 256) at ANY_CASES (16-bit and f32 at d 16 to 704, and
+      their tiles' edges), f32 held at F32_REL_TOL (1e-5: the f32
+      forward's three-term TF32 product is held there alone first, S at
+      d 256, where one TF32 term and the plain version with TF32 or bf16
+      products must fall outside it), with the two negative controls at
+      bf16 d 256 and 512, the public op against `mha_reference` in f32 at
+      ANY_OP_CASES, and their times at ANY_TIMED beside SDPA (in f32 also
+      SDPA's own error, printed) and their bounds (f32's the lesser of the
+      CUDA cores' 67 TFLOP/s and three TF32 terms at 495); at Gemma's
+      bf16 shape also under two sharp softmaxes (q not scaled by
+      1/sqrt(d), and 8 times that, where P underflows),
       in turns with the op's own scaling, to show whether the time
       depends on the data;
   (c) the slice: Llama-2-7B width (dim 4096, 32 heads, head_dim 128,
@@ -178,8 +180,9 @@ the repo at ROOT (for example `git archive <commit>` unpacked into a
 gitignored directory). Its `ray_tpu_torch` is imported beside this one
 and builds its kernels from its own sources. At the slice's shape its
 forward kernel and its backward op (every launch its autograd backward
-makes), and at Gemma-2B's (ANY_TIMED's first) its "any" forward and
-backward op, are held to this tree's plain versions and timed in turns
+makes), and at AGAINST_TIMED (Gemma-2B's bf16 d 256, f32 d 128 and
+bf16 d 512) its "any" and "wide" forward and backward op, are held to
+this tree's plain versions and timed in turns
 ROOT, this, this, ROOT. Then each tree, ROOT first, trains two steps of the
 slice from the same seed with the allocator's history recorded: the
 peak of device memory and the largest allocations alive at it, by the
@@ -190,6 +193,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import dataclasses
 import gc
 import importlib.util
@@ -210,9 +214,10 @@ HBM_BYTES_PER_S = 3.35e12
 #: about 0.4% of max|ref|; an output left at zero or computed from the
 #: wrong rows reads order 100%.
 REL_TOL = 1e-2
-#: The same bars for f32 inputs, which the "any" kernels keep in f32 on
-#: the CUDA cores (no TF32): their f32 outputs read about 1e-7 of the
-#: plain f32 version's, while the plain version with TF32 or bf16
+#: The same bars for f32 inputs, which the "any" forward multiplies in
+#: three-term TF32 on the tensor cores and the other f32 kernels in f32 on
+#: the CUDA cores: their f32 outputs read about 1e-7 of the plain f32
+#: version's, while the plain version with one-term TF32 or bf16
 #: products reads order 1e-4 or more (the controls of phase (b)).
 F32_REL_TOL = 1e-5
 #: The verify recipe's absolute bars, for its upstream gradient only.
@@ -229,14 +234,15 @@ NOISE_RATIO = 2.0
 
 #: Device-side names of every launch of the attention ops: the wgmma
 #: pair's, the "any" pair's (`flash_fwd_wgmma_kernel`,
-#: `flash_fwd_simt_kernel`, `flash_bwd_any_pre_kernel`, ...) and the
+#: `flash_fwd_tf32_kernel`, `flash_bwd_any_pre_kernel`, ...) and the
 #: "wide" pair's.
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_pre_kernel",
                  "flash_bwd_kernel", "flash_bwd_dq_kernel",
-                 "flash_fwd_wgmma_kernel", "flash_fwd_simt_kernel",
+                 "flash_fwd_wgmma_kernel", "flash_fwd_tf32_kernel",
                  "flash_bwd_any_pre_kernel", "flash_bwd_wgmma_kernel",
                  "flash_bwd_simt_kernel", "flash_bwd_any_dq_kernel",
-                 "flash_bwd_any_dq_ordered_kernel", "flash_fwd_wide_kernel",
+                 "flash_bwd_any_dq_ordered_kernel",
+                 "flash_fwd_wide_wgmma_kernel", "flash_fwd_wide_kernel",
                  "flash_bwd_wide_kernel")
 #: The backward op's launches, by launch counter.
 BWD_LAUNCHES = ("flash_bwd_pre", "flash_bwd", "flash_bwd_dq")
@@ -284,19 +290,28 @@ AUX_TOL = 1e-3
 CARDS4_LOSS_REL = 1e-2
 #: `--cards 4`: rows of the batch (ep 2 x 2 microbatches).
 CARDS4_BATCH = 4
-#: Dense f32 peak of an H100 SXM outside the tensor cores (NVIDIA data
-#: sheet): the "any" kernels keep f32 inputs in f32 (no TF32), so this is
-#: their operations bound in f32.
+#: Dense f32 peak of an H100 SXM outside the tensor cores, and its dense
+#: TF32 tensor-core peak (NVIDIA data sheet). An f32 kernel's operations
+#: bound is the lesser of its products at 67 TFLOP/s and the same
+#: products as three TF32 terms at 495 TFLOP/s (`f32_ops_ms`): the least
+#: time the card could take for f32 work, whichever route a kernel takes.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32_TERMS = 3
 #: The "any" and "wide" kernels' checks (phase (b)): (label, dtype, bh,
 #: t, tk, d, causal, q_len, kv_len). bf16 and f16 at d 256 (Gemma), f32
 #: at d 128 and 256, f16 at d 128, bf16 at d 192, d 96 (Phi-3) and d 16
 #: (`LlamaConfig.tiny`), whose last 64-column box overhangs the row; d
-#: 320 and 512 in every dtype (the "wide" kernels); and the edges of the
-#: 16-bit kernels' 128-row q and 64-row KV tiles and of the f32 kernels'
-#: 64-row q and 32-row KV tiles: t 64 (half a q tile) and 192, kv_len
-#: inside a tile, causal t_q != t_k (against the plain version, whose
-#: mask is the kernels' top-left one), and q rows past q_len.
+#: 320 and 512 in every dtype (the "wide" kernels), 352 in bf16 and f16
+#: (the wide wgmma kernel's last box overhangs the row, its last chunk 2
+#: boxes; at 320 1 box), 608 and 704 (Q no longer resident: its boxes
+#: come through the ring; three chunks, the last of 2 and 3 boxes); and
+#: the edges of the 16-bit kernels' 128-row q and 64-row KV tiles and of
+#: the f32 kernel's (q tiles of two 64-row consumers up to d 192, of one
+#: above; KV tiles of 64 rows up to d 128, 32 above; a 32-column last
+#: chunk of O at d 32, 96, 160 and 224): t 64 (half a q tile) and 192,
+#: kv_len inside a tile, causal t_q != t_k (against the plain version,
+#: whose mask is the kernels' top-left one), and q rows past q_len.
 ANY_CASES = (
     ("bf16_d256", "bfloat16", 16, 1024, 1024, 256, True, 1024, 1024),
     ("f32_d128", "float32", 16, 512, 512, 128, True, 512, 512),
@@ -326,6 +341,18 @@ ANY_CASES = (
     ("bf16_d512", "bfloat16", 8, 512, 512, 512, True, 512, 512),
     ("ragged_f16_d512", "float16", 4, 320, 320, 512, True, 300, 280),
     ("f32_d512", "float32", 4, 256, 256, 512, False, 256, 200),
+    ("t64_f32_d256", "float32", 8, 64, 64, 256, True, 64, 64),
+    ("kvlen72_f32_d192", "float32", 8, 128, 128, 192, False, 128, 72),
+    ("ragged_f32_d224", "float32", 8, 320, 320, 224, True, 300, 270),
+    ("q384k128_causal_f32_d64", "float32", 8, 384, 128, 64, True, 384,
+     128),
+    ("t64_f32_d128", "float32", 8, 64, 64, 128, True, 64, 64),
+    ("kvlen40_f32_d96", "float32", 8, 192, 192, 96, False, 192, 40),
+    ("ragged_f32_d32", "float32", 8, 320, 320, 32, True, 300, 290),
+    ("bf16_d352", "bfloat16", 8, 512, 512, 352, True, 512, 512),
+    ("kvlen200_f16_d352", "float16", 8, 256, 256, 352, False, 256, 200),
+    ("bf16_d704", "bfloat16", 4, 320, 320, 704, True, 300, 300),
+    ("f16_d608", "float16", 4, 256, 256, 608, True, 256, 256),
 )
 #: The public op against `mha_reference` in f32 on the same inputs, for
 #: the "any" and "wide" kernels: (dtype, head_dim) at b 1 x h 2 x t 512,
@@ -334,14 +361,22 @@ ANY_OP_CASES = (("bfloat16", 256), ("float32", 128), ("float32", 256),
                 ("float16", 128), ("bfloat16", 96), ("bfloat16", 16),
                 ("float16", 256), ("bfloat16", 192),
                 ("bfloat16", 320), ("float16", 320), ("float32", 320),
-                ("bfloat16", 512), ("float16", 512), ("float32", 512))
+                ("bfloat16", 512), ("float16", 512), ("float32", 512),
+                ("bfloat16", 352), ("float32", 64))
 #: The "any" and "wide" kernels' timing shapes, by label: Gemma-2B's
-#: attention (b 2 x 8 heads, 4096, d 256, causal, bf16), an f32 one (bh
-#: 64 x 1024 x 128, causal) and a "wide" one (bf16, bh 16 x 1024 x 512,
-#: causal).
+#: attention (b 2 x 8 heads, 4096, d 256, causal, bf16), f32 ones with
+#: the f32 kernel's two consumers (bh 64 x 1024 x 128) and its one (bh 16
+#: x 2048 x 256), causal, and a "wide" one (bh 16 x 1024 x 512, causal) in
+#: bf16, f16 and f32.
 ANY_TIMED = (("bf16_d256", "bfloat16", 16, 4096, 256),
              ("f32_d128", "float32", 64, 1024, 128),
-             ("bf16_d512", "bfloat16", 16, 1024, 512))
+             ("f32_d256", "float32", 16, 2048, 256),
+             ("bf16_d512", "bfloat16", 16, 1024, 512),
+             ("f16_d512", "float16", 16, 1024, 512),
+             ("f32_d512", "float32", 16, 1024, 512))
+#: `--against`: the ANY_TIMED shapes at which both trees' "any" and
+#: "wide" kernels are timed in turns.
+AGAINST_TIMED = ("bf16_d256", "f32_d128", "bf16_d512")
 #: (h1) the runtime phase: steps in the actor, and the bar of its step 2
 #: against the driver's (the backward's dq sums in f32 atomics, in no
 #: fixed order; step 1 is the forward alone and must be equal).
@@ -406,8 +441,18 @@ def valid_pairs(causal, q_len, kv_len):
     return sum(min(r + 1, kv_len) for r in range(q_len))
 
 
+def f32_ops_ms(flops):
+    """The least time of `flops` f32 operations: on the CUDA cores, or as
+    three TF32 terms on the tensor cores, whichever is less."""
+    return min(flops / PEAK_F32_FLOPS,
+               TF32_TERMS * flops / PEAK_TF32_FLOPS) * 1e3
+
+
 def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
-    ops_ms = flops / peak * 1e3
+    """(least time in ms, "operations" or "bytes"): the larger of `flops`
+    at `peak` (None: f32 work, `f32_ops_ms`) and `nbytes` at the HBM
+    rate."""
+    ops_ms = f32_ops_ms(flops) if peak is None else flops / peak * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
@@ -582,50 +627,60 @@ def against(torch, attn, root, randn, n_layers, reps=20):
 
 
 def any_against(torch, trees, reps):
-    """Phase (d) for the "any" pair: each tree's forward kernel and
-    backward op (its `flash_forward` and `flash_backward`, which take
-    bf16 at d 256 to the "any" kernels in both) at ANY_TIMED's Gemma-2B
-    shape, held to this tree's plain versions and timed in turns ROOT,
-    this, this, ROOT."""
+    """Phase (d) for the "any" and "wide" pairs: each tree's forward
+    kernel and backward op (its `flash_forward` and `flash_backward`) at
+    each AGAINST_TIMED shape of ANY_TIMED (Gemma-2B's bf16 d 256, f32 d
+    128, bf16 d 512), held to this tree's plain versions and timed in
+    turns ROOT, this, this, ROOT. Returns {label: record}."""
     attn = trees["this"]
-    _, dt, bh, t, d = ANY_TIMED[0]
-    dtype = getattr(torch, dt)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
-    scale = 1.0 / math.sqrt(d)
-    q, k, v, do = ((torch.randn(bh, t, d, generator=gen, device=dev) * 0.5)
-                   .to(dtype) for _ in range(4))
-    q2 = attn.prescale(q, scale)
-    ref_out, ref_lse = attn.flash_forward_plain(q2, k, v, True, t)
-    ref_grads = attn.flash_backward_plain(q2, k, v, ref_out, do, ref_lse,
-                                          scale, True, t, t)
-    errors, fwd, bwd = {}, {}, {}
-    for name, tree in trees.items():
-        out, lse = tree.flash_forward(q2, k, v, True, t)
-        args = (q2, k, v, out, do, lse, scale, True, t, t)
-        print(f"against, {name} tree's \"any\" pair ({dt}, {(bh, t, d)}), "
-              "held to this tree's plain versions:")
-        checks = [held("out", out, ref_out)] + [
-            held(n, g, r) for n, g, r in zip(
-                ("dq", "dk", "dv"), tree.flash_backward(*args), ref_grads)]
-        errors[name] = {"out": checks[0][1], "lse": max_err(lse, ref_lse),
-                        "grads": [e for _, e in checks[1:]],
-                        "within_bars": all(ok for ok, _ in checks)}
-        fwd[name] = lambda tree=tree: tree.flash_forward(q2, k, v, True, t)
-        bwd[name] = lambda tree=tree, args=args: tree.flash_backward(*args)
-    assert errors["this"]["within_bars"], errors
-    del ref_out, ref_lse, ref_grads
-    times = {}
-    for op, fns, n in (("fwd", fwd, reps), ("bwd_op", bwd, reps // 2)):
-        ms = [cuda_ms(torch, fns[name], n)
-              for name in ("against", "this", "this", "against")]
-        times[op] = {"against_ms": ms[::3], "this_ms": ms[1:3]}
-        print(f"against, \"any\" {op}: other {ms[0]:.3f} / {ms[3]:.3f} ms, "
-              f"this {ms[1]:.3f} / {ms[2]:.3f} ms")
-    del fwd, bwd, q, k, v, do, q2
-    torch.cuda.empty_cache()
-    return {"shape": [bh, t, d], "dtype": dt, "causal": True,
-            "errors": errors, "times": times}
+    timed = {row[0]: row[1:] for row in ANY_TIMED}
+    records = {}
+    for label in AGAINST_TIMED:
+        dt, bh, t, d = timed[label]
+        dtype = getattr(torch, dt)
+        tol = F32_REL_TOL if dtype == torch.float32 else REL_TOL
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, do = ((torch.randn(bh, t, d, generator=gen, device=dev)
+                        * 0.5).to(dtype) for _ in range(4))
+        q2 = attn.prescale(q, scale)
+        ref_out, ref_lse = attn.flash_forward_plain(q2, k, v, True, t)
+        ref_grads = attn.flash_backward_plain(q2, k, v, ref_out, do, ref_lse,
+                                              scale, True, t, t)
+        errors, fwd, bwd = {}, {}, {}
+        for name, tree in trees.items():
+            out, lse = tree.flash_forward(q2, k, v, True, t)
+            args = (q2, k, v, out, do, lse, scale, True, t, t)
+            print(f"against, {name} tree's {attn._kernel_for(dtype, d)!r} "
+                  f"pair ({dt}, {(bh, t, d)}), held to this tree's plain "
+                  "versions:")
+            checks = [held("out", out, ref_out, rel_tol=tol)] + [
+                held(n, g, r, rel_tol=tol) for n, g, r in zip(
+                    ("dq", "dk", "dv"), tree.flash_backward(*args),
+                    ref_grads)]
+            errors[name] = {"out": checks[0][1],
+                            "lse": max_err(lse, ref_lse),
+                            "grads": [e for _, e in checks[1:]],
+                            "within_bars": all(ok for ok, _ in checks)}
+            fwd[name] = lambda tree=tree: tree.flash_forward(q2, k, v, True,
+                                                             t)
+            bwd[name] = lambda tree=tree, args=args: tree.flash_backward(
+                *args)
+        assert errors["this"]["within_bars"], (label, errors)
+        del ref_out, ref_lse, ref_grads
+        times = {}
+        for op, fns, n in (("fwd", fwd, reps), ("bwd_op", bwd, reps // 2)):
+            ms = [cuda_ms(torch, fns[name], n)
+                  for name in ("against", "this", "this", "against")]
+            times[op] = {"against_ms": ms[::3], "this_ms": ms[1:3]}
+            print(f"against, {label} {op}: other {ms[0]:.4f} / {ms[3]:.4f} "
+                  f"ms, this {ms[1]:.4f} / {ms[2]:.4f} ms")
+        del fwd, bwd, q, k, v, do, q2
+        torch.cuda.empty_cache()
+        records[label] = {"shape": [bh, t, d], "dtype": dt, "causal": True,
+                          "errors": errors, "times": times}
+    return records
 
 
 def rel_errors(got, ref):
@@ -1511,6 +1566,56 @@ def four_card_phase(torch, card, n_layers):
             "bars": {"loss_rel_to_one_card": CARDS4_LOSS_REL}}
 
 
+def scores_tf32x3_check(torch, attn):
+    """(b) The f32 forward's three-term TF32 product alone: S = q2 k^T at
+    d 256 (the f32 kernel's longest sum; bh 8 x 512, q/k = randn * 0.5)
+    by the library's check entry point `rtt_scores_tf32x3`, as the kernel
+    makes it (held to the plain f32 product at F32_REL_TOL), in one
+    tensor-core chain over all of d (printed), and with its split rounded
+    by the cvt.rna.tf32.f32 instruction (must equal the kernel's bit for
+    bit); one TF32 term (the plain product under `allow_tf32`) must lie
+    outside the bars. The entry point is no kernel of the op and counts
+    no launch. Returns the max abs errors."""
+    fn = attn._build.load("flash_fwd_any").rtt_scores_tf32x3
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bh, t, d = 8, 512, 256
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q, k = (torch.randn(bh, t, d, generator=gen, device=dev) * 0.5
+            for _ in range(2))
+    q2 = attn.prescale(q, 1.0 / math.sqrt(d))
+    ref = torch.matmul(q2, k.transpose(1, 2))
+    got = {}
+    for mode, label in enumerate(("chains", "one_chain", "cvt")):
+        got[label] = torch.empty_like(ref)
+        err = fn(q2.data_ptr(), k.data_ptr(), got[label].data_ptr(), bh, t,
+                 t, d, mode, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"rtt_scores_tf32x3: CUDA error {err}"
+    torch.cuda.synchronize()
+    print(f"S = q2 k^T alone at {(bh, t, d)}, three-term TF32 (bars "
+          f"{F32_REL_TOL:g}):")
+    ok, chains = held("S, the kernel's chains", got["chains"], ref,
+                      rel_tol=F32_REL_TOL)
+    assert ok, chains
+    _, one_chain = held("S, one chain over d", got["one_chain"], ref,
+                        rel_tol=F32_REL_TOL)
+    same = torch.equal(got["cvt"], got["chains"])
+    print(f"  S split by cvt.rna.tf32.f32 equal bit for bit: {same}")
+    assert same
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_tf32 = True
+    try:
+        print("  control, one TF32 term (must be outside the f32 bars):")
+        ok, one_term = held("S", torch.matmul(q2, k.transpose(1, 2)), ref,
+                            rel_tol=F32_REL_TOL)
+        assert not ok, one_term
+    finally:
+        matmul.allow_tf32 = False
+    return {"chains": chains, "one_chain": one_chain, "one_term": one_term}
+
+
 def any_kernel_checks(torch, attn):
     """(b) for the "any" and "wide" kernels (`csrc/flash_fwd_any.cu`,
     `csrc/flash_bwd_any.cu`): each against its plain version at
@@ -1526,7 +1631,7 @@ def any_kernel_checks(torch, attn):
         return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(
             dtype)
 
-    results = {}
+    results = {"scores_tf32x3": scores_tf32x3_check(torch, attn)}
     for label, dt, bh, t, tk, d, causal, q_len, kv_len in ANY_CASES:
         dtype = getattr(torch, dt)
         pair = attn._kernel_for(dtype, d)
@@ -1658,8 +1763,20 @@ def any_kernel_times(torch, attn):
         out, lse = attn.flash_forward(q2, k, v, True, t)
         p_out, _ = attn.flash_forward_plain(q2, k, v, True, t)
         fwd_err = max_err(out, p_out)
-        tol = F32_REL_TOL if dtype == torch.float32 else REL_TOL
+        f32 = dtype == torch.float32
+        tol = F32_REL_TOL if f32 else REL_TOL
         ok_fwd, _ = held(f"timed fwd any {dt} out", out, p_out, rel_tol=tol)
+        b = 2 if bh == 16 else 1
+        q4, k4, v4, do4 = (x.view(b, bh // b, t, d) for x in (q, k, v, do))
+        sdpa_err = None
+        if f32:
+            # The yardstick's own precision (not a check of the port).
+            print("  sdpa f32 against the plain version (f32 bars; "
+                  "printed, not held):")
+            sdpa_out = sdpa(q4, k4, v4, is_causal=True, scale=scale)
+            _, sdpa_err = held("sdpa out", sdpa_out.reshape(bh, t, d), p_out,
+                               rel_tol=F32_REL_TOL)
+            del sdpa_out
         del p_out
         bwd_args = (q2, k, v, out, do, lse, scale, True, t, t)
         got = attn.flash_backward(*bwd_args)
@@ -1674,15 +1791,13 @@ def any_kernel_times(torch, attn):
             torch, lambda: attn.flash_forward_plain(q2, k, v, True, t), 2)
         bwd_plain_ms = cuda_ms(
             torch, lambda: attn.flash_backward_plain(*bwd_args), 2)
-        b = 2 if bh == 16 else 1
-        q4, k4, v4, do4 = (x.view(b, bh // b, t, d) for x in (q, k, v, do))
         sdpa_fwd_ms = cuda_ms(
             torch, lambda: sdpa(q4, k4, v4, is_causal=True, scale=scale), 10)
         qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
         sdpa_fwd_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
             sdpa(qg, kg, vg, is_causal=True, scale=scale), (qg, kg, vg),
             do4), 5)
-        peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+        peak = None if f32 else PEAK_BF16_FLOPS
         pairs = bh * valid_pairs(True, t, t)
         fwd_bound, fwd_by = bound_ms(
             4 * d * pairs, nbytes(q2, k, v, out, lse), peak)
@@ -1698,8 +1813,12 @@ def any_kernel_times(torch, attn):
             "bwd_ms": bwd_ms, "bwd_plain_ms": bwd_plain_ms,
             "bwd_library_ms": sdpa_fwd_bwd_ms - sdpa_fwd_ms,
             "bwd_bound_ms": bwd_bound, "bwd_bound_by": bwd_by,
-            "bwd_max_abs_err": max(errs), "peak_flops": peak,
+            "bwd_max_abs_err": max(errs),
+            "peak_flops": "f32: lesser of 67e12 and 495e12 / 3" if f32
+            else peak,
         }
+        if f32:
+            rec["library_max_abs_err"] = sdpa_err
         pair = rec["pair"]
         print(f"flash_fwd_{pair} {dt} {(bh, t, d)}: {fwd_ms:.3f} ms (plain "
               f"{fwd_plain_ms:.2f}, sdpa {sdpa_fwd_ms:.3f}, bound "
@@ -2584,9 +2703,15 @@ def main() -> int:
             / rec[f"{timed_key}_library_ms"],
             "launches_per_step": path["launches_per_step"][name],
         }
+        # The same kernel's other dtypes at their ANY_TIMED shapes.
+        others = (("f32", "f32_d128"), ("f32_d256", "f32_d256")) if (
+            label == "bf16_d256") else (("f16", "f16_d512"),
+                                        ("f32", "f32_d512"))
+        for key, other in others:
+            entry[key] = {k: v for k, v in any_times[other].items()
+                          if k.startswith(timed_key) or k in (
+                              "shape", "pair", "library_max_abs_err")}
         if label == "bf16_d256":
-            entry["f32"] = {k: v for k, v in any_times["f32_d128"].items()
-                            if k.startswith(timed_key) or k == "shape"}
             entry["checks"] = dict(any_results)
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))

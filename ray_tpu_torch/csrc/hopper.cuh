@@ -2,7 +2,8 @@
 // (flash_fwd.cu, flash_bwd.cu, and the 16-bit kernels of flash_fwd_any.cu
 // and flash_bwd_any.cu), in raw PTX: TMA tile loads on 3-D tensor maps,
 // mbarrier pipelines, warpgroup matrix products (wgmma) and their
-// shared-memory descriptors, and warp-specialisation register moves.
+// shared-memory descriptors, and warp-specialisation register moves; and
+// the f32 forward's TF32 split and TF32 wgmma.
 //
 // Tile layout. Every 16-bit tile a kernel keeps in shared memory arrives by
 // TMA under CU_TENSOR_MAP_SWIZZLE_128B, as boxes of 64 columns (128
@@ -241,6 +242,14 @@ __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 // 192, 256}. RTT_REGS<R> and RTT_ACC<R> spell out an accumulator's
 // operands.
 #define RTT_WGMMA_F16(T) (std::is_same<T, __half>::value)
+
+#define RTT_REGS16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+#define RTT_ACC16(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+    "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 
 #define RTT_REGS32 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
@@ -535,6 +544,65 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
           "r"(accumulate), "n"(TRANS_B));
 }
 
+// D[64 x N] (+)= A[64 x 8] B[8 x N] in TF32 with f32 accumulators, A from
+// registers (the m16n8k8 TF32 A fragment of each warp's 16 rows), B a
+// K-major shared-memory operand (TF32 has no transposed form): N = 32
+// (16 accumulators a thread) or 64 (32).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      RTT_REGS16 ", "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : RTT_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      RTT_REGS32 ", "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : RTT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// ---------------------------------------------------------------------------
+// f32 on the tensor cores: three-term TF32 (flash_fwd_any.cu's f32 kernel)
+// ---------------------------------------------------------------------------
+
+// x rounded to TF32 by cvt.rna.tf32.f32 (the reference of chip_smoke.py's
+// check and kernel_ablation.py's cvt_split).
+__device__ __forceinline__ uint32_t tf32_rna_cvt(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// The same value for every finite x (10 mantissa bits, to nearest, ties
+// away from zero, the low 13 bits zero), by an integer add of half a TF32
+// ulp to the magnitude and a mask (a carry runs into the exponent as
+// rounding up should): faster than the cvt in the f32 forward
+// (kernel_ablation.py's cvt_split).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to about 2^-22 of |x|: hi = tf32(x), lo = tf32(x - hi),
+// the subtraction exact in f32 (CVT: rounded by the cvt instruction).
+template <bool CVT = false>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = CVT ? tf32_rna_cvt(x) : tf32_rna(x);
+  const float rest = x - __uint_as_float(hi);
+  lo = CVT ? tf32_rna_cvt(rest) : tf32_rna(rest);
+}
 
 // ---------------------------------------------------------------------------
 // host side: tensor maps

@@ -7,16 +7,23 @@ CPU test runs). On a machine with a card and nvcc:
 
 Every output is held to its plain version relatively: max abs error at
 most 1e-2 * max|ref| and L2 error at most 1e-2 * ||ref|| in bf16/f16,
-1e-5 of each in f32, which stays f32 in the kernels (no TF32: f32 reads
-about 1e-7, and a TF32 or bf16 product reads order 1e-4 or more, which
-`test_f32_bar_rejects_tf32_and_bf16_products` checks). The backward
+1e-5 of each in f32 (the f32 forward multiplies in three-term TF32, the
+other f32 kernels in f32: both read about 1e-7, while one TF32 term or a
+bf16 product reads order 1e-4 or more, which
+`test_f32_bar_rejects_tf32_and_bf16_products` and
+`test_three_term_scores_alone_meet_the_f32_bar` check). The backward
 runs under a random upstream gradient, so that every row of `do`
 matters to dq, dk and dv. The shapes include the edges of the kernels'
 128-row q tiles and 64-row KV tiles: a partial last tile (t 192), a
 single partial tile (t 64), q and KV of different lengths, kv_len inside
 a tile, q rows past q_len, and one head; and head_dims that overhang a
-64-column box (96, 160), and above 256 (320, 512: the "wide" kernels).
+64-column box (96, 160), and above 256 (320, 352, 512, 608, 704: the
+"wide" kernels; above 512 the 16-bit one streams Q). The f32 forward's
+edges: t 64 and 192 against its q tiles, kv_len inside its 64-row and
+32-row KV tiles, and its 32-column last chunk of O.
 """
+
+import ctypes
 
 import math
 
@@ -150,6 +157,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
     (torch.float16, 192, 192, 512, True, 192, 170, 2),
     (torch.float32, 128, 256, 512, True, 128, 256, 2),
     (torch.float32, 256, 256, 320, False, 250, 200, 2),
+    # The f32 forward (three-term TF32) at its tiles' edges: two consumers
+    # and 64-row KV tiles up to d 128, 32-row ones above, one consumer
+    # above d 192; a 32-column last chunk of O at d 32, 96 and 224.
+    (torch.float32, 64, 64, 128, True, 64, 64, 2),
+    (torch.float32, 192, 192, 96, False, 192, 40, 2),
+    (torch.float32, 320, 320, 64, True, 300, 290, 2),
+    (torch.float32, 64, 64, 256, True, 64, 64, 2),
+    (torch.float32, 128, 128, 192, False, 128, 72, 2),
+    (torch.float32, 320, 320, 224, True, 300, 270, 2),
+    (torch.float32, 384, 128, 64, True, 384, 128, 2),
+    (torch.float32, 192, 192, 32, True, 192, 192, 2),
+    # The 16-bit "wide" forward (wgmma): an overhanging last box and a
+    # 2-box last chunk (352), Q streamed through the ring (608, 704).
+    (torch.bfloat16, 256, 256, 352, True, 256, 256, 2),
+    (torch.float16, 192, 192, 352, False, 192, 150, 2),
+    (torch.bfloat16, 192, 192, 608, True, 192, 192, 1),
+    (torch.float16, 128, 128, 704, True, 100, 128, 1),
 ])
 def test_any_kernels_match_plain_versions(gen, monkeypatch, dtype, t, tk, d,
                                           causal, q_len, kv_len, bh):
@@ -210,3 +234,30 @@ def test_f32_bar_rejects_tf32_and_bf16_products(gen, monkeypatch):
                        F32_REL_TOL)
     assert not all(_within(g, r, F32_REL_TOL) for g, r in
                    zip(attn.flash_backward_plain(*args), ref))
+
+
+def test_three_term_scores_alone_meet_the_f32_bar(gen, monkeypatch):
+    """The f32 forward's product alone, S = q2 k^T at d 256 through the
+    library's check entry point (the kernel's tensor-core chains), within
+    the f32 bar of the plain f32 product and equal bit for bit to the same
+    product split by cvt.rna.tf32.f32; one TF32 term (the plain product in
+    TF32) lies outside the bar."""
+    fn = attn._build.load("flash_fwd_any").rtt_scores_tf32x3
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    bh, t, d = 2, 256, 256
+    q, k = (torch.randn(bh, t, d, generator=gen, device="cuda") * 0.5
+            for _ in range(2))
+    q2 = attn.prescale(q, 1.0 / math.sqrt(d))
+    ref = torch.matmul(q2, k.transpose(1, 2))
+    got = {mode: torch.empty_like(ref) for mode in (0, 2)}
+    for mode, s in got.items():
+        assert fn(q2.data_ptr(), k.data_ptr(), s.data_ptr(), bh, t, t, d,
+                  mode, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert _within(got[0], ref, F32_REL_TOL)
+    assert torch.equal(got[0], got[2])  # the split's rounding is cvt.rna's
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert not _within(torch.matmul(q2, k.transpose(1, 2)), ref, F32_REL_TOL)

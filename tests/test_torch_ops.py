@@ -375,6 +375,90 @@ class TestColumnSplitPlainVersion:
                     (name, err)
 
 
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as the f32 forward kernel rounds (cvt.rna.tf32.f32's value): an
+    integer add of half a TF32 ulp to the magnitude, then a mask."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, terms):
+    """a @ b in TF32 on the CPU: each operand split as x = hi + lo (hi =
+    tf32(x), lo = tf32(x - hi)); three terms lo_a hi_b + hi_a lo_b + hi_a
+    hi_b (lo_a lo_b dropped), or one, hi_a hi_b. Each product of two TF32
+    values is exact in f32; the sums are f32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    out = torch.matmul(a_hi, b_hi)
+    if terms == 3:
+        a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+        out = torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo) + out
+    return out
+
+
+def _tf32_forward(q2, k, v, causal, kv_len, terms):
+    """The f32 forward with both products in `terms`-term TF32, as the
+    kernel forms them (P split as it stands, in f32)."""
+    t, tk = q2.shape[1], k.shape[1]
+    s = _tf32_matmul(q2, k.transpose(1, 2), terms)
+    s.masked_fill_(~attn._valid_mask(t, tk, causal, kv_len, s.device),
+                   attn.DEFAULT_MASK_VALUE)
+    m = s.amax(dim=-1, keepdim=True)
+    p = (s - m).exp2()
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = _tf32_matmul(p, v, terms) / l_safe
+    return out, (m + torch.log2(l_safe))[..., 0]
+
+
+class TestThreeTermTf32PlainVersion:
+    """The f32 forward kernel's arithmetic (three-term TF32 on the tensor
+    cores), emulated on the CPU by rounding f32 bits to TF32: its output
+    and lse lie within the f32 bar (1e-5 of max|ref| and of ||ref||, as
+    chip_smoke.py holds the kernel) of `flash_forward_plain` in f32, at d
+    128, 256 and 320 (the longest sums), causal and not, with kv_len and
+    q_len inside a tile; one-term TF32 lies outside it. The tensor cores'
+    own summation order and rounding are not emulated: chip_smoke.py
+    holds the kernel and its product alone on the card."""
+
+    F32_BAR = 1e-5
+
+    @staticmethod
+    def _within(got, ref, bar):
+        err = (got - ref).abs().max().item()
+        rel_l2 = ((got - ref).norm() / ref.norm()).item()
+        return err <= bar * ref.abs().max().item() and rel_l2 <= bar
+
+    @pytest.mark.parametrize("d", [128, 256, 320])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_three_terms_meet_the_f32_bar(self, d, causal):
+        t, kv_len, q_len = 128, 100, 90
+        q, k, v = (torch.from_numpy(_rand(110 + i, 2, t, d)) * 0.5
+                   for i in range(3))
+        q[:, q_len:] = 0
+        k[:, kv_len:] = 0
+        v[:, kv_len:] = 0
+        q2 = attn.prescale(q, 1.0 / math.sqrt(d))
+        want, want_lse = attn.flash_forward_plain(q2, k, v, causal, kv_len)
+        got, got_lse = _tf32_forward(q2, k, v, causal, kv_len, terms=3)
+        rows = slice(0, q_len)
+        assert self._within(got[:, rows], want[:, rows], self.F32_BAR)
+        lse_err = (got_lse[:, rows] - want_lse[:, rows]).abs().max().item()
+        assert lse_err <= self.F32_BAR * want_lse[:, rows].abs().max().item()
+        one, _ = _tf32_forward(q2, k, v, causal, kv_len, terms=1)
+        assert not self._within(one[:, rows], want[:, rows], self.F32_BAR)
+
+    def test_rounding_is_to_nearest_ties_away(self):
+        ulp = 2.0 ** -10  # TF32's spacing in [1, 2)
+        x = torch.tensor([1.0 + ulp / 2, -(1.0 + ulp / 2), 1.0 + ulp / 4,
+                          1.0 + 3 * ulp / 4, 2.0 - ulp / 4, 3.0],
+                         dtype=torch.float32)
+        want = torch.tensor([1.0 + ulp, -(1.0 + ulp), 1.0, 1.0 + ulp, 2.0,
+                             3.0], dtype=torch.float32)
+        assert torch.equal(_tf32(x), want)
+        assert not (_tf32(x).view(torch.int32) & 0x1FFF).any()
+
+
 class TestAnyHeadDimsMatchPallas:
     """Where the "any" kernels take over on the card (f32, head_dim 256,
     96 and 16), and the "wide" ones (head_dim 320 and 512, f32 and bf16),

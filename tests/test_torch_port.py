@@ -1,6 +1,7 @@
-"""Hygiene of the PyTorch port: `ray_tpu_torch` and `chip_smoke.py`
-import neither JAX nor anything of `ray_tpu`, its entry points default
-to the card, and its parameters line up with the JAX package's."""
+"""Hygiene of the PyTorch port: `ray_tpu_torch`, `chip_smoke.py` and
+`kernel_ablation.py` import neither JAX nor anything of `ray_tpu`, its
+entry points default to the card, and its parameters line up with the
+JAX package's."""
 
 import ast
 import inspect
@@ -35,7 +36,8 @@ def _port_sources():
     paths = [os.path.join(root, name)
              for root, _, files in os.walk(PORT)
              for name in files if name.endswith(".py")]
-    return sorted(paths) + [os.path.join(REPO, "chip_smoke.py")]
+    return sorted(paths) + [os.path.join(REPO, "chip_smoke.py"),
+                            os.path.join(REPO, "kernel_ablation.py")]
 
 
 def _forbidden(module):
