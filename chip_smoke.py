@@ -34,7 +34,9 @@ Phases, none of whose failures is caught:
       their tiles' edges), f32 held at F32_REL_TOL (1e-5: the f32
       forward's three-term TF32 product is held there alone first, S at
       d 256, where one TF32 term and the plain version with TF32 or bf16
-      products must fall outside it), with the two negative controls at
+      products must fall outside it, at f32 d 128 and 512 as well), the
+      f32 "wide" pair's chunks equal bit for bit on inputs of equal
+      256-column chunks (d 512 and 608), with the two negative controls at
       bf16 d 256 and 512, the public op against `mha_reference` in f32 at
       ANY_OP_CASES, and their times at ANY_TIMED beside SDPA (in f32 also
       SDPA's own error, printed) and their bounds (f32's the lesser of the
@@ -68,8 +70,10 @@ Phases, none of whose failures is caught:
       kernels (2 forward and one backward op per layer per step).
   (h3) the "wide" kernels' path: Gemma-2B's geometry with head_dim 512
       (`WIDE_HEAD_DIM`; no preset has a head_dim above 256), 2 layers,
-      batch 1 x 1024, 3 steps under remat "full": the loss must be finite
-      and fall, and every flash launch must go to the "wide" kernels.
+      batch 1 x 1024, 3 steps under remat "full", in bf16 and again in
+      f32 (the f32 "wide" pair's path, WIDE_F32_STEPS steps): the loss
+      must be finite and fall, and every flash launch must go to the
+      "wide" kernels.
   (f) after (c) has freed its memory: (f1) the slice's model (same
       width and depth, batch 2 x 4096, bf16, flash) from one set of
       weights and one batch, 4 steps under each remat policy ("full",
@@ -146,7 +150,8 @@ and of (f2); (f3)'s checkpoints and `ckpt_block_ms`), then
 `{"train_pp": {...}}` (step ms, tokens/s, MFU, peak memory, losses and
 launches per step of (g1) and (g2); (g3)'s errors and times), then
 `{"runtime": {...}}` ((h1)), `{"gemma": {...}}` ((h2)) and `{"wide":
-{...}}` ((h3)), then the card's name and power limit, and as the last
+{...}}` ((h3), the f32 run under "f32"), then the card's name and power
+limit, and as the last
 line `{"ok": true, "device": {...}}`. Exits non-zero with no
 result line when there is no CUDA card or the port is not beside it.
 
@@ -180,9 +185,9 @@ the repo at ROOT (for example `git archive <commit>` unpacked into a
 gitignored directory). Its `ray_tpu_torch` is imported beside this one
 and builds its kernels from its own sources. At the slice's shape its
 forward kernel and its backward op (every launch its autograd backward
-makes), and at AGAINST_TIMED (Gemma-2B's bf16 d 256, f32 d 128 and
-bf16 d 512) its "any" and "wide" forward and backward op, are held to
-this tree's plain versions and timed in turns
+makes), and at AGAINST_TIMED (Gemma-2B's bf16 d 256, f32 d 128, bf16
+d 512 and f32 d 512) its "any" and "wide" forward and backward op, are
+held to this tree's plain versions and timed in turns
 ROOT, this, this, ROOT. Then each tree, ROOT first, trains two steps of the
 slice from the same seed with the allocator's history recorded: the
 peak of device memory and the largest allocations alive at it, by the
@@ -214,11 +219,12 @@ HBM_BYTES_PER_S = 3.35e12
 #: about 0.4% of max|ref|; an output left at zero or computed from the
 #: wrong rows reads order 100%.
 REL_TOL = 1e-2
-#: The same bars for f32 inputs, which the "any" forward multiplies in
-#: three-term TF32 on the tensor cores and the other f32 kernels in f32 on
-#: the CUDA cores: their f32 outputs read about 1e-7 of the plain f32
-#: version's, while the plain version with one-term TF32 or bf16
-#: products reads order 1e-4 or more (the controls of phase (b)).
+#: The same bars for f32 inputs, which the f32 forward and the f32 "wide"
+#: pair multiply in three-term TF32 on the tensor cores and the f32
+#: backward up to head_dim 256 in f32 on the CUDA cores: their f32 outputs
+#: read about 1e-7 to 1e-6 of the plain f32 version's, while the plain
+#: version with one-term TF32 or bf16 products reads order 1e-4 or more
+#: (the controls of phase (b)).
 F32_REL_TOL = 1e-5
 #: The verify recipe's absolute bars, for its upstream gradient only.
 OUT_TOL = 0.05
@@ -235,15 +241,17 @@ NOISE_RATIO = 2.0
 #: Device-side names of every launch of the attention ops: the wgmma
 #: pair's, the "any" pair's (`flash_fwd_wgmma_kernel`,
 #: `flash_fwd_tf32_kernel`, `flash_bwd_any_pre_kernel`, ...) and the
-#: "wide" pair's.
+#: "wide" pair's (16-bit `flash_fwd_wide_wgmma_kernel` and
+#: `flash_bwd_wide_kernel`, f32 `flash_fwd_wide_tf32_kernel` and
+#: `flash_bwd_wide_tf32_kernel`).
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_pre_kernel",
                  "flash_bwd_kernel", "flash_bwd_dq_kernel",
                  "flash_fwd_wgmma_kernel", "flash_fwd_tf32_kernel",
                  "flash_bwd_any_pre_kernel", "flash_bwd_wgmma_kernel",
                  "flash_bwd_simt_kernel", "flash_bwd_any_dq_kernel",
                  "flash_bwd_any_dq_ordered_kernel",
-                 "flash_fwd_wide_wgmma_kernel", "flash_fwd_wide_kernel",
-                 "flash_bwd_wide_kernel")
+                 "flash_fwd_wide_wgmma_kernel", "flash_fwd_wide_tf32_kernel",
+                 "flash_bwd_wide_kernel", "flash_bwd_wide_tf32_kernel")
 #: The backward op's launches, by launch counter.
 BWD_LAUNCHES = ("flash_bwd_pre", "flash_bwd", "flash_bwd_dq")
 
@@ -311,7 +319,12 @@ TF32_TERMS = 3
 #: above; KV tiles of 64 rows up to d 128, 32 above; a 32-column last
 #: chunk of O at d 32, 96, 160 and 224): t 64 (half a q tile) and 192,
 #: kv_len inside a tile, causal t_q != t_k (against the plain version,
-#: whose mask is the kernels' top-left one), and q rows past q_len.
+#: whose mask is the kernels' top-left one), and q rows past q_len; and
+#: the f32 "wide" pair's (64-row q tiles and 32-row KV tiles of the
+#: forward, 32-row KV tiles and 64-row q tiles of the backward): d 352 (a
+#: 32-column last K box, a 96-column last chunk), 608 and 704 (Q2 read
+#: from global memory; three chunks, the last of 96 and 192 columns), t
+#: 64, kv_len 170 inside a KV tile, ragged q_len, causal t_q != t_k.
 ANY_CASES = (
     ("bf16_d256", "bfloat16", 16, 1024, 1024, 256, True, 1024, 1024),
     ("f32_d128", "float32", 16, 512, 512, 128, True, 512, 512),
@@ -353,6 +366,14 @@ ANY_CASES = (
     ("kvlen200_f16_d352", "float16", 8, 256, 256, 352, False, 256, 200),
     ("bf16_d704", "bfloat16", 4, 320, 320, 704, True, 300, 300),
     ("f16_d608", "float16", 4, 256, 256, 608, True, 256, 256),
+    ("f32_d352", "float32", 8, 256, 256, 352, True, 256, 256),
+    ("f32_d608", "float32", 4, 256, 256, 608, True, 256, 256),
+    ("ragged_f32_d704", "float32", 4, 320, 320, 704, True, 300, 290),
+    ("t64_f32_d512", "float32", 8, 64, 64, 512, True, 64, 64),
+    ("kvlen170_f32_d512", "float32", 4, 256, 256, 512, False, 256, 170),
+    ("ragged_f32_d512", "float32", 4, 320, 320, 512, True, 250, 320),
+    ("q128k384_causal_f32_d512", "float32", 4, 128, 384, 512, True, 128,
+     384),
 )
 #: The public op against `mha_reference` in f32 on the same inputs, for
 #: the "any" and "wide" kernels: (dtype, head_dim) at b 1 x h 2 x t 512,
@@ -376,7 +397,7 @@ ANY_TIMED = (("bf16_d256", "bfloat16", 16, 4096, 256),
              ("f32_d512", "float32", 16, 1024, 512))
 #: `--against`: the ANY_TIMED shapes at which both trees' "any" and
 #: "wide" kernels are timed in turns.
-AGAINST_TIMED = ("bf16_d256", "f32_d128", "bf16_d512")
+AGAINST_TIMED = ("bf16_d256", "f32_d128", "bf16_d512", "f32_d512")
 #: (h1) the runtime phase: steps in the actor, and the bar of its step 2
 #: against the driver's (the backward's dq sums in f32 atomics, in no
 #: fixed order; step 1 is the forward alone and must be equal).
@@ -391,6 +412,8 @@ GEMMA_BATCH, GEMMA_SEQ = 1, 4096
 #: depth, sequence (batch 1) and steps.
 WIDE_HEAD_DIM = 512
 WIDE_LAYERS, WIDE_SEQ, WIDE_STEPS = 2, 1024, 3
+#: (h3) again in f32 (the f32 "wide" kernels' training path): steps.
+WIDE_F32_STEPS = 3
 
 
 def cuda_ms(torch, fn, reps):
@@ -630,7 +653,8 @@ def any_against(torch, trees, reps):
     """Phase (d) for the "any" and "wide" pairs: each tree's forward
     kernel and backward op (its `flash_forward` and `flash_backward`) at
     each AGAINST_TIMED shape of ANY_TIMED (Gemma-2B's bf16 d 256, f32 d
-    128, bf16 d 512), held to this tree's plain versions and timed in
+    128, bf16 d 512, f32 d 512), held to this tree's plain versions and
+    timed in
     turns ROOT, this, this, ROOT. Returns {label: record}."""
     attn = trees["this"]
     dev = torch.device("cuda")
@@ -1631,7 +1655,8 @@ def any_kernel_checks(torch, attn):
         return (torch.randn(*shape, generator=gen, device=dev) * 0.5).to(
             dtype)
 
-    results = {"scores_tf32x3": scores_tf32x3_check(torch, attn)}
+    results = {"scores_tf32x3": scores_tf32x3_check(torch, attn),
+               "f32_wide_chunks_agree": wide_chunks_agree(torch, attn)}
     for label, dt, bh, t, tk, d, causal, q_len, kv_len in ANY_CASES:
         dtype = getattr(torch, dt)
         pair = attn._kernel_for(dtype, d)
@@ -1672,7 +1697,7 @@ def any_kernel_checks(torch, attn):
         print(f"bwd {pair} {label}, random do:")
         ok, errs = grads_held(got, ref, q_len, kv_len, rel_tol=tol)
         assert ok, (label, errs)
-        if label == "f32_d128":
+        if label in ("f32_d128", "f32_d512"):
             f32_bar_controls(torch, attn, args, p_out, ref)
         if label in ("bf16_d256", "bf16_d512"):
             print("  negative control, dq = 0 (must be outside the bars):")
@@ -1712,6 +1737,39 @@ def any_kernel_checks(torch, attn):
         assert attn.LAUNCHES[f"flash_bwd_{pair}"] == n, attn.LAUNCHES
     torch.cuda.empty_cache()
     return results
+
+
+def wide_chunks_agree(torch, attn):
+    """(b) The f32 "wide" kernels make S (and dP) over all of d in one
+    order in every 256-column chunk, so the chunks' P, lse and dS agree to
+    the bit: with q, k, v and do made of equal 256-column chunks (bh 4 x
+    256, causal, at d 512 and 608), the chunks of out, dk and dv must be
+    equal bit for bit (dq sums in f32 reductions of no fixed order).
+    Returns {d: True}."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bh, t = 4, 256
+    agree = {}
+    for d in (512, 608):
+        def chunked():
+            x = torch.randn(bh, t, 256, generator=gen, device=dev) * 0.5
+            return x.repeat(1, 1, -(-d // 256))[..., :d].contiguous()
+
+        q2 = attn.prescale(chunked(), 1.0 / math.sqrt(d))
+        k, v, do = chunked(), chunked(), chunked()
+        out, lse = attn.flash_forward(q2, k, v, True, t)
+        _, dk, dv = attn.flash_backward(q2, k, v, out, do, lse,
+                                        1.0 / math.sqrt(d), True, t, t)
+        torch.cuda.synchronize()
+        same = all(
+            torch.equal(x[..., c0:c0 + min(256, d - c0)],
+                        x[..., :min(256, d - c0)])
+            for x in (out, dk, dv) for c0 in range(256, d, 256))
+        print(f"f32 wide d {d}: chunks of out, dk, dv equal bit for bit "
+              f"(equal input chunks): {same}")
+        assert same, d
+        agree[d] = same
+    return agree
 
 
 def bwd_launches(pair):
@@ -1820,6 +1878,15 @@ def any_kernel_times(torch, attn):
         if f32:
             rec["library_max_abs_err"] = sdpa_err
         pair = rec["pair"]
+        if pair == "wide":
+            # The column split makes S (and dP) once per 256-column chunk:
+            # the bound of the work it does.
+            nch = -(-d // 256)
+            rec["fwd_split_bound_ms"] = bound_ms(
+                2 * d * (nch + 1) * pairs, nbytes(q2, k, v, out, lse), peak)[0]
+            rec["bwd_split_bound_ms"] = bound_ms(
+                2 * d * (2 * nch + 3) * pairs,
+                nbytes(q2, k, v, out, do, lse) + 3 * nbytes(q2), peak)[0]
         print(f"flash_fwd_{pair} {dt} {(bh, t, d)}: {fwd_ms:.3f} ms (plain "
               f"{fwd_plain_ms:.2f}, sdpa {sdpa_fwd_ms:.3f}, bound "
               f"{fwd_bound:.3f} by {fwd_by}); flash_bwd_{pair} op {bwd_ms:.3f} "
@@ -2083,18 +2150,21 @@ def gemma_phase(torch, llama, attn, card, dev, profile=False):
     return rec
 
 
-def wide_phase(torch, llama, attn, card, dev):
+def wide_phase(torch, llama, attn, card, dev, dtype=None, steps=WIDE_STEPS):
     """(h3): the "wide" kernels on a training path. Gemma-2B's geometry
     with head_dim WIDE_HEAD_DIM (no preset has one above 256), WIDE_LAYERS
-    layers, random weights from a seed, batch 1 x WIDE_SEQ, WIDE_STEPS
-    steps of `make_train_step` under remat "full": the loss must be finite
-    and fall, and every flash launch must go to the "wide" kernels.
-    Returns the `{"wide": ...}` record."""
+    layers, random weights from a seed, batch 1 x WIDE_SEQ, `steps` steps
+    of `make_train_step` under remat "full", in bf16 (the preset's dtype)
+    or `dtype`: the loss must be finite and fall, and every flash launch
+    must go to the "wide" kernels. Returns the `{"wide": ...}` record."""
     from ray_tpu_torch.train import default_optimizer, make_train_step
 
     cfg = dataclasses.replace(
         llama.LlamaConfig.gemma_2b(max_seq_len=WIDE_SEQ, remat_policy="full"),
         n_layers=WIDE_LAYERS, custom_head_dim=WIDE_HEAD_DIM)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    dt = str(cfg.dtype).replace("torch.", "")
     g = torch.Generator(device=dev).manual_seed(10)
     model = llama.init_params(cfg, g, device=dev)
     batch = torch.randint(0, cfg.vocab_size, (1, WIDE_SEQ + 1), generator=g,
@@ -2105,14 +2175,15 @@ def wide_phase(torch, llama, attn, card, dev):
     state = init_fn(model)
     del model
     rec = train_steps(torch, llama, attn, cfg, state, step_fn, batch[:, :-1],
-                      batch[:, 1:], False, steps=WIDE_STEPS)
+                      batch[:, 1:], False, steps=steps)
     n = cfg.n_layers
     launches = rec["launches"]
-    per_step = {k: v / WIDE_STEPS for k, v in launches.items()}
+    per_step = {k: v / steps for k, v in launches.items()}
     rec.update({"card": card, "config": f"gemma_2b geometry, {n} layers, "
-                f"head_dim {WIDE_HEAD_DIM}, bf16, remat full", "layers": n,
-                "batch": 1, "seq": WIDE_SEQ, "launches_per_step": per_step})
-    print(f"(h3) head_dim {WIDE_HEAD_DIM} ({n} layers): losses "
+                f"head_dim {WIDE_HEAD_DIM}, {dt}, remat full", "layers": n,
+                "dtype": dt, "batch": 1, "seq": WIDE_SEQ,
+                "launches_per_step": per_step})
+    print(f"(h3) head_dim {WIDE_HEAD_DIM} ({n} layers, {dt}): losses "
           f"{[round(x, 5) for x in rec['losses']]}, step ms "
           f"{[round(x, 2) for x in rec['step_ms']]}, launches per step "
           f"{per_step}")
@@ -2120,9 +2191,9 @@ def wide_phase(torch, llama, attn, card, dev):
     assert rec["losses"][-1] < rec["losses"][0], rec["losses"]
     assert launches["flash_fwd"] == launches["flash_fwd_any"] == 0, launches
     assert launches["flash_bwd"] == launches["flash_bwd_any"] == 0, launches
-    assert launches["flash_fwd_wide"] == WIDE_STEPS * n * 2, launches
+    assert launches["flash_fwd_wide"] == steps * n * 2, launches
     for name in bwd_launches("wide"):
-        assert launches[name] == WIDE_STEPS * n, launches
+        assert launches[name] == steps * n, launches
     del state, step_fn, init_fn, batch
     torch.cuda.empty_cache()
     return rec
@@ -2605,6 +2676,8 @@ def main() -> int:
 
     # ---- (h3) head_dim above 256 on the "wide" kernels ------------------
     wide = wide_phase(torch, llama, attn, card, dev)
+    wide["f32"] = wide_phase(torch, llama, attn, card, dev, torch.float32,
+                             WIDE_F32_STEPS)
 
     # ---- (f) remat policies, the mesh step, trainer and checkpoints ----
     sharded = train_sharded_phase(torch, llama, attn, card, n_layers, dev,
@@ -2711,9 +2784,42 @@ def main() -> int:
             entry[key] = {k: v for k, v in any_times[other].items()
                           if k.startswith(timed_key) or k in (
                               "shape", "pair", "library_max_abs_err")}
+        if path is wide:  # the f32 "wide" kernels' own path: f32 (h3)
+            entry["f32"]["launches"] = wide["f32"]["launches"][name]
+            entry["f32"]["launches_per_step"] = (
+                wide["f32"]["launches_per_step"][name])
         if label == "bf16_d256":
             entry["checks"] = dict(any_results)
         kernels.append(entry)
+    # The f32 "wide" kernels on their own path, f32 (h3), timed at f32 d
+    # 512 (the same counters as the 16-bit "wide" pair's).
+    for name, source, timed_key, replaces in (
+            ("flash_fwd_wide_tf32", "flash_fwd_any", "fwd",
+             "ray_tpu/ops/attention.py:136"),
+            ("flash_bwd_wide_tf32", "flash_bwd_any", "bwd",
+             "ray_tpu/ops/attention.py:302")):
+        rec = any_times["f32_d512"]
+        counter = f"flash_{timed_key}_wide"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces,
+            "launches": wide["f32"]["launches"][counter],
+            "max_abs_err": rec[f"{timed_key}_max_abs_err"],
+            "ms": rec[f"{timed_key}_ms"],
+            "plain_ms": rec[f"{timed_key}_plain_ms"],
+            "bound_ms": rec[f"{timed_key}_bound_ms"],
+            "bound_by": rec[f"{timed_key}_bound_by"],
+            "library_ms": rec[f"{timed_key}_library_ms"],
+            "split_bound_ms": rec[f"{timed_key}_split_bound_ms"],
+            "shape": rec["shape"], "dtype": rec["dtype"], "causal": True,
+            "bound_share": rec[f"{timed_key}_bound_ms"]
+            / rec[f"{timed_key}_ms"],
+            "vs_library": rec[f"{timed_key}_ms"]
+            / rec[f"{timed_key}_library_ms"],
+            "launches_per_step": wide["f32"]["launches_per_step"][counter],
+            "library_max_abs_err": rec["library_max_abs_err"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"any_softmax_data": main_rec["softmax_data"]}))
     print(json.dumps({"slice": {

@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
-"""Ablations of the port's "any" flash forward kernels on one CUDA card.
+"""Ablations of the port's "any" flash kernels on one CUDA card.
 
 Each variant is a copy of `ray_tpu_torch/` under
 `build/ablation/<variant>/` with one named change to its `csrc/`
 (VARIANTS), loaded beside this tree under a module name of its own (the
 op registers under the package's name, so the copies coexist) and built
-from its own sources. At each shape of SHAPES every tree's
-`flash_forward` is held to this tree's plain version (printed, not held:
-a variant may trade precision on purpose) and timed by CUDA events in
-turns (each tree, SDPA, then the same in reverse), beside
-`scaled_dot_product_attention` and, with `--against ROOT`, the
-`ray_tpu_torch` of another checkout at ROOT.
+from its own sources; each tree's ptxas summary of the f32 "wide"
+kernels is printed (registers, spills, C75xx advisories). At each shape
+of SHAPES every tree's `flash_forward`, and at the f32 "wide" shapes
+(head_dim above 256) its `flash_backward` op too, is held to this
+tree's plain version (printed, not held: a variant may trade precision
+on purpose) and timed by CUDA events in turns (each tree, SDPA, then
+the same in reverse), beside `scaled_dot_product_attention` (its
+backward share: forward and backward less forward) and, with
+`--against ROOT`, the `ray_tpu_torch` of another checkout at ROOT.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 kernel_ablation.py [--against ROOT] [VARIANT ...]
 
 With no VARIANT it times every one. Prints the card's name and power
-limit, then one line per shape: each tree's min / max over its turns in
-ms. Copies stay under the gitignored `build/`.
+limit, then one line per shape and op: each tree's min / max over its
+turns in ms. Copies stay under the gitignored `build/`.
 """
 
 from __future__ import annotations
@@ -47,13 +50,81 @@ VARIANTS = {
           "      if (j == 0) split_k<D>(smem + C::k_off"),
          ("flash_fwd_any.cu", "      split_vt<D>(smem + C::v_off",
           "      if (j == 0) split_vt<D>(smem + C::v_off")]),
+    "wide_convert_once": (
+        "the f32 wide forward's converter splits the first KV tile's K "
+        "boxes and V^T only (wrong outputs: the time without its splits)",
+        [("flash_fwd_any.cu",
+          "        store_k_box(smem + L.k_off + s * 2 * K_SPLIT, cur, "
+          "box_steps(h), tid);",
+          "        if (j == 0) store_k_box(smem + L.k_off + s * 2 * K_SPLIT, "
+          "cur, box_steps(h), tid);"),
+         ("flash_fwd_any.cu", "      store_vt(smem + L.v_off, vi, cw, tid);",
+          "      if (j == 0) store_vt(smem + L.v_off, vi, cw, tid);")]),
+    "wide_s_one_term": (
+        "the f32 wide forward's S in one TF32 term, hi*hi (wrong past the "
+        "f32 bar: the S products' share)",
+        [("flash_fwd_any.cu",
+          "    wgmma_tf32(part, a_lo[kk], kmajor_desc(k_hi, BN, kk), kk > 0);\n"
+          "    wgmma_tf32(part, a_hi[kk], kmajor_desc(k_lo, BN, kk), 1);\n"
+          "    wgmma_tf32(part, a_hi[kk], kmajor_desc(k_hi, BN, kk), 1);\n"
+          "  }\n  wgmma_commit();\n  wgmma_wait<0>();\n"
+          "  fence_operands(part);\n#pragma unroll\n"
+          "  for (int i = 0; i < BN / 2; ++i) sc[i] += part[i];",
+          "    wgmma_tf32(part, a_hi[kk], kmajor_desc(k_hi, BN, kk), kk > 0);\n"
+          "  }\n  wgmma_commit();\n  wgmma_wait<0>();\n"
+          "  fence_operands(part);\n#pragma unroll\n"
+          "  for (int i = 0; i < BN / 2; ++i) sc[i] += part[i];")]),
+    "wide_q_global": (
+        "the f32 wide forward reads Q2 from global memory (L2) at every d",
+        [("flash_fwd_any.cu",
+          "  L.q_resident = q_bytes + rest <= SMEM_MAX;",
+          "  L.q_resident = false;")]),
+    "head_by_head": (
+        "both f32 wide kernels' blocks head by head (each head's tiles "
+        "heaviest first) instead of heaviest first across all heads",
+        [("flash_fwd_any.cu",
+          "  const int bh = rest % gridDim.y;\n"
+          "  const int q0 = (gridDim.x - 1 - rest / gridDim.y) * BM;",
+          "  const int bh = rest / gridDim.x;\n"
+          "  const int q0 = (gridDim.x - 1 - rest % gridDim.x) * BM;"),
+         ("flash_bwd_any.cu",
+          "  const int bh = rest % gridDim.y;\n"
+          "  const int j0 = rest / gridDim.y * BK;",
+          "  const int bh = rest / gridDim.x;\n"
+          "  const int j0 = rest % gridDim.x * BK;")]),
+    "bwd_no_dq": (
+        "the f32 wide backward without dQ = dS K_c and its reductions "
+        "(wrong dq: the time of the rest)",
+        [("flash_bwd_any.cu", "      for (int hq = 0; hq < 2; ++hq) {",
+          "      for (int hq = 0; hq < 0; ++hq) {")]),
+    "bwd_one_term": (
+        "the f32 wide backward's products in one TF32 term, hi*hi (wrong "
+        "past the f32 bar: the tensor pipe's share)",
+        [("hopper.cuh",
+          "    for (int m = 0; m < M; ++m) mma_tf32(d[m][n], a_lo[m], b_hi[n]);",
+          ""),
+         ("hopper.cuh",
+          "    for (int m = 0; m < M; ++m) mma_tf32(d[m][n], a_hi[m], b_lo[n]);",
+          "")]),
+    "bwd_no_stream": (
+        "the f32 wide backward streams only its first q tile's slices, "
+        "later tiles reuse them (wrong results: the time without the "
+        "stream)",
+        [("flash_bwd_any.cu",
+          "      load_slice(smem + (nx & 1) * STAGE, s_stats",
+          "      if (nx < ns) load_slice(smem + (nx & 1) * STAGE, s_stats")]),
+    "no_split": (
+        "every TF32 split skipped: hi the f32 bits as they are, lo 0 "
+        "(wrong past the f32 bar: the split's share)",
+        [("hopper.cuh", "  hi = CVT ? tf32_rna_cvt(x) : tf32_rna(x);",
+          "  hi = __float_as_uint(x);\n  lo = 0u;\n  return;")]),
 }
 
 #: (dtype, bh, t, head_dim), causal: the f32 kernel's timed shape and
-#: every other head_dim it takes, and the 16-bit "wide" kernel's.
+#: every other head_dim it takes, and the "wide" kernels' in bf16 and f32.
 SHAPES = (("float32", 64, 1024, 128), ("float32", 16, 2048, 256),
           *(("float32", 64, 1024, d) for d in (32, 64, 96, 160, 192, 224)),
-          ("bfloat16", 16, 1024, 512))
+          ("bfloat16", 16, 1024, 512), ("float32", 16, 1024, 512))
 REPS = 10
 
 
@@ -74,6 +145,22 @@ def make_variant(name: str) -> str:
         with open(path, "w") as f:
             f.write(text.replace(old, new))
     return root
+
+
+def print_wide_tf32(name: str, reports) -> None:
+    """ptxas's registers, spills and C75xx advisories of the f32 "wide"
+    kernels in one tree's build reports."""
+    for lib, report in reports.items():
+        lines = report.splitlines()
+        for i, line in enumerate(lines):
+            if "wide_tf32" not in line:
+                continue
+            if "C75" in line:
+                print(f"  {name} {lib}: {line.strip()[:110]}")
+            elif "Compiling entry" in line:
+                for follow in lines[i + 1:i + 4]:
+                    if "registers" in follow or "spill" in follow:
+                        print(f"  {name} {lib}: {follow.strip()}")
 
 
 def load_port(root: str, name: str):
@@ -122,10 +209,13 @@ def main() -> int:
         roots[name] = make_variant(name)
     ports = {name: load_port(root, f"ablation_{name}")
              for name, root in roots.items()}
-    # One nvcc per tree, all started together.
+    # One nvcc per tree and source, all started together.
+    libs = ("flash_fwd_any", "flash_bwd_any")
     with ThreadPoolExecutor(len(ports)) as pool:
-        list(pool.map(lambda p: p.ops._build.build(("flash_fwd_any",)),
-                      ports.values()))
+        reports = list(pool.map(lambda p: p.ops._build.build(libs),
+                                ports.values()))
+    for name, report in zip(ports, reports):
+        print_wide_tf32(name, report)
     attns = {name: port.ops.attention for name, port in ports.items()}
     this = attns["this"]
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -134,27 +224,56 @@ def main() -> int:
         dtype = getattr(torch, dt)
         tol = (chip_smoke.F32_REL_TOL if dtype == torch.float32
                else chip_smoke.REL_TOL)
-        q, k, v = ((torch.randn(bh, t, d, generator=gen, device="cuda")
-                    * 0.5).to(dtype) for _ in range(3))
-        q2 = this.prescale(q, 1.0 / math.sqrt(d))
-        ref, _ = this.flash_forward_plain(q2, k, v, True, t)
-        fns = {}
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, do = ((torch.randn(bh, t, d, generator=gen, device="cuda")
+                        * 0.5).to(dtype) for _ in range(4))
+        q2 = this.prescale(q, scale)
+        ref, ref_lse = this.flash_forward_plain(q2, k, v, True, t)
+        # The backward op too where the f32 "wide" kernels take the shape.
+        backward = dtype == torch.float32 and d > this.MAX_HEAD_DIM
+        if backward:
+            ref_grads = this.flash_backward_plain(q2, k, v, ref, do, ref_lse,
+                                                  scale, True, t, t)
+        fns = {"fwd": {}, "bwd": {}}
         for name, attn in attns.items():
-            out, _ = attn.flash_forward(q2, k, v, True, t)
-            chip_smoke.held(f"{name} {(dt, bh, t, d)}", out, ref,
+            out, lse = attn.flash_forward(q2, k, v, True, t)
+            chip_smoke.held(f"{name} {(dt, bh, t, d)} out", out, ref,
                             rel_tol=tol)
-            fns[name] = lambda attn=attn: attn.flash_forward(q2, k, v, True,
-                                                             t)
-        q4, k4, v4 = (x.view(1, bh, t, d) for x in (q, k, v))
-        fns["sdpa"] = lambda: sdpa(q4, k4, v4, is_causal=True,
-                                   scale=1.0 / math.sqrt(d))
-        times = {name: [] for name in fns}
-        for name in list(fns) + list(reversed(list(fns))):
-            times[name].append(chip_smoke.cuda_ms(torch, fns[name], REPS))
-        print(f"{(dt, bh, t, d)} causal: " + ", ".join(
-            f"{name} {min(ms):.4f} / {max(ms):.4f}"
-            for name, ms in times.items()))
-        del q, k, v, q2, ref, fns, q4, k4, v4
+            fns["fwd"][name] = lambda attn=attn: attn.flash_forward(
+                q2, k, v, True, t)
+            if backward:
+                args = (q2, k, v, out, do, lse, scale, True, t, t)
+                for gname, got, want in zip(("dq", "dk", "dv"),
+                                            attn.flash_backward(*args),
+                                            ref_grads):
+                    chip_smoke.held(f"{name} {(dt, bh, t, d)} {gname}", got,
+                                    want, rel_tol=tol)
+                fns["bwd"][name] = lambda attn=attn, args=args: (
+                    attn.flash_backward(*args))
+        q4, k4, v4, do4 = (x.view(1, bh, t, d) for x in (q, k, v, do))
+        fns["fwd"]["sdpa"] = lambda: sdpa(q4, k4, v4, is_causal=True,
+                                          scale=scale)
+        if backward:
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+            fns["bwd"]["sdpa"] = lambda: torch.autograd.grad(
+                sdpa(qg, kg, vg, is_causal=True, scale=scale), (qg, kg, vg),
+                do4)
+        times = {}
+        for op, ops in fns.items():
+            times[op] = {name: [] for name in ops}
+            for name in list(ops) + list(reversed(list(ops))):
+                times[op][name].append(
+                    chip_smoke.cuda_ms(torch, ops[name], REPS))
+        if backward:  # SDPA's backward share
+            times["bwd"]["sdpa"] = [
+                b - f for b, f in zip(times["bwd"]["sdpa"],
+                                      times["fwd"]["sdpa"])]
+        for op, by_tree in times.items():
+            if by_tree:
+                print(f"{op} {(dt, bh, t, d)} causal: " + ", ".join(
+                    f"{name} {min(ms):.4f} / {max(ms):.4f}"
+                    for name, ms in by_tree.items()))
+        del q, k, v, do, q2, ref, ref_lse, fns, q4, k4, v4, do4
         torch.cuda.empty_cache()
     print(f"card: {card}")
     return 0

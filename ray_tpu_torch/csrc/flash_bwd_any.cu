@@ -19,11 +19,12 @@
 // reference's (attention.py:514-515). In f32 everything stays f32.
 //
 // Bound on an H100 SXM: operations (five products of 2*d FLOP per unmasked
-// pair), at 989 TFLOP/s for bf16/f16 and 67 TFLOP/s for f32. At Gemma-2B's
-// shape (bh 16 x 4096 x d 256, causal) that is 0.348 ms; the bytes (q2,
-// k, v, out, do, lse and the three gradients) 0.09 ms at 3.35 TB/s.
+// pair), at 989 TFLOP/s for bf16/f16; for f32 at the lesser of 67 TFLOP/s
+// (CUDA cores) and three TF32 terms at 495 TFLOP/s. At Gemma-2B's shape
+// (bh 16 x 4096 x d 256, causal) the bf16 bound is 0.348 ms; the bytes
+// (q2, k, v, out, do, lse and the three gradients) 0.09 ms at 3.35 TB/s.
 //
-// Three main kernels:
+// Four main kernels:
 //   - bf16/f16, d <= 256 (`flash_bwd_wgmma_kernel`; hopper.cuh has the
 //     primitives and the tile layout): one block per (64-row KV tile, bh)
 //     of three warpgroups. Warpgroup 2 is the producer: one thread issues
@@ -61,19 +62,47 @@
 //     row for S and dP (P and dS through shared memory), for dK and dV
 //     (d/8 columns each in registers) and for dQ (summed in registers,
 //     then atomicAdd). Rows padded by one float. 140 KB at d 256.
-//   - every dtype, d > 256 (`flash_bwd_wide_kernel`), a simple kernel (no
-//     model the repo names has such a head_dim): the f32 kernel's work
-//     split by output columns, one block per (32-row KV tile, bh, chunk
-//     of at most 256 columns). Each block forms S and dP over all of d,
-//     streaming 32-column slices of Q2, dO, K and V through shared memory
-//     in the same order in every chunk (so P and dS agree to the bit
-//     across chunks), then adds its own columns of dK, dV and dQ. 124 KB
-//     of shared memory at any d.
+//   - bf16/f16, d > 256 (`flash_bwd_wide_kernel`), a simple kernel (no
+//     model the repo names has such a head_dim): the f32 SIMT kernel's
+//     work split by output columns, one block per (32-row KV tile, bh,
+//     chunk of at most 256 columns). Each block forms S and dP over all of
+//     d, streaming 32-column slices of Q2, dO, K and V through shared
+//     memory in the same order in every chunk (so P and dS agree to the
+//     bit across chunks), then adds its own columns of dK, dV and dQ. 124
+//     KB of shared memory at any d.
+//   - f32, d > 256 (`flash_bwd_wide_tf32_kernel`): the same split by
+//     columns, the five products in three-term TF32 (as the f32 forward)
+//     on mma.sync m16n8k8. wgmma takes TF32 only K-major from shared
+//     memory, and dV, dK and dQ contract over rows: their transposed split
+//     copies would not fit; mma.sync fragments load from an f32 tile in
+//     either orientation, and each warp splits them as loaded (the
+//     forward's permuted order: k = c and c + 4 hold columns 2c and 2c +
+//     1, so a K-major pair is one 8-byte load). One block per (32-row KV
+//     tile, bh, chunk) of 8 warps, KV tiles heaviest first across all
+//     heads (head by head was 8% slower), a tile's chunks side by side.
+//     32-column slices of K, V and the 64-row q tile's Q2 and dO come
+//     through a 2-stage cp.async ring, the tile's lse and delta with its
+//     first slice; warps 0-3 form S^T and 4-7 dP^T over all of d, one
+//     tensor-core chain a slice added in f32, in column order in every
+//     chunk; the chunk's columns of Q2 and dO are copied out of the ring
+//     as they pass. P^T and dS^T go through shared memory; then each warp
+//     owns 32 of the chunk's columns: dV += P^T dO_c and dK += dS^T Q2_c
+//     (one chain a q tile, in registers), and dQ_c = dS K_c (K_c's
+//     fragments held in registers) added into dq_acc by
+//     red.global.add.v4.f32 once a lane pair has swapped halves. 219 KB of
+//     shared memory, 247 registers. Bound: 0.261 ms at bh 16 x 1024 x 512
+//     causal, 0.365 counting S^T and dP^T once per chunk.
 // What still holds the wgmma kernel back: within a q tile the warpgroups
 // wait on each other twice (P^T, then dS^T), so their elementwise steps
 // do not overlap the other's products; the SS products at m64n64 read
 // both operands from shared memory; dq's reductions (64 KB of L2 traffic
 // a q tile at d 256) double with the 64-row KV tile.
+// What holds the f32 "wide" kernel back: mma.sync's TF32 rate (its three
+// terms, kernel_ablation.py's bwd_one_term), 8 warps to hide the latency
+// of each fragment's load, split and products, the stream of slices
+// reloaded for every q tile (bwd_no_stream) and dq's reductions
+// (bwd_no_dq); S^T and dP^T are made once per 256-column chunk (1.4x the
+// products at d 512).
 #include <cmath>
 #include <cstddef>
 #include <type_traits>
@@ -656,6 +685,7 @@ constexpr int SLSE = SDS + BQ * PLD;
 constexpr int SDELTA = SLSE + BQ;
 constexpr int BYTES = (SDELTA + BQ) * 4;
 
+// bf16 and f16 only: f32 runs on flash_bwd_wide_tf32_kernel.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_wide_kernel(const T* __restrict__ q2, const T* __restrict__ k,
@@ -665,6 +695,8 @@ flash_bwd_wide_kernel(const T* __restrict__ q2, const T* __restrict__ k,
                       float* __restrict__ dq_acc, T* __restrict__ dk,
                       T* __restrict__ dv, int t, int tk, int d, int kv_len,
                       int q_len, int causal) {
+  static_assert(!std::is_same<T, float>::value,
+                "f32 runs on flash_bwd_wide_tf32_kernel");
   extern __shared__ float smem[];
   float* skc = smem + SKC;
   float* sqc = smem + SQC;
@@ -816,6 +848,407 @@ static cudaError_t launch(const void* q2, const void* k, const void* v,
 }
 
 }  // namespace wide
+
+// ---------------------------------------------------------------------------
+// f32 at d > 256: three-term TF32 on mma.sync, the gradients split by columns
+// ---------------------------------------------------------------------------
+
+namespace wide_tf32 {
+
+constexpr int BK = 32;        // KV rows of a block
+constexpr int BQ = 64;        // q rows of a tile
+constexpr int SL = 32;        // columns of a streamed slice: one chain
+constexpr int DC = 256;       // gradient columns of a block (a chunk)
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+// Row pitches in floats. A K-major fragment pair (columns 2c, 2c + 1 of
+// rows g and g + 8) is one 8-byte load, free of bank conflicts at a pitch
+// of 8 mod 32; a column pair of an N-major B fragment (rows 2c and 2c + 1
+// at column g) two 4-byte loads, free of them at 4 mod 32.
+constexpr int LDS = SL + 8;   // slices of K, V, Q2, dO
+constexpr int LDC = DC + 4;   // Q2's and dO's chunk columns
+constexpr int LDP = BQ + 8;   // P^T, dS^T [kv][q]
+constexpr int LDD = BK + 8;   // dS [q][kv]
+// Shared memory, in floats: a 2-stage ring of slices (K, V: BK rows; Q2,
+// dO: BQ rows; SL columns each), the q tile's chunk columns of Q2 and dO
+// (copied out of the ring as their slices pass), P^T, dS^T, dS, and the
+// lse and delta of two q tiles (the next one's arrive with its first
+// slice, while this one's are still read): 219 KB.
+constexpr int ROWS = 2 * BK + 2 * BQ;  // rows of a stage: K, V, Q2, dO
+constexpr int STAGE = ROWS * LDS;
+constexpr int S_QC = 2 * STAGE;
+constexpr int S_OC = S_QC + BQ * LDC;
+constexpr int S_PT = S_OC + BQ * LDC;
+constexpr int S_DST = S_PT + BK * LDP;
+constexpr int S_DS = S_DST + BK * LDP;
+constexpr int S_STATS = S_DS + BQ * LDD;  // [2 tiles][lse, delta][BQ]
+constexpr int BYTES = (S_STATS + 4 * BQ) * 4;
+
+// One slice (columns d0 .. d0 + SL) of the KV tile's K and V rows and the
+// q tile's Q2 and dO rows into a stage, 16 bytes a cp.async; with the
+// first slice (d0 0) the tile's lse and delta into `stats`.
+__device__ __forceinline__ void load_slice(
+    float* stage, float* stats, const float* __restrict__ q2,
+    const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, size_t kv_at, size_t q_row, int d,
+    int d0) {
+  static_assert(BK * (SL / 4) == THREADS && BQ == 2 * BK,
+                "a thread copies one 16-byte chunk of 32 rows of each");
+  // Thread x copies chunk x % 8 of row x / 8 of K and V, and of rows x / 8
+  // and x / 8 + 32 of Q2 and dO.
+  const int r = threadIdx.x / (SL / 4);
+  const int col = d0 + 4 * (threadIdx.x % (SL / 4));
+  const size_t kv_src = kv_at + static_cast<size_t>(r) * d + col;
+  const size_t q_src = (q_row + r) * d + col;
+  const size_t q_src2 = q_src + static_cast<size_t>(BK) * d;
+  float* dst = stage + r * LDS + 4 * (threadIdx.x % (SL / 4));
+  cp_async16(dst, k + kv_src);
+  cp_async16(dst + BK * LDS, v + kv_src);
+  cp_async16(dst + 2 * BK * LDS, q2 + q_src);
+  cp_async16(dst + 3 * BK * LDS, q2 + q_src2);
+  cp_async16(dst + 4 * BK * LDS, dout + q_src);
+  cp_async16(dst + 5 * BK * LDS, dout + q_src2);
+  if (d0 == 0 && threadIdx.x < BQ / 2) {
+    const int x = threadIdx.x;  // 16 floats of lse, then 16 of delta
+    const float* src = x < BQ / 4 ? lse + q_row + 4 * x
+                                  : delta + q_row + 4 * (x - BQ / 4);
+    cp_async16(stats + 4 * x, src);
+  }
+}
+
+// The A fragment of rows m0 .. m0 + 15 at k-step ks of a K-major f32 tile
+// (pitch ld), split: k = c and c + 4 hold columns 2c and 2c + 1 of the
+// step (the permuted order every operand of a product shares).
+__device__ __forceinline__ void frag_a(const float* tile, int ld, int m0,
+                                       int ks, int g, int c,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float2 top =
+      *reinterpret_cast<const float2*>(tile + (m0 + g) * ld + 8 * ks + 2 * c);
+  const float2 bot = *reinterpret_cast<const float2*>(
+      tile + (m0 + g + 8) * ld + 8 * ks + 2 * c);
+  split_tf32(top.x, hi[0], lo[0]);
+  split_tf32(bot.x, hi[1], lo[1]);
+  split_tf32(top.y, hi[2], lo[2]);
+  split_tf32(bot.y, hi[3], lo[3]);
+}
+
+// Two f32 values of a B fragment (k = c, c + 4), split.
+__device__ __forceinline__ void split_b(float b0, float b1, uint32_t (&hi)[2],
+                                        uint32_t (&lo)[2]) {
+  split_tf32(b0, hi[0], lo[0]);
+  split_tf32(b1, hi[1], lo[1]);
+}
+
+template <int M, int N>
+__device__ __forceinline__ void zero(float (&x)[M][N][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[m][n][e] = 0.f;
+    }
+  }
+}
+
+template <int M, int N>
+__device__ __forceinline__ void add(float (&x)[M][N][4],
+                                    const float (&y)[M][N][4]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[m][n][e] += y[m][n][e];
+    }
+  }
+}
+
+// Warp w's product over one q tile for its 32 gradient columns from n0:
+// part [2 m-tiles of KV rows][4 n-tiles] = X^T[kv][q] (tile x, K-major,
+// pitch LDP) times Y[q][n] (the chunk tile y, N-major), BQ / 8 k-steps.
+__device__ __forceinline__ void kv_product(const float* x, const float* y,
+                                           int n0, int g, int c,
+                                           float (&part)[2][4][4]) {
+  zero(part);
+#pragma unroll 2
+  for (int ks = 0; ks < BQ / 8; ++ks) {
+    uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
+    frag_a(x, LDP, 0, ks, g, c, a_hi[0], a_lo[0]);
+    frag_a(x, LDP, 16, ks, g, c, a_hi[1], a_lo[1]);
+    const float* yr = y + (8 * ks + 2 * c) * LDC + n0 + g;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+      split_b(yr[8 * nt], yr[LDC + 8 * nt], b_hi[nt], b_lo[nt]);
+    mma_tf32x3(part, a_hi, a_lo, b_hi, b_lo);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_wide_tf32_kernel(const float* __restrict__ q2,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq_acc, float* __restrict__ dk,
+                           float* __restrict__ dv, int t, int tk, int d,
+                           int kv_len, int q_len, int causal) {
+  extern __shared__ float smem_bwd_tf32[];
+  float* smem = smem_bwd_tf32;
+  float* s_qc = smem + S_QC;
+  float* s_oc = smem + S_OC;
+  float* s_pt = smem + S_PT;
+  float* s_dst = smem + S_DST;
+  float* s_ds = smem + S_DS;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, c = lane & 3;
+
+  // Blocks in linear order: a KV tile's chunks side by side (they read
+  // the same slices), the KV tiles heaviest first (the causal diagonal's)
+  // across all heads, so that the grid's last wave holds the lightest
+  // (head by head: 8% slower on an H100 at bh 16 x 1024 x 512, causal).
+  const int lin =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int rest = lin / gridDim.z;
+  const int bh = rest % gridDim.y;
+  const int j0 = rest / gridDim.y * BK;
+  const int c0 = lin % gridDim.z * DC;  // this block's gradient columns:
+  const int cw = min(DC, d - c0);       // [c0, c0 + cw)
+  const int n0 = 32 * warp;        // warp's columns of the chunk, if < cw
+  const bool cols = n0 < cw;
+  const size_t kv_at = (static_cast<size_t>(bh) * tk + j0) * d;
+  const size_t q_base = static_cast<size_t>(bh) * t;
+
+  // K's chunk columns as this warp's B fragments of dQ = dS K_c: k-step ks
+  // (KV rows 8ks + 2c, + 1), n-tile nt (column n0 + 8nt + g); f32, split
+  // at each use.
+  float kc[BK / 8][4][2];
+#pragma unroll
+  for (int ks = 0; ks < BK / 8; ++ks) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float* p =
+          k + kv_at + static_cast<size_t>(8 * ks + 2 * c) * d + c0 + n0 +
+          8 * nt + g;
+      kc[ks][nt][0] = cols ? p[0] : 0.f;
+      kc[ks][nt][1] = cols ? p[d] : 0.f;
+    }
+  }
+  float dk_acc[2][4][4], dv_acc[2][4][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  // S^T (warps 0-3) and dP^T (warps 4-7) [BK x BQ]: warp quarter wq holds
+  // KV rows 16 (wq & 1) .. + 15 by q columns 32 (wq >> 1) .. + 31.
+  const bool is_s = warp < 4;
+  const int wq = warp & 3;
+  const int am = (is_s ? 0 : BK) + 16 * (wq & 1);           // A's stage row
+  const int bn = (is_s ? 2 * BK : 2 * BK + BQ) + 32 * (wq >> 1);  // B's
+  const int ns = d / SL;                                    // slices a tile
+  const int s_lo = c0 / SL, s_hi = (c0 + cw) / SL;  // the chunk's slices
+  const int i_start = causal ? j0 / BQ * BQ : 0;
+  const int i_end = j0 < kv_len ? q_len : 0;
+  const int n_tiles = i_end > i_start ? (i_end - i_start + BQ - 1) / BQ : 0;
+  const int total = n_tiles * ns;
+  float acc[1][4][4];
+  float* s_stats = smem + S_STATS;
+
+  if (total > 0) {
+    load_slice(smem, s_stats, q2, k, v, dout, lse, delta, kv_at,
+               q_base + i_start, d, 0);
+    cp_async_commit();
+  }
+  for (int it = 0; it < total; ++it) {
+    const int ti = it / ns, sl = it % ns;
+    const int i0 = i_start + ti * BQ;
+    if (sl == 0) zero(acc);
+    // The next slice (of this tile or the next) into the other stage.
+    if (it + 1 < total) {
+      const int nx = it + 1;
+      load_slice(smem + (nx & 1) * STAGE, s_stats + (nx / ns & 1) * 2 * BQ,
+                 q2, k, v, dout, lse, delta, kv_at,
+                 q_base + i_start + nx / ns * BQ, d, nx % ns * SL);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const float* st = smem + (it & 1) * STAGE;
+    // One chain: this slice's 4 k-steps of three terms, added into S^T or
+    // dP^T in f32 (the same slices in the same order in every chunk).
+    {
+      float part[1][4][4];
+      zero(part);
+#pragma unroll
+      for (int ks = 0; ks < SL / 8; ++ks) {
+        uint32_t a_hi[1][4], a_lo[1][4], b_hi[4][2], b_lo[4][2];
+        frag_a(st, LDS, am, ks, g, c, a_hi[0], a_lo[0]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              st + (bn + 8 * nt + g) * LDS + 8 * ks + 2 * c);
+          split_b(b.x, b.y, b_hi[nt], b_lo[nt]);
+        }
+        mma_tf32x3(part, a_hi, a_lo, b_hi, b_lo);
+      }
+      add(acc, part);
+    }
+    // A slice of the chunk's columns: Q2's and dO's rows kept for dK, dV.
+    if (sl >= s_lo && sl < s_hi) {
+      const int col = (sl - s_lo) * SL;
+      for (int e = tid; e < 2 * BQ * (SL / 4); e += THREADS) {
+        const int r = e / (SL / 4), ch = e % (SL / 4);  // r: Q2 then dO
+        float* dst = (r < BQ ? s_qc + r * LDC : s_oc + (r - BQ) * LDC) +
+                     col + 4 * ch;
+        *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(
+            st + (2 * BK + r) * LDS + 4 * ch);
+      }
+    }
+    __syncthreads();  // this stage is free for the slice after next
+    if (sl != ns - 1) continue;
+
+    // ---- the tile's gradients ------------------------------------------
+    const float* s_lse = s_stats + (ti & 1) * 2 * BQ;
+    const float* s_delta = s_lse + BQ;
+    const int kv_l = 16 * (wq & 1) + g;  // this thread's KV rows: +0, +8
+    const int q_l = 32 * (wq >> 1) + 2 * c;  // its q columns: + 8nt, + 1
+    if (is_s) {
+      // P^T = exp2(S^T - lse[q]), 0 where masked.
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int kv = j0 + kv_l + 8 * hh;
+          const int ql = q_l + 8 * nt;
+          float p[2];
+#pragma unroll
+          for (int x = 0; x < 2; ++x) {
+            const int q = i0 + ql + x;
+            const bool valid =
+                q < q_len && kv < kv_len && !(causal && kv > q);
+            p[x] = valid ? exp2f(acc[0][nt][2 * hh + x] - s_lse[ql + x])
+                         : 0.f;
+          }
+          *reinterpret_cast<float2*>(s_pt + (kv_l + 8 * hh) * LDP + ql) =
+              make_float2(p[0], p[1]);
+        }
+      }
+    }
+    __syncthreads();
+    if (!is_s) {
+      // dS^T = P^T (dP^T - delta[q]), kept as dS^T [kv][q] and dS [q][kv].
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = kv_l + 8 * hh;
+          const int ql = q_l + 8 * nt;
+          const float2 p =
+              *reinterpret_cast<const float2*>(s_pt + r * LDP + ql);
+          const float ds0 = p.x * (acc[0][nt][2 * hh] - s_delta[ql]);
+          const float ds1 = p.y * (acc[0][nt][2 * hh + 1] - s_delta[ql + 1]);
+          *reinterpret_cast<float2*>(s_dst + r * LDP + ql) =
+              make_float2(ds0, ds1);
+          s_ds[ql * LDD + r] = ds0;
+          s_ds[(ql + 1) * LDD + r] = ds1;
+        }
+      }
+    }
+    __syncthreads();
+    if (cols) {
+      // dV += P^T dO_c and dK += dS^T Q2_c: one chain each over the tile.
+      float part[2][4][4];
+      kv_product(s_pt, s_oc, n0, g, c, part);
+      add(dv_acc, part);
+      kv_product(s_dst, s_qc, n0, g, c, part);
+      add(dk_acc, part);
+      // dQ_c = dS K_c, 32 q rows at a time, added into dq_acc by 16-byte
+      // reductions: lanes c and c ^ 1 swap halves so that the even one
+      // holds row g's 4 columns from 2c and the odd one row g + 8's from
+      // 2c - 2.
+#pragma unroll 1
+      for (int hq = 0; hq < 2; ++hq) {
+        zero(part);
+#pragma unroll
+        for (int ks = 0; ks < BK / 8; ++ks) {
+          uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
+          frag_a(s_ds, LDD, 32 * hq, ks, g, c, a_hi[0], a_lo[0]);
+          frag_a(s_ds, LDD, 32 * hq + 16, ks, g, c, a_hi[1], a_lo[1]);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            split_b(kc[ks][nt][0], kc[ks][nt][1], b_hi[nt], b_lo[nt]);
+          mma_tf32x3(part, a_hi, a_lo, b_hi, b_lo);
+        }
+        const bool odd = c & 1;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int q = i0 + 32 * hq + 16 * mt + g + (odd ? 8 : 0);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const float* a = part[mt][nt];
+            const float x = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
+            const float y = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
+            if (q < q_len) {
+              float* dst = dq_acc + (q_base + q) * d + c0 + n0 + 8 * nt +
+                           2 * (c & 2);
+              if (odd)
+                red_add_v4(dst, x, y, a[2], a[3]);
+              else
+                red_add_v4(dst, a[0], a[1], x, y);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // P^T, dS^T, dS and the chunk columns are read
+  }
+
+  if (cols) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const size_t at = kv_at +
+                            static_cast<size_t>(16 * mt + g + 8 * hh) * d +
+                            c0 + n0 + 8 * nt + 2 * c;
+          *reinterpret_cast<float2*>(dk + at) =
+              make_float2(dk_acc[mt][nt][2 * hh] * LN2,
+                          dk_acc[mt][nt][2 * hh + 1] * LN2);
+          *reinterpret_cast<float2*>(dv + at) = make_float2(
+              dv_acc[mt][nt][2 * hh], dv_acc[mt][nt][2 * hh + 1]);
+        }
+      }
+    }
+  }
+}
+
+static cudaError_t launch(const void* q2, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta,
+                          void* dq_acc, void* dk, void* dv, int bh, int t,
+                          int tk, int d, int kv_len, int q_len, int causal,
+                          cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_wide_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid(tk / BK, bh, (d + DC - 1) / DC);
+  flash_bwd_wide_tf32_kernel<<<grid, THREADS, BYTES, stream>>>(
+      static_cast<const float*>(q2), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq_acc), static_cast<float*>(dk),
+      static_cast<float*>(dv), t, tk, d, kv_len, q_len, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace wide_tf32
 
 // One warp per row: delta[row] = sum(out * do) in f32 over d columns, and
 // the row's acc_d floats of the f32 dq accumulator zeroed; 16 bytes a
@@ -978,8 +1411,8 @@ extern "C" int rtt_flash_bwd_any(int dtype, const void* q2, const void* k,
 }
 
 // The same for any d that is a multiple of 32 (the op takes it for d >
-// 256), every dtype on the column-split kernel; dq_acc row-major [bh * t *
-// d].
+// 256), on the column-split kernels: f32 on three-term TF32 mma.sync,
+// bf16 and f16 on CUDA-core FMA; dq_acc row-major [bh * t * d].
 extern "C" int rtt_flash_bwd_wide(int dtype, const void* q2, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
@@ -993,8 +1426,8 @@ extern "C" int rtt_flash_bwd_wide(int dtype, const void* q2, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:
-      return wide::launch<float>(q2, k, v, dout, lse, delta, dq_acc, dk, dv,
-                                 bh, t, tk, d, kv_len, q_len, causal, s);
+      return wide_tf32::launch(q2, k, v, dout, lse, delta, dq_acc, dk, dv,
+                               bh, t, tk, d, kv_len, q_len, causal, s);
     case 1:
       return wide::launch<__nv_bfloat16>(q2, k, v, dout, lse, delta, dq_acc,
                                          dk, dv, bh, t, tk, d, kv_len, q_len,

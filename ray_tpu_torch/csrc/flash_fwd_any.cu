@@ -99,19 +99,42 @@
 //     box comes through the ring beside its K box. S is made once per
 //     chunk: at d 512 that is 1.5x the products of one block holding all
 //     of O, which its registers cannot.
-//   - f32, d > 256 (`flash_fwd_wide_kernel`): a simple kernel, right and
-//     slow: CUDA-core FMA, the output split by columns as above. Each
-//     block streams 32-column slices of Q and K through shared memory in
-//     the same order in every chunk, then adds P V for its own columns
-//     only (V's chunk in shared memory); 54 KB of shared memory at any d.
+//   - f32, d > 256 (`flash_fwd_wide_tf32_kernel`): the f32 kernel's
+//     three-term TF32 on wgmma with the output split by columns as above:
+//     one block per (64-row q tile, bh, chunk of at most 256 output
+//     columns) of two warpgroups. The converter splits K in boxes of 32 KV
+//     rows by 64 columns (hi and lo, 16 KB) into a ring of 2, loading each
+//     box one ahead, and V^T's chunk once a KV tile (64 KB); Q2 stays
+//     resident in shared memory up to d 512 (129 KB; above, the consumer
+//     reads its Q2 rows from L2). The
+//     consumer forms S over all of d, one chain of 8 k-steps a box (Q2
+//     split into registers per k-step, as the f32 kernel), in column
+//     order, the same in every chunk (so the chunks' S, P and lse agree
+//     to the bit), each chain added into S in f32; then O += P V on
+//     m64n128k8 (m64n64k8 for a last 64 columns), 128 columns a chain. O
+//     is 128 f32 registers a thread, 251 in all. Bound: three TF32 terms'
+//     operations, 0.104 ms at bh 16 x 1024 x 512 causal, 0.156 counting S
+//     once per chunk.
 // The kernels skip causal KV tiles past the q tile's last row and tiles
-// past kv_len; t and tk are multiples of 64.
+// past kv_len; t and tk are multiples of 64. The "wide" kernels' causal q
+// tiles run heaviest first across all heads, a tile's chunks side by side
+// (they read the same K); the f32 one head by head was 17% slower.
 // What still holds the wgmma kernel back: each consumer waits for S
 // before its softmax and for O before its next S (flash_fwd.cu's
 // schedule); S's SS wgmma reads both operands from shared memory at
 // m64n80, near the SM's shared-memory rate. Issuing S_j ahead of
 // P_{j-1} V_{j-1} (FlashAttention-3's overlap within a warpgroup) made
 // ptxas insert warpgroup waits, and the kernel 12% slower.
+// What holds the f32 "wide" kernel back: its one consumer warpgroup's
+// serial work. Each chain splits Q2, issues 24 wgmma of N 32 and waits;
+// the products are a small share of its time (kernel_ablation.py's
+// wide_s_one_term), the converter's splits a few percent
+// (wide_convert_once). Splitting the next
+// chain's Q2 under this one's products (two register sets) spilled and
+// was slower; two chains in flight, slower still (ptxas serialised
+// them, C7514); two consumers of 64 rows would need Q2 out of shared
+// memory (264 KB for 128 rows at d 512), and reading it from L2 was
+// slower (wide_q_global).
 #include <cmath>
 #include <cstddef>
 #include <type_traits>
@@ -887,143 +910,494 @@ static cudaError_t launch_d(const void* q2, const void* k, const void* v,
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// f32 at d > 256: the output split by columns, CUDA-core FMA
+// f32 at d > 256: three-term TF32 on wgmma, the output split by columns
 // ---------------------------------------------------------------------------
 
-namespace wide {
+namespace wide_tf32 {
 
-constexpr int THREADS = 256;
-constexpr int BQ = 64;               // q rows of a block
-constexpr int BK = 32;               // KV rows of a tile
-constexpr int SL = 32;               // columns of a slice of Q and K
-constexpr int DC = 256;              // output columns of a block (a chunk)
-constexpr int TPR = THREADS / BQ;    // threads of one q row
-constexpr int SQ = 0;                              // [BQ][SL + 1]
-constexpr int SK = SQ + BQ * (SL + 1);             // [BK][SL + 1]
-constexpr int SV = SK + BK * (SL + 1);             // [BK][DC + 1]
-constexpr int SP = SV + BK * (DC + 1);             // [BQ][BK + 1]
-constexpr int BYTES = (SP + BQ * (BK + 1)) * 4;
+constexpr int BM = 64;    // q rows of a block: one consumer warpgroup
+constexpr int BN = 32;    // KV rows of a tile
+constexpr int DC = 256;   // output columns of a block (a chunk)
+constexpr int KB = 64;    // columns of a K box: one chain of 8 k-steps
+constexpr int SLOTS = 2;  // the ring of split K boxes
+constexpr int THREADS = 2 * WG_THREADS;  // the consumer, then the converter
+constexpr int K_SPLIT = BN * KB * 4;     // one copy (hi or lo) of a K box
+constexpr int V_SPLIT = DC * BN * 4;     // one copy of V^T's chunk
+constexpr int SMEM_MAX = 232448;         // what a block may use
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_wide_kernel(const T* __restrict__ q2, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ out,
-                      float* __restrict__ lse, int t, int tk, int d,
-                      int kv_len, int causal) {
-  extern __shared__ float smem[];
-  float* sq = smem + SQ;
-  float* sk = smem + SK;
-  float* sv = smem + SV;
-  float* sp = smem + SP;
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int c0 = blockIdx.z * DC;        // this block's output columns:
-  const int cw = min(DC, d - c0);        // [c0, c0 + cw)
-  const int r = tid / TPR;
-  const int lane = tid % TPR;
-  const int row = q0 + r;
-  const size_t q_at = (static_cast<size_t>(bh) * t + q0) * d;
-  const size_t kv_at = static_cast<size_t>(bh) * tk * d;
+// Shared memory for head_dim d: [Q2 (f32, rows padded by 4 floats) if it
+// fits] [SLOTS split K boxes: hi, lo] [V^T's chunk: hi, lo] [barriers].
+// Q2 stays resident up to d 512 (129 KB); above, the consumer reads its
+// Q2 rows from global memory (L2) at every KV tile.
+struct Layout {
+  bool q_resident;
+  int ldq;  // Q2's row pitch in floats where the consumer reads it
+  int k_off, v_off, bar_off, bytes;
+};
 
-  float o[DC / TPR];
-#pragma unroll
-  for (int i = 0; i < DC / TPR; ++i) o[i] = 0.f;
-  float m = -INFINITY;
-  float l = 0.f;
-  const int kv_end = causal ? min(kv_len, q0 + BQ) : kv_len;
-
-  for (int j0 = 0; j0 < kv_end; j0 += BK) {
-    // S over all of d, slice by slice in column order (every chunk's
-    // block sums in the same order, so their S agree to the bit).
-    float s[BK / TPR];
-#pragma unroll
-    for (int u = 0; u < BK / TPR; ++u) s[u] = 0.f;
-    for (int d0 = 0; d0 < d; d0 += SL) {
-      __syncthreads();  // the last slice (and the last tile's V, P) read
-      for (int e = tid; e < BQ * SL; e += THREADS)
-        sq[(e / SL) * (SL + 1) + e % SL] =
-            to_f(q2[q_at + static_cast<size_t>(e / SL) * d + d0 + e % SL]);
-      for (int e = tid; e < BK * SL; e += THREADS)
-        sk[(e / SL) * (SL + 1) + e % SL] = to_f(
-            k[kv_at + static_cast<size_t>(j0 + e / SL) * d + d0 + e % SL]);
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < SL; ++c) {
-        const float qv = sq[r * (SL + 1) + c];
-#pragma unroll
-        for (int u = 0; u < BK / TPR; ++u)
-          s[u] = fmaf(qv, sk[(lane + TPR * u) * (SL + 1) + c], s[u]);
-      }
-    }
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < BK / TPR; ++u) {
-      const int col = j0 + lane + TPR * u;
-      if (col >= kv_len || (causal && col > row)) s[u] = MASK_VALUE;
-      tile_max = fmaxf(tile_max, s[u]);
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = exp2f(m - m_new);
-    float row_sum = 0.f;
-#pragma unroll
-    for (int u = 0; u < BK / TPR; ++u) {
-      const float p = exp2f(s[u] - m_new);
-      row_sum += p;
-      sp[r * (BK + 1) + lane + TPR * u] = round_to<T>(p);
-    }
-#pragma unroll
-    for (int off = 1; off < TPR; off <<= 1)
-      row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-    l = l * alpha + row_sum;
-    m = m_new;
-#pragma unroll
-    for (int i = 0; i < DC / TPR; ++i) o[i] *= alpha;
-    // This chunk's columns of V (the slices' barriers passed since the
-    // last tile's V was read).
-    for (int e = tid; e < BK * cw; e += THREADS)
-      sv[(e / cw) * (DC + 1) + e % cw] =
-          to_f(v[kv_at + static_cast<size_t>(j0 + e / cw) * d + c0 + e % cw]);
-    __syncthreads();
-#pragma unroll 2
-    for (int j = 0; j < BK; ++j) {
-      const float p = sp[r * (BK + 1) + j];
-#pragma unroll
-      for (int i = 0; i < DC / TPR; ++i)
-        if (lane + TPR * i < cw)
-          o[i] = fmaf(p, sv[j * (DC + 1) + lane + TPR * i], o[i]);
-    }
-  }
-
-  const float l_safe = l == 0.f ? 1.f : l;
-  T* o_row = out + q_at + static_cast<size_t>(r) * d + c0;
-#pragma unroll
-  for (int i = 0; i < DC / TPR; ++i)
-    if (lane + TPR * i < cw) o_row[lane + TPR * i] = from_f<T>(o[i] / l_safe);
-  if (blockIdx.z == 0 && lane == 0)
-    lse[static_cast<size_t>(bh) * t + row] = m + log2f(l_safe);
+__host__ __device__ inline Layout layout(int d) {
+  Layout L;
+  const int q_bytes = BM * (d + 4) * 4;  // a multiple of 1024 (d % 4 == 0)
+  const int rest = SLOTS * 2 * K_SPLIT + 2 * V_SPLIT + 64 + 1024;
+  L.q_resident = q_bytes + rest <= SMEM_MAX;
+  L.ldq = L.q_resident ? d + 4 : d;
+  L.k_off = L.q_resident ? q_bytes : 0;
+  L.v_off = L.k_off + SLOTS * 2 * K_SPLIT;
+  L.bar_off = L.v_off + 2 * V_SPLIT;
+  L.bytes = L.bar_off + 64 + 1024;  // + alignment slack
+  return L;
 }
 
-template <typename T>
+// The converter's share of a K box (BN rows, `steps` k-steps of 8 columns
+// from `src`, row pitch d), as tf32::split_k takes it: row 8 * warp +
+// lane % 8, steps lane / 8 and lane / 8 + 4. Loaded before the converter
+// waits for the box's slot, so the loads are in flight meanwhile.
+struct KBox {
+  float4 x[4];
+};
+
+__device__ __forceinline__ void load_k_box(KBox& kb, const float* src, int d,
+                                           int steps, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  const float* row = src + static_cast<size_t>(warp * 8 + (lane & 7)) * d +
+                     8 * (lane >> 3);
+  kb.x[0] = *reinterpret_cast<const float4*>(row);
+  kb.x[1] = *reinterpret_cast<const float4*>(row + 4);
+  if (steps == 8) {
+    kb.x[2] = *reinterpret_cast<const float4*>(row + 32);
+    kb.x[3] = *reinterpret_cast<const float4*>(row + 36);
+  }
+}
+
+// The box split into K-major hi and lo copies at dst and dst + K_SPLIT, in
+// tf32::split_k's layout (32-column sub-boxes under the 128-byte swizzle,
+// each step's even and odd columns in one whole 16-byte chunk each). A
+// box of 4 steps (d an odd multiple of 32) gets zeros in steps 4-7, so
+// that every chain is 8 steps and their products are zero (wgmma in a
+// branch made ptxas serialise them all: C7520).
+__device__ __forceinline__ void store_k_box(unsigned char* dst,
+                                            const KBox& kb, int steps,
+                                            int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  const int r = warp * 8 + (lane & 7);
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int s = (lane >> 3) + 4 * m;
+    uint4 hi = make_uint4(0, 0, 0, 0), lo = hi;
+    if (m == 1 && steps != 8) {  // a 32-column last box: zeros past d
+      const int at = tf32::step_chunk(r, s, 0, BN);
+      *reinterpret_cast<uint4*>(dst + at) = hi;
+      *reinterpret_cast<uint4*>(dst + K_SPLIT + at) = lo;
+      const int at1 = tf32::step_chunk(r, s, 1, BN);
+      *reinterpret_cast<uint4*>(dst + at1) = hi;
+      *reinterpret_cast<uint4*>(dst + K_SPLIT + at1) = lo;
+      break;
+    }
+    const float4 a = kb.x[2 * m], b = kb.x[2 * m + 1];
+    tf32::split4(a.x, a.z, b.x, b.z, hi, lo);
+    int at = tf32::step_chunk(r, s, 0, BN);
+    *reinterpret_cast<uint4*>(dst + at) = hi;
+    *reinterpret_cast<uint4*>(dst + K_SPLIT + at) = lo;
+    tf32::split4(a.y, a.w, b.y, b.w, hi, lo);
+    at = tf32::step_chunk(r, s, 1, BN);
+    *reinterpret_cast<uint4*>(dst + at) = hi;
+    *reinterpret_cast<uint4*>(dst + K_SPLIT + at) = lo;
+  }
+}
+
+// V's tile [BN x cw] (from `src`, row pitch d) split into K-major hi and
+// lo copies of V^T [cw x BN], as tf32::split_vt lays them out: a thread
+// takes one step's 8 rows of 4 columns (at most two such items), all
+// loaded first. Rows of V^T from cw up to the next multiple of 64 keep
+// what they held: they reach only O's columns past cw, never stored.
+struct VItems {
+  float4 x[2][8];
+};
+
+__device__ __forceinline__ void load_v(VItems& vi, const float* src, int d,
+                                       int cw, int tid) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int i = tid + u * WG_THREADS;
+    if (i >= cw) break;
+    const int s = i % (BN / 8), n4 = i / (BN / 8);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      vi.x[u][j] = *reinterpret_cast<const float4*>(
+          src + static_cast<size_t>(8 * s + j) * d + 4 * n4);
+  }
+}
+
+__device__ __forceinline__ void store_vt(unsigned char* dst, const VItems& vi,
+                                         int cw, int tid) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int i = tid + u * WG_THREADS;
+    if (i >= cw) break;
+    const int s = i % (BN / 8), n4 = i / (BN / 8);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = 4 * n4 + e;
+      const auto col = [&](int j) {
+        const float4& x = vi.x[u][j];
+        return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+      };
+      uint4 hi, lo;
+      tf32::split4(col(0), col(2), col(4), col(6), hi, lo);
+      int at = tf32::step_chunk(n, s, 0, DC);
+      *reinterpret_cast<uint4*>(dst + at) = hi;
+      *reinterpret_cast<uint4*>(dst + V_SPLIT + at) = lo;
+      tf32::split4(col(1), col(3), col(5), col(7), hi, lo);
+      at = tf32::step_chunk(n, s, 1, DC);
+      *reinterpret_cast<uint4*>(dst + at) = hi;
+      *reinterpret_cast<uint4*>(dst + V_SPLIT + at) = lo;
+    }
+  }
+}
+
+// Pins each register of `x` at this point of the program: a wgmma's A
+// operands computed before its fence stay there (left to itself, ptxas
+// moved the split between the wgmmas and injected a warpgroup.arrive
+// before each: C7519).
+template <int R, int C>
+__device__ __forceinline__ void pin(uint32_t (&x)[R][C]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) asm volatile("" : "+r"(x[r][c]));
+  }
+}
+
+// S [64 x BN] += this box's chain: Q2's columns from step k0 split into
+// registers per k-step (the A operand; `qa` points at this thread's
+// Q2[g][2c], pitch lda, in shared or global memory; past step `ksteps` =
+// d / 8 the last step's again, which meet the zeros of a short box), before
+// waiting on `full` for the box's split copies at k_hi and k_lo (B); KB /
+// 8 k-steps of three terms in one tensor-core chain, added into S by an
+// f32 add.
+__device__ __forceinline__ void box_chain(const float* qa, int lda, int k0,
+                                          int ksteps, uint64_t* full,
+                                          uint32_t parity, uint32_t k_hi,
+                                          uint32_t k_lo, float (&sc)[BN / 2]) {
+  constexpr int KC = KB / 8;
+  uint32_t a_hi[KC][4], a_lo[KC][4];
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {
+    const int ks = min(k0 + kk, ksteps - 1);
+    const float2 top = *reinterpret_cast<const float2*>(qa + 8 * ks);
+    const float2 bot = *reinterpret_cast<const float2*>(qa + 8 * lda + 8 * ks);
+    split_tf32(top.x, a_hi[kk][0], a_lo[kk][0]);
+    split_tf32(bot.x, a_hi[kk][1], a_lo[kk][1]);
+    split_tf32(top.y, a_hi[kk][2], a_lo[kk][2]);
+    split_tf32(bot.y, a_hi[kk][3], a_lo[kk][3]);
+  }
+  pin(a_hi);
+  pin(a_lo);
+  mbar_wait(full, parity);  // the box's split copies are in place
+  float part[BN / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {
+    wgmma_tf32(part, a_lo[kk], kmajor_desc(k_hi, BN, kk), kk > 0);
+    wgmma_tf32(part, a_hi[kk], kmajor_desc(k_lo, BN, kk), 1);
+    wgmma_tf32(part, a_hi[kk], kmajor_desc(k_hi, BN, kk), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_operands(part);
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] += part[i];
+}
+
+// The consumer warpgroup: its 64 q rows against every KV tile, NC pieces
+// of 64 output columns from c0 (the last may run past cw).
+template <int NC>
+__device__ __forceinline__ void consume(
+    const unsigned char* smem, const Layout& L, const float* __restrict__ q2,
+    uint64_t* q_full, uint64_t* full, uint64_t* empty, uint64_t* v_full,
+    uint64_t* v_empty, float* __restrict__ out, float* __restrict__ lse,
+    int bh, int q0, int c0, int cw, int t, int d, int nb, int n_kv,
+    int kv_len, int causal) {
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int g = (tid % 32) >> 2;
+  const int c = tid & 3;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, +8
+  const float* qa =
+      L.q_resident
+          ? reinterpret_cast<const float*>(smem) + (warp * 16 + g) * L.ldq +
+                2 * c
+          : q2 + (static_cast<size_t>(bh) * t + row0) * d + 2 * c;
+  const uint32_t v_hi = smem_u32(smem + L.v_off);
+  const uint32_t v_lo = v_hi + V_SPLIT;
+
+  float o[NC][32];
+#pragma unroll
+  for (int h = 0; h < NC; ++h) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[h][i] = 0.f;
+  }
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;
+
+  if (L.q_resident && n_kv > 0) mbar_wait(q_full, 0);
+  int i = 0;  // boxes through the ring so far
+  for (int j = 0; j < n_kv; ++j) {
+    // S = Q2 K^T over all of d, box by box in column order: every chunk's
+    // block makes the same chains in the same order.
+    float sc[BN / 2];
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) sc[e] = 0.f;
+    for (int h = 0; h < nb; ++h, ++i) {
+      const int s = i % SLOTS;
+      const uint32_t k_hi = smem_u32(smem + L.k_off + s * 2 * K_SPLIT);
+      box_chain(qa, L.ldq, 8 * h, d / 8, &full[s], (i / SLOTS) & 1, k_hi,
+                k_hi + K_SPLIT, sc);
+      if (tid == 0) mbar_arrive(&empty[s]);
+    }
+
+    const int kv0 = j * BN;
+    if (kv0 + BN > kv_len || (causal && kv0 + BN - 1 > q0)) {
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        const int col = kv0 + 8 * (e >> 2) + 2 * c + (e & 1);
+        const int row = row0 + 8 * ((e >> 1) & 1);
+        if (col >= kv_len || (causal && row < col)) sc[e] = MASK_VALUE;
+      }
+    }
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float alpha0 = exp2f(m0 - mx0);
+    const float alpha1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < BN / 8; ++nt) {
+      sc[4 * nt] = exp2f(sc[4 * nt] - mx0);
+      sc[4 * nt + 1] = exp2f(sc[4 * nt + 1] - mx0);
+      sc[4 * nt + 2] = exp2f(sc[4 * nt + 2] - mx1);
+      sc[4 * nt + 3] = exp2f(sc[4 * nt + 3] - mx1);
+      sum0 += sc[4 * nt] + sc[4 * nt + 1];
+      sum1 += sc[4 * nt + 2] + sc[4 * nt + 3];
+    }
+    l0 = alpha0 * l0 + sum0;
+    l1 = alpha1 * l1 + sum1;
+#pragma unroll
+    for (int h = 0; h < NC; ++h) {
+#pragma unroll
+      for (int e = 0; e < 32; e += 4) {
+        o[h][e] *= alpha0;
+        o[h][e + 1] *= alpha0;
+        o[h][e + 2] *= alpha1;
+        o[h][e + 3] *= alpha1;
+      }
+    }
+    // P split in place: the accumulator's columns 2c and 2c + 1 are the A
+    // fragment's k = c and c + 4.
+    uint32_t p_hi[BN / 8][4], p_lo[BN / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 8; ++kk) {
+      split_tf32(sc[4 * kk], p_hi[kk][0], p_lo[kk][0]);
+      split_tf32(sc[4 * kk + 2], p_hi[kk][1], p_lo[kk][1]);
+      split_tf32(sc[4 * kk + 1], p_hi[kk][2], p_lo[kk][2]);
+      split_tf32(sc[4 * kk + 3], p_hi[kk][3], p_lo[kk][3]);
+    }
+    pin(p_hi);
+    pin(p_lo);
+
+    // O += P V for this chunk's columns, 128 a chain (V^T's rows), the
+    // last 64 alone where NC is odd.
+    mbar_wait(v_full, j & 1);
+#pragma unroll
+    for (int h = 0; h < NC; h += 2) {
+      if (h + 1 < NC) {
+        const uint32_t at = 64 * h * BOX_ROW_BYTES;
+        float part[64];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 8; ++kk) {
+          wgmma_tf32(part, p_lo[kk], kmajor_desc(v_hi + at, DC, kk), kk > 0);
+          wgmma_tf32(part, p_hi[kk], kmajor_desc(v_lo + at, DC, kk), 1);
+          wgmma_tf32(part, p_hi[kk], kmajor_desc(v_hi + at, DC, kk), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(part);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          o[h][e] += part[e];
+          o[h + 1][e] += part[32 + e];
+        }
+      } else {
+        tf32::pv_chunk<DC, BN, 64>(o[h], p_hi, p_lo, v_hi, v_lo, 64 * h);
+      }
+    }
+    if (tid == 0) mbar_arrive(v_empty);
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float safe0 = l0 == 0.f ? 1.f : l0;
+  const float safe1 = l1 == 0.f ? 1.f : l1;
+  float* r0 = out + (static_cast<size_t>(bh) * t + row0) * d + c0 + 2 * c;
+#pragma unroll
+  for (int h = 0; h < NC; ++h) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = 64 * h + 8 * nt;  // + 2c
+      if (col >= cw) continue;
+      *reinterpret_cast<float2*>(r0 + col) =
+          make_float2(o[h][4 * nt] / safe0, o[h][4 * nt + 1] / safe0);
+      *reinterpret_cast<float2*>(r0 + 8 * static_cast<size_t>(d) + col) =
+          make_float2(o[h][4 * nt + 2] / safe1, o[h][4 * nt + 3] / safe1);
+    }
+  }
+  if (c0 == 0 && c == 0) {  // chunk 0 writes lse
+    lse[static_cast<size_t>(bh) * t + row0] = m0 + log2f(safe0);
+    lse[static_cast<size_t>(bh) * t + row0 + 8] = m1 + log2f(safe1);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wide_tf32_kernel(const float* __restrict__ q2,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           float* __restrict__ out, float* __restrict__ lse,
+                           int t, int tk, int d, int kv_len, int causal) {
+  const Layout L = layout(d);
+  extern __shared__ unsigned char smem_wide_tf32[];
+  unsigned char* smem = align_1024(smem_wide_tf32);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + SLOTS;
+  uint64_t* v_full = empty + SLOTS;
+  uint64_t* v_empty = v_full + 1;
+
+  // Blocks in linear order: a q tile's chunks side by side (they read
+  // the same K boxes), the q tiles heaviest first across all heads, so
+  // that the grid's last wave holds the lightest (head by head, the
+  // heaviest tiles of the last heads started late: 17% slower on an
+  // H100 at bh 16 x 1024 x 512, causal).
+  const int lin =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int rest = lin / gridDim.z;
+  const int bh = rest % gridDim.y;
+  const int q0 = (gridDim.x - 1 - rest / gridDim.y) * BM;
+  const int c0 = lin % gridDim.z * DC;  // this block's output columns:
+  const int cw = min(DC, d - c0);       // [c0, c0 + cw)
+  const int nb = (d + KB - 1) / KB;  // K boxes of a row (the last may be
+                                     // 32 columns)
+  const int kv_end = causal ? min(kv_len, q0 + BM) : kv_len;
+  const int n_kv = (kv_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, WG_THREADS);
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(&full[s], WG_THREADS);
+      mbar_init(&empty[s], 1);
+    }
+    mbar_init(v_full, WG_THREADS);
+    mbar_init(v_empty, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // The warpgroup's role, broadcast so that the compiler sees it uniform
+  // (a wgmma in a branch it cannot prove uniform is serialised: C7520).
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG_THREADS, 0);
+  if (wg == 1) {
+    // ---- converter: Q2 as it is, K boxes and V^T's chunk split ----------
+    const int tid = threadIdx.x - WG_THREADS;
+    if (L.q_resident) {
+      float* sq = reinterpret_cast<float*>(smem);
+      const float* qg = q2 + (static_cast<size_t>(bh) * t + q0) * d;
+      for (int e = tid; e < BM * (d / 4); e += WG_THREADS) {
+        const int r = e / (d / 4), c4 = e % (d / 4);
+        *reinterpret_cast<float4*>(sq + r * L.ldq + 4 * c4) =
+            *reinterpret_cast<const float4*>(qg + static_cast<size_t>(r) * d +
+                                             4 * c4);
+      }
+      mbar_arrive(q_full);
+    }
+    // Each box's loads are issued one box ahead, and V's tile with the
+    // tile's first box, so that they are in flight while the converter
+    // waits and stores.
+    const float* kg = k + static_cast<size_t>(bh) * tk * d;
+    const float* vg = v + static_cast<size_t>(bh) * tk * d + c0;
+    const auto box_steps = [&](int h) { return min(8, (d - KB * h) / 8); };
+    KBox cur, next;
+    if (n_kv > 0) load_k_box(cur, kg, d, box_steps(0), tid);
+    int i = 0;
+    for (int j = 0; j < n_kv; ++j) {
+      VItems vi;
+      for (int h = 0; h < nb; ++h, ++i) {
+        const int nh = h + 1 < nb ? h + 1 : 0;
+        const int nj = h + 1 < nb ? j : j + 1;
+        if (nj < n_kv)
+          load_k_box(next, kg + static_cast<size_t>(nj) * BN * d + KB * nh,
+                     d, box_steps(nh), tid);
+        if (h == 0)
+          load_v(vi, vg + static_cast<size_t>(j) * BN * d, d, cw, tid);
+        const int s = i % SLOTS;
+        mbar_wait(&empty[s], ((i / SLOTS) & 1) ^ 1);
+        store_k_box(smem + L.k_off + s * 2 * K_SPLIT, cur, box_steps(h), tid);
+        fence_proxy_async();
+        mbar_arrive(&full[s]);
+        cur = next;
+      }
+      mbar_wait(v_empty, (j & 1) ^ 1);
+      store_vt(smem + L.v_off, vi, cw, tid);
+      fence_proxy_async();
+      mbar_arrive(v_full);
+    }
+  } else {
+    // ---- the consumer: 64 q rows ----------------------------------------
+#define RTT_WIDE_TF32_CONSUME(NC)                                          \
+  case NC:                                                                 \
+    consume<NC>(smem, L, q2, q_full, full, empty, v_full, v_empty, out,    \
+                lse, bh, q0, c0, cw, t, d, nb, n_kv, kv_len, causal);      \
+    break;
+    switch ((cw + 63) / 64) {
+      RTT_WIDE_TF32_CONSUME(1)
+      RTT_WIDE_TF32_CONSUME(2)
+      RTT_WIDE_TF32_CONSUME(3)
+      RTT_WIDE_TF32_CONSUME(4)
+    }
+#undef RTT_WIDE_TF32_CONSUME
+  }
+}
+
 static cudaError_t launch(const void* q2, const void* k, const void* v,
                           void* out, void* lse, int bh, int t, int tk, int d,
                           int kv_len, int causal, cudaStream_t stream) {
+  const int bytes = layout(d).bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      BYTES);
+      flash_fwd_wide_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid(t / BQ, bh, (d + DC - 1) / DC);
-  flash_fwd_wide_kernel<T><<<grid, THREADS, BYTES, stream>>>(
-      static_cast<const T*>(q2), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), static_cast<float*>(lse),
-      t, tk, d, kv_len, causal);
+  dim3 grid(t / BM, bh, (d + DC - 1) / DC);
+  flash_fwd_wide_tf32_kernel<<<grid, THREADS, bytes, stream>>>(
+      static_cast<const float*>(q2), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), t, tk, d, kv_len, causal);
   return cudaGetLastError();
 }
 
-}  // namespace wide
+}  // namespace wide_tf32
 
 // ---------------------------------------------------------------------------
 // bf16/f16 at d > 256: wgmma on a TMA ring, the output split by columns
@@ -1368,7 +1742,7 @@ extern "C" int rtt_flash_fwd_any(int dtype, const void* q2, const void* k,
 
 // The same for any d that is a multiple of 32 (the op takes it for d >
 // 256): bf16 and f16 on the column-split wgmma kernel, f32 on the
-// column-split FMA kernel.
+// column-split three-term TF32 kernel.
 extern "C" int rtt_flash_fwd_wide(int dtype, const void* q2, const void* k,
                                   const void* v, void* out, void* lse, int bh,
                                   int t, int tk, int d, int kv_len, int causal,
@@ -1380,8 +1754,8 @@ extern "C" int rtt_flash_fwd_wide(int dtype, const void* q2, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:
-      return wide::launch<float>(q2, k, v, out, lse, bh, t, tk, d, kv_len,
-                                 causal, s);
+      return wide_tf32::launch(q2, k, v, out, lse, bh, t, tk, d, kv_len,
+                               causal, s);
     case 1:
       return wide_wg::launch<__nv_bfloat16>(q2, k, v, out, lse, bh, t, tk, d,
                                             kv_len, causal, s);

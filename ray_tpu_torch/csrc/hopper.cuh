@@ -2,8 +2,8 @@
 // (flash_fwd.cu, flash_bwd.cu, and the 16-bit kernels of flash_fwd_any.cu
 // and flash_bwd_any.cu), in raw PTX: TMA tile loads on 3-D tensor maps,
 // mbarrier pipelines, warpgroup matrix products (wgmma) and their
-// shared-memory descriptors, and warp-specialisation register moves; and
-// the f32 forward's TF32 split and TF32 wgmma.
+// shared-memory descriptors, and warp-specialisation register moves; the
+// f32 kernels' TF32 split, TF32 wgmma and TF32 mma.sync; cp.async.
 //
 // Tile layout. Every 16-bit tile a kernel keeps in shared memory arrives by
 // TMA under CU_TENSOR_MAP_SWIZZLE_128B, as boxes of 64 columns (128
@@ -547,7 +547,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 // D[64 x N] (+)= A[64 x 8] B[8 x N] in TF32 with f32 accumulators, A from
 // registers (the m16n8k8 TF32 A fragment of each warp's 16 rows), B a
 // K-major shared-memory operand (TF32 has no transposed form): N = 32
-// (16 accumulators a thread) or 64 (32).
+// (16 accumulators a thread), 64 (32) or 128 (64).
 __device__ __forceinline__ void wgmma_tf32(float (&d)[16],
                                            const uint32_t (&a)[4],
                                            uint64_t desc_b, int accumulate) {
@@ -569,6 +569,18 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
       RTT_REGS32 ", "
       "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : RTT_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      RTT_REGS64 ", "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : RTT_ACC64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(accumulate));
 }
@@ -602,6 +614,66 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   hi = CVT ? tf32_rna_cvt(x) : tf32_rna(x);
   const float rest = x - __uint_as_float(hi);
   lo = CVT ? tf32_rna_cvt(rest) : tf32_rna(rest);
+}
+
+// D[16 x 8] += A[16 x 8] B[8 x 8] in TF32 with f32 accumulators, by one
+// warp (mma.sync m16n8k8): A's fragment holds rows g, g + 8 (a0/a2, a1/a3)
+// at k = c (a0, a1) and c + 4 (a2, a3), B's k = c (b0) and c + 4 (b1) at
+// column g, D's rows g (d0, d1) and g + 8 (d2, d3) at columns 2c, 2c + 1
+// (g = lane / 4, c = lane % 4). The f32 "wide" backward's products. Not
+// volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k-step of an M x N grid of m16n8 tiles in three TF32 terms, small
+// ones first into each accumulator: lo_a*hi_b + hi_a*lo_b + hi_a*hi_b
+// (lo*lo dropped). Term by term over the grid, so that the M * N
+// independent accumulators hide each product's latency.
+template <int M, int N>
+__device__ __forceinline__ void mma_tf32x3(float (&d)[M][N][4],
+                                           const uint32_t (&a_hi)[M][4],
+                                           const uint32_t (&a_lo)[M][4],
+                                           const uint32_t (&b_hi)[N][2],
+                                           const uint32_t (&b_lo)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) mma_tf32(d[m][n], a_lo[m], b_hi[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) mma_tf32(d[m][n], a_hi[m], b_lo[n]);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) mma_tf32(d[m][n], a_hi[m], b_hi[n]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: 16-byte copies from global into shared memory, in groups
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -7,9 +7,10 @@ the "any" kernels for bf16, f16 and f32 at every other head_dim up to
 ring in bf16/f16; in f32 the forward on the tensor cores in three-term
 TF32, the backward in CUDA-core FMA), and the "wide" kernels in the
 same two sources for every dtype at head_dim above 256 (the outputs
-split into chunks of 256 columns; the 16-bit forward on wgmma, the rest
-CUDA-core FMA). `_kernel_for` picks the pair; nothing falls back from
-one to another.
+split into chunks of 256 columns; the 16-bit forward on wgmma, the f32
+pair on the tensor cores in three-term TF32, the forward on wgmma and
+the backward on mma.sync; the 16-bit backward CUDA-core FMA).
+`_kernel_for` picks the pair; nothing falls back from one to another.
 
 Each kernel has a plain PyTorch version here that computes the same
 function the same way: log2-domain logits (q pre-scaled by

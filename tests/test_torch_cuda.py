@@ -7,9 +7,10 @@ CPU test runs). On a machine with a card and nvcc:
 
 Every output is held to its plain version relatively: max abs error at
 most 1e-2 * max|ref| and L2 error at most 1e-2 * ||ref|| in bf16/f16,
-1e-5 of each in f32 (the f32 forward multiplies in three-term TF32, the
-other f32 kernels in f32: both read about 1e-7, while one TF32 term or a
-bf16 product reads order 1e-4 or more, which
+1e-5 of each in f32 (the f32 forward and the f32 "wide" pair multiply in
+three-term TF32, the f32 backward up to 256 in f32: they read about 1e-7
+to 1e-6, while one TF32 term or a bf16 product reads order 1e-4 or more,
+which
 `test_f32_bar_rejects_tf32_and_bf16_products` and
 `test_three_term_scores_alone_meet_the_f32_bar` check). The backward
 runs under a random upstream gradient, so that every row of `do`
@@ -20,7 +21,10 @@ a tile, q rows past q_len, and one head; and head_dims that overhang a
 64-column box (96, 160), and above 256 (320, 352, 512, 608, 704: the
 "wide" kernels; above 512 the 16-bit one streams Q). The f32 forward's
 edges: t 64 and 192 against its q tiles, kv_len inside its 64-row and
-32-row KV tiles, and its 32-column last chunk of O.
+32-row KV tiles, and its 32-column last chunk of O. The f32 "wide" pair's:
+a 32-column last K box, a last chunk of 64 to 192 columns, Q2 read from
+global memory (d above 512), t 64, kv_len inside a 32-row KV tile, ragged
+q_len and causal t_q != t_k; and its chunks agree to the bit.
 """
 
 import ctypes
@@ -174,6 +178,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
     (torch.float16, 192, 192, 352, False, 192, 150, 2),
     (torch.bfloat16, 192, 192, 608, True, 192, 192, 1),
     (torch.float16, 128, 128, 704, True, 100, 128, 1),
+    # The f32 "wide" pair (three-term TF32): a 32-column last K box and a
+    # 96-column last chunk (352), Q2 read from global memory and three
+    # chunks (608, 704), half a q tile (t 64), kv_len inside a 32-row KV
+    # tile, ragged q_len, and causal t_q != t_k.
+    (torch.float32, 256, 256, 352, True, 256, 256, 2),
+    (torch.float32, 192, 192, 608, True, 192, 192, 1),
+    (torch.float32, 128, 128, 704, True, 100, 128, 1),
+    (torch.float32, 64, 64, 512, True, 64, 64, 2),
+    (torch.float32, 192, 192, 512, False, 192, 170, 2),
+    (torch.float32, 128, 384, 512, True, 128, 384, 2),
+    (torch.float32, 320, 320, 320, True, 300, 280, 2),
 ])
 def test_any_kernels_match_plain_versions(gen, monkeypatch, dtype, t, tk, d,
                                           causal, q_len, kv_len, bh):
@@ -212,6 +227,29 @@ def test_any_kernels_match_plain_versions(gen, monkeypatch, dtype, t, tk, d,
     assert attn.LAUNCHES[f"flash_bwd_{pair}"] == 1
     assert attn.LAUNCHES["flash_bwd_any_pre"] == 1
     assert attn.LAUNCHES["flash_bwd_any_dq"] == 1
+
+
+@pytest.mark.parametrize("d", [512, 608])
+def test_f32_wide_chunks_agree_to_the_bit(gen, d):
+    """Every 256-column chunk of the f32 "wide" kernels forms S (and dP)
+    over all of d in one order: with q, k, v and do made of equal column
+    chunks, the chunks of out, dk and dv come out equal bit for bit (their
+    P, lse and dS agree; dq sums in f32 reductions of no fixed order)."""
+    bh, t = 2, 256
+    def chunked(rows):
+        x = torch.randn(bh, rows, 256, generator=gen, device="cuda") * 0.5
+        return x.repeat(1, 1, -(-d // 256))[..., :d].contiguous()
+
+    q2 = attn.prescale(chunked(t), 1.0 / math.sqrt(d))
+    k, v, do = chunked(t), chunked(t), chunked(t)
+    out, lse = attn.flash_forward(q2, k, v, True, t)
+    args = (q2, k, v, out, do, lse, 1.0 / math.sqrt(d), True, t, t)
+    _, dk, dv = attn.flash_backward(*args)
+    torch.cuda.synchronize()
+    for x in (out, dk, dv):
+        for c0 in range(256, d, 256):
+            w = min(256, d - c0)
+            assert torch.equal(x[..., c0:c0 + w], x[..., :w])
 
 
 def test_f32_bar_rejects_tf32_and_bf16_products(gen, monkeypatch):

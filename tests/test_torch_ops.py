@@ -411,15 +411,91 @@ def _tf32_forward(q2, k, v, causal, kv_len, terms):
     return out, (m + torch.log2(l_safe))[..., 0]
 
 
+def _tf32_slices(a, b, terms, width):
+    """a @ b^T over the last axis in `terms`-term TF32, one chain a
+    `width`-column slice, the chains added in column order in f32 (as the
+    f32 kernels add each tensor-core chain)."""
+    out = None
+    for d0 in range(0, a.shape[-1], width):
+        sl = slice(d0, d0 + width)
+        part = _tf32_matmul(a[..., sl], b[..., sl].transpose(1, 2), terms)
+        out = part if out is None else out + part
+    return out
+
+
+def _tf32_split_forward(q2, k, v, causal, kv_len, terms, chunk=256,
+                        width=64):
+    """The f32 "wide" forward as its kernel forms it, chunk by chunk of
+    `chunk` output columns: each chunk's S over all of d in chains of
+    `width` columns (one K box) in column order, its P and lse, its
+    columns of out. Returns (out, [lse of each chunk], [P of each
+    chunk])."""
+    t, tk, d = q2.shape[1], k.shape[1], q2.shape[2]
+    outs, lses, ps = [], [], []
+    for c0 in range(0, d, chunk):
+        s = _tf32_slices(q2, k, terms, width)
+        s.masked_fill_(~attn._valid_mask(t, tk, causal, kv_len, s.device),
+                       attn.DEFAULT_MASK_VALUE)
+        m = s.amax(dim=-1, keepdim=True)
+        p = (s - m).exp2()
+        l = p.sum(dim=-1, keepdim=True)
+        l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+        outs.append(_tf32_matmul(p, v[..., c0:c0 + chunk], terms) / l_safe)
+        lses.append((m + torch.log2(l_safe))[..., 0])
+        ps.append(p)
+    return torch.cat(outs, dim=-1), lses, ps
+
+
+def _tf32_backward(q2, k, v, out, do, lse, scale, causal, kv_len, q_len,
+                   terms, chunk=256, width=32, bq=64, bk=32):
+    """The f32 "wide" backward as its kernel forms it, every product in
+    `terms`-term TF32: S^T and dP^T over all of d in chains of `width`
+    columns in column order; P and dS in f32; then chunk by chunk of
+    `chunk` columns dV and dK summed over q tiles of `bq` rows in order
+    (one chain a tile; dK times ln2 at the end) and dQ over KV tiles of
+    `bk` rows (one chain a tile; the kernel adds them by f32 reductions in
+    no fixed order), times scale."""
+    t, tk, d = q2.shape[1], k.shape[1], q2.shape[2]
+    delta = (out.float() * do.float()).sum(dim=-1)
+    s = _tf32_slices(q2, k, terms, width)
+    dp = _tf32_slices(do, v, terms, width)
+    valid = attn._valid_mask(t, tk, causal, kv_len, s.device)
+    valid = valid & (torch.arange(t)[:, None] < q_len)
+    p = torch.where(valid, (s - lse[..., None]).exp2(), torch.zeros_like(s))
+    ds = p * (dp - delta[..., None])
+    grads = [[], [], []]
+    for c0 in range(0, d, chunk):
+        cs = slice(c0, c0 + chunk)
+        dv = dk = dq = 0
+        for i0 in range(0, t, bq):
+            qs = slice(i0, i0 + bq)
+            dv = dv + _tf32_matmul(p[:, qs].transpose(1, 2), do[:, qs, cs],
+                                   terms)
+            dk = dk + _tf32_matmul(ds[:, qs].transpose(1, 2), q2[:, qs, cs],
+                                   terms)
+        for j0 in range(0, tk, bk):
+            ks = slice(j0, j0 + bk)
+            dq = dq + _tf32_matmul(ds[..., ks], k[:, ks, cs], terms)
+        grads[0].append(dq * scale)
+        grads[1].append(dk * math.log(2.0))
+        grads[2].append(dv)
+    return tuple(torch.cat(g, dim=-1) for g in grads)
+
+
 class TestThreeTermTf32PlainVersion:
-    """The f32 forward kernel's arithmetic (three-term TF32 on the tensor
-    cores), emulated on the CPU by rounding f32 bits to TF32: its output
+    """The f32 kernels' arithmetic (three-term TF32 on the tensor cores),
+    emulated on the CPU by rounding f32 bits to TF32: the forward's output
     and lse lie within the f32 bar (1e-5 of max|ref| and of ||ref||, as
-    chip_smoke.py holds the kernel) of `flash_forward_plain` in f32, at d
+    chip_smoke.py holds the kernels) of `flash_forward_plain` in f32, at d
     128, 256 and 320 (the longest sums), causal and not, with kv_len and
-    q_len inside a tile; one-term TF32 lies outside it. The tensor cores'
-    own summation order and rounding are not emulated: chip_smoke.py
-    holds the kernel and its product alone on the card."""
+    q_len inside a tile; one-term TF32 lies outside it. The "wide" pair
+    (head_dim above 256) likewise, in its own chains and order: the
+    forward's column split at d 512 (its chunks' lse and P agree to the
+    bit), and the backward's five products (dq, dk, dv against
+    `flash_backward_plain` at d 320 and 512). The tensor cores' own
+    summation order and rounding within a chain are not emulated:
+    chip_smoke.py holds the kernels and the forward's product alone on
+    the card."""
 
     F32_BAR = 1e-5
 
@@ -447,6 +523,58 @@ class TestThreeTermTf32PlainVersion:
         assert lse_err <= self.F32_BAR * want_lse[:, rows].abs().max().item()
         one, _ = _tf32_forward(q2, k, v, causal, kv_len, terms=1)
         assert not self._within(one[:, rows], want[:, rows], self.F32_BAR)
+
+    @staticmethod
+    def _inputs(d, t=128, kv_len=100, q_len=90, n=3, seed=110):
+        xs = [torch.from_numpy(_rand(seed + i, 2, t, d)) * 0.5
+              for i in range(n)]
+        xs[0][:, q_len:] = 0
+        for x in xs[1:3]:
+            x[:, kv_len:] = 0
+        if n > 3:
+            xs[3][:, q_len:] = 0
+        return xs
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_column_split_forward_at_d512(self, causal):
+        d, kv_len, q_len = 512, 100, 90
+        q, k, v = self._inputs(d, kv_len=kv_len, q_len=q_len)
+        q2 = attn.prescale(q, 1.0 / math.sqrt(d))
+        want, want_lse = attn.flash_forward_plain(q2, k, v, causal, kv_len)
+        got, lses, ps = _tf32_split_forward(q2, k, v, causal, kv_len, 3)
+        rows = slice(0, q_len)
+        assert len(lses) == 2
+        assert torch.equal(lses[0], lses[1]) and torch.equal(ps[0], ps[1])
+        assert self._within(got[:, rows], want[:, rows], self.F32_BAR)
+        lse_err = (lses[0][:, rows] - want_lse[:, rows]).abs().max().item()
+        assert lse_err <= self.F32_BAR * want_lse[:, rows].abs().max().item()
+        # Control: a chunk that summed its own columns first would not agree
+        # to the bit with chunk 0.
+        s0 = _tf32_slices(q2, k, 3, 64)
+        rolled = _tf32_slices(q2.roll(-256, dims=-1), k.roll(-256, dims=-1),
+                              3, 64)
+        assert not torch.equal(s0, rolled)
+        one, _, _ = _tf32_split_forward(q2, k, v, causal, kv_len, 1)
+        assert not self._within(one[:, rows], want[:, rows], self.F32_BAR)
+
+    @pytest.mark.parametrize("d", [320, 512])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_three_term_backward_meets_the_f32_bar(self, d, causal):
+        kv_len, q_len = 100, 90
+        q, k, v, do = self._inputs(d, kv_len=kv_len, q_len=q_len, n=4,
+                                   seed=130)
+        scale = 1.0 / math.sqrt(d)
+        q2 = attn.prescale(q, scale)
+        out, lse = attn.flash_forward_plain(q2, k, v, causal, kv_len)
+        args = (q2, k, v, out, do, lse, scale, causal, kv_len, q_len)
+        want = attn.flash_backward_plain(*args)
+        got = _tf32_backward(*args, terms=3)
+        rows = (q_len, kv_len, kv_len)
+        for g, w, n, name in zip(got, want, rows, ("dq", "dk", "dv")):
+            assert self._within(g[:, :n], w[:, :n], self.F32_BAR), name
+        one = _tf32_backward(*args, terms=1)
+        assert not all(self._within(g[:, :n], w[:, :n], self.F32_BAR)
+                       for g, w, n in zip(one, want, rows))
 
     def test_rounding_is_to_nearest_ties_away(self):
         ulp = 2.0 ** -10  # TF32's spacing in [1, 2)
