@@ -35,8 +35,9 @@ Phases, none of whose failures is caught:
       forward's three-term TF32 product is held there alone first, S at
       d 256, where one TF32 term and the plain version with TF32 or bf16
       products must fall outside it, at f32 d 128 and 512 as well), the
-      f32 "wide" pair's chunks equal bit for bit on inputs of equal
-      256-column chunks (d 512 and 608), with the two negative controls at
+      "wide" pairs' chunks equal bit for bit on inputs of equal 256-column
+      chunks (d 512 and 608, in f32, bf16 and f16), with the two negative
+      controls at
       bf16 d 256 and 512, the public op against `mha_reference` in f32 at
       ANY_OP_CASES, and their times at ANY_TIMED beside SDPA (in f32 also
       SDPA's own error, printed) and their bounds (f32's the lesser of the
@@ -74,6 +75,9 @@ Phases, none of whose failures is caught:
       f32 (the f32 "wide" pair's path, WIDE_F32_STEPS steps): the loss
       must be finite and fall, and every flash launch must go to the
       "wide" kernels.
+  (h4) the f32 "any" kernels' path: (h3)'s model at Gemma-2B's own
+      head_dim 256 in f32, WIDE_F32_STEPS steps: the loss must be finite
+      and fall, and every flash launch must go to the "any" kernels.
   (f) after (c) has freed its memory: (f1) the slice's model (same
       width and depth, batch 2 x 4096, bf16, flash) from one set of
       weights and one batch, 4 steps under each remat policy ("full",
@@ -149,9 +153,9 @@ tokens/s, MFU, peak memory, losses and launches of each (f1) policy
 and of (f2); (f3)'s checkpoints and `ckpt_block_ms`), then
 `{"train_pp": {...}}` (step ms, tokens/s, MFU, peak memory, losses and
 launches per step of (g1) and (g2); (g3)'s errors and times), then
-`{"runtime": {...}}` ((h1)), `{"gemma": {...}}` ((h2)) and `{"wide":
-{...}}` ((h3), the f32 run under "f32"), then the card's name and power
-limit, and as the last
+`{"runtime": {...}}` ((h1)), `{"gemma": {...}}` ((h2)), `{"wide":
+{...}}` ((h3), the f32 run under "f32") and `{"f32_any": {...}}` ((h4)),
+then the card's name and power limit, and as the last
 line `{"ok": true, "device": {...}}`. Exits non-zero with no
 result line when there is no CUDA card or the port is not beside it.
 
@@ -185,9 +189,9 @@ the repo at ROOT (for example `git archive <commit>` unpacked into a
 gitignored directory). Its `ray_tpu_torch` is imported beside this one
 and builds its kernels from its own sources. At the slice's shape its
 forward kernel and its backward op (every launch its autograd backward
-makes), and at AGAINST_TIMED (Gemma-2B's bf16 d 256, f32 d 128, bf16
-d 512 and f32 d 512) its "any" and "wide" forward and backward op, are
-held to this tree's plain versions and timed in turns
+makes), and at AGAINST_TIMED (Gemma-2B's bf16 d 256, f32 d 128 and
+256, bf16 d 512 and f32 d 512) its "any" and "wide" forward and
+backward op, are held to this tree's plain versions and timed in turns
 ROOT, this, this, ROOT. Then each tree, ROOT first, trains two steps of the
 slice from the same seed with the allocator's history recorded: the
 peak of device memory and the largest allocations alive at it, by the
@@ -219,10 +223,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: about 0.4% of max|ref|; an output left at zero or computed from the
 #: wrong rows reads order 100%.
 REL_TOL = 1e-2
-#: The same bars for f32 inputs, which the f32 forward and the f32 "wide"
-#: pair multiply in three-term TF32 on the tensor cores and the f32
-#: backward up to head_dim 256 in f32 on the CUDA cores: their f32 outputs
-#: read about 1e-7 to 1e-6 of the plain f32 version's, while the plain
+#: The same bars for f32 inputs, which the f32 kernels multiply in
+#: three-term TF32 on the tensor cores: their f32 outputs read about 1e-7
+#: to 1e-6 of the plain f32 version's, while the plain
 #: version with one-term TF32 or bf16 products reads order 1e-4 or more
 #: (the controls of phase (b)).
 F32_REL_TOL = 1e-5
@@ -242,16 +245,17 @@ NOISE_RATIO = 2.0
 #: pair's, the "any" pair's (`flash_fwd_wgmma_kernel`,
 #: `flash_fwd_tf32_kernel`, `flash_bwd_any_pre_kernel`, ...) and the
 #: "wide" pair's (16-bit `flash_fwd_wide_wgmma_kernel` and
-#: `flash_bwd_wide_kernel`, f32 `flash_fwd_wide_tf32_kernel` and
-#: `flash_bwd_wide_tf32_kernel`).
+#: `flash_bwd_wide_wgmma_kernel`, f32 `flash_fwd_wide_tf32_kernel`);
+#: `flash_bwd_wide_tf32_kernel` is the f32 backward's main kernel at
+#: every head_dim.
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_pre_kernel",
                  "flash_bwd_kernel", "flash_bwd_dq_kernel",
                  "flash_fwd_wgmma_kernel", "flash_fwd_tf32_kernel",
                  "flash_bwd_any_pre_kernel", "flash_bwd_wgmma_kernel",
-                 "flash_bwd_simt_kernel", "flash_bwd_any_dq_kernel",
+                 "flash_bwd_any_dq_kernel",
                  "flash_bwd_any_dq_ordered_kernel",
                  "flash_fwd_wide_wgmma_kernel", "flash_fwd_wide_tf32_kernel",
-                 "flash_bwd_wide_kernel", "flash_bwd_wide_tf32_kernel")
+                 "flash_bwd_wide_wgmma_kernel", "flash_bwd_wide_tf32_kernel")
 #: The backward op's launches, by launch counter.
 BWD_LAUNCHES = ("flash_bwd_pre", "flash_bwd", "flash_bwd_dq")
 
@@ -324,7 +328,11 @@ TF32_TERMS = 3
 #: forward, 32-row KV tiles and 64-row q tiles of the backward): d 352 (a
 #: 32-column last K box, a 96-column last chunk), 608 and 704 (Q2 read
 #: from global memory; three chunks, the last of 96 and 192 columns), t
-#: 64, kv_len 170 inside a KV tile, ragged q_len, causal t_q != t_k.
+#: 64, kv_len 170 inside a KV tile, ragged q_len, causal t_q != t_k; the
+#: 16-bit "wide" backward's (64-row KV and q tiles, boxes through a ring)
+#: at t 64, kv_len inside a tile, ragged q_len and causal t_q != t_k both
+#: ways, and the f32 backward's up to 256 (8 to 32 columns a warp) at t
+#: 64, kv_len inside a 32-row KV tile, ragged q_len and t_q != t_k.
 ANY_CASES = (
     ("bf16_d256", "bfloat16", 16, 1024, 1024, 256, True, 1024, 1024),
     ("f32_d128", "float32", 16, 512, 512, 128, True, 512, 512),
@@ -374,6 +382,17 @@ ANY_CASES = (
     ("ragged_f32_d512", "float32", 4, 320, 320, 512, True, 250, 320),
     ("q128k384_causal_f32_d512", "float32", 4, 128, 384, 512, True, 128,
      384),
+    ("t64_bf16_d352", "bfloat16", 8, 64, 64, 352, True, 64, 64),
+    ("kvlen100_f16_d608", "float16", 4, 256, 256, 608, False, 256, 100),
+    ("ragged_bf16_d704", "bfloat16", 4, 320, 320, 704, True, 300, 300),
+    ("q128k384_causal_f16_d512", "float16", 4, 128, 384, 512, True, 128,
+     384),
+    ("q384k128_causal_bf16_d352", "bfloat16", 4, 384, 128, 352, True, 384,
+     128),
+    ("t64_f32_d32", "float32", 8, 64, 64, 32, True, 64, 64),
+    ("kvlen100_f32_d96", "float32", 8, 256, 256, 96, False, 256, 100),
+    ("ragged_f32_d256", "float32", 8, 192, 192, 256, True, 170, 192),
+    ("q384k128_causal_f32_d96", "float32", 8, 384, 128, 96, True, 384, 128),
 )
 #: The public op against `mha_reference` in f32 on the same inputs, for
 #: the "any" and "wide" kernels: (dtype, head_dim) at b 1 x h 2 x t 512,
@@ -386,18 +405,24 @@ ANY_OP_CASES = (("bfloat16", 256), ("float32", 128), ("float32", 256),
                 ("bfloat16", 352), ("float32", 64))
 #: The "any" and "wide" kernels' timing shapes, by label: Gemma-2B's
 #: attention (b 2 x 8 heads, 4096, d 256, causal, bf16), f32 ones with
-#: the f32 kernel's two consumers (bh 64 x 1024 x 128) and its one (bh 16
-#: x 2048 x 256), causal, and a "wide" one (bh 16 x 1024 x 512, causal) in
-#: bf16, f16 and f32.
+#: the f32 forward's two consumers (bh 64 x 1024 x 128) and its one (bh 16
+#: x 2048 x 256), causal, a "wide" one (bh 16 x 1024 x 512, causal) in
+#: bf16, f16 and f32, and the presets' small head_dims at bh 64 x 1024,
+#: causal: f32 d 32 (`LlamaConfig.tiny()`'s 16, padded), f32 d 64, bf16
+#: d 96 (Phi-3's, run at 128).
 ANY_TIMED = (("bf16_d256", "bfloat16", 16, 4096, 256),
              ("f32_d128", "float32", 64, 1024, 128),
              ("f32_d256", "float32", 16, 2048, 256),
              ("bf16_d512", "bfloat16", 16, 1024, 512),
              ("f16_d512", "float16", 16, 1024, 512),
-             ("f32_d512", "float32", 16, 1024, 512))
+             ("f32_d512", "float32", 16, 1024, 512),
+             ("f32_d32", "float32", 64, 1024, 32),
+             ("f32_d64", "float32", 64, 1024, 64),
+             ("bf16_d96", "bfloat16", 64, 1024, 96))
 #: `--against`: the ANY_TIMED shapes at which both trees' "any" and
 #: "wide" kernels are timed in turns.
-AGAINST_TIMED = ("bf16_d256", "f32_d128", "bf16_d512", "f32_d512")
+AGAINST_TIMED = ("bf16_d256", "f32_d128", "f32_d256", "bf16_d512",
+                 "f32_d512")
 #: (h1) the runtime phase: steps in the actor, and the bar of its step 2
 #: against the driver's (the backward's dq sums in f32 atomics, in no
 #: fixed order; step 1 is the forward alone and must be equal).
@@ -412,8 +437,11 @@ GEMMA_BATCH, GEMMA_SEQ = 1, 4096
 #: depth, sequence (batch 1) and steps.
 WIDE_HEAD_DIM = 512
 WIDE_LAYERS, WIDE_SEQ, WIDE_STEPS = 2, 1024, 3
-#: (h3) again in f32 (the f32 "wide" kernels' training path): steps.
+#: (h3) again in f32 (the f32 "wide" kernels' training path): steps; and
+#: (h4), the same steps in f32 at Gemma-2B's own head_dim (the f32 "any"
+#: kernels' training path).
 WIDE_F32_STEPS = 3
+F32_ANY_HEAD_DIM = 256
 
 
 def cuda_ms(torch, fn, reps):
@@ -653,9 +681,9 @@ def any_against(torch, trees, reps):
     """Phase (d) for the "any" and "wide" pairs: each tree's forward
     kernel and backward op (its `flash_forward` and `flash_backward`) at
     each AGAINST_TIMED shape of ANY_TIMED (Gemma-2B's bf16 d 256, f32 d
-    128, bf16 d 512, f32 d 512), held to this tree's plain versions and
-    timed in
-    turns ROOT, this, this, ROOT. Returns {label: record}."""
+    128 and 256, bf16 d 512, f32 d 512), held to this tree's plain
+    versions and timed in turns ROOT, this, this, ROOT. Returns {label:
+    record}."""
     attn = trees["this"]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1656,7 +1684,7 @@ def any_kernel_checks(torch, attn):
             dtype)
 
     results = {"scores_tf32x3": scores_tf32x3_check(torch, attn),
-               "f32_wide_chunks_agree": wide_chunks_agree(torch, attn)}
+               "wide_chunks_agree": wide_chunks_agree(torch, attn)}
     for label, dt, bh, t, tk, d, causal, q_len, kv_len in ANY_CASES:
         dtype = getattr(torch, dt)
         pair = attn._kernel_for(dtype, d)
@@ -1740,20 +1768,22 @@ def any_kernel_checks(torch, attn):
 
 
 def wide_chunks_agree(torch, attn):
-    """(b) The f32 "wide" kernels make S (and dP) over all of d in one
-    order in every 256-column chunk, so the chunks' P, lse and dS agree to
-    the bit: with q, k, v and do made of equal 256-column chunks (bh 4 x
-    256, causal, at d 512 and 608), the chunks of out, dk and dv must be
-    equal bit for bit (dq sums in f32 reductions of no fixed order).
-    Returns {d: True}."""
+    """(b) The "wide" kernels make S (and dP) over all of d in one order
+    in every 256-column chunk, so the chunks' P, lse and dS agree to the
+    bit: with q, k, v and do made of equal 256-column chunks (bh 4 x 256,
+    causal, at d 512 and 608, in f32, bf16 and f16), the chunks of out, dk
+    and dv must be equal bit for bit (dq sums in f32 reductions of no
+    fixed order). Returns {"dtype d": True}."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
     bh, t = 4, 256
     agree = {}
-    for d in (512, 608):
+    for dt, d in ((dt, d) for dt in ("float32", "bfloat16", "float16")
+                  for d in (512, 608)):
         def chunked():
             x = torch.randn(bh, t, 256, generator=gen, device=dev) * 0.5
-            return x.repeat(1, 1, -(-d // 256))[..., :d].contiguous()
+            return x.repeat(1, 1, -(-d // 256))[..., :d].to(
+                getattr(torch, dt)).contiguous()
 
         q2 = attn.prescale(chunked(), 1.0 / math.sqrt(d))
         k, v, do = chunked(), chunked(), chunked()
@@ -1765,10 +1795,10 @@ def wide_chunks_agree(torch, attn):
             torch.equal(x[..., c0:c0 + min(256, d - c0)],
                         x[..., :min(256, d - c0)])
             for x in (out, dk, dv) for c0 in range(256, d, 256))
-        print(f"f32 wide d {d}: chunks of out, dk, dv equal bit for bit "
+        print(f"{dt} wide d {d}: chunks of out, dk, dv equal bit for bit "
               f"(equal input chunks): {same}")
-        assert same, d
-        agree[d] = same
+        assert same, (dt, d)
+        agree[f"{dt} {d}"] = same
     return agree
 
 
@@ -2150,18 +2180,21 @@ def gemma_phase(torch, llama, attn, card, dev, profile=False):
     return rec
 
 
-def wide_phase(torch, llama, attn, card, dev, dtype=None, steps=WIDE_STEPS):
-    """(h3): the "wide" kernels on a training path. Gemma-2B's geometry
-    with head_dim WIDE_HEAD_DIM (no preset has one above 256), WIDE_LAYERS
-    layers, random weights from a seed, batch 1 x WIDE_SEQ, `steps` steps
-    of `make_train_step` under remat "full", in bf16 (the preset's dtype)
-    or `dtype`: the loss must be finite and fall, and every flash launch
-    must go to the "wide" kernels. Returns the `{"wide": ...}` record."""
+def wide_phase(torch, llama, attn, card, dev, dtype=None, steps=WIDE_STEPS,
+               head_dim=WIDE_HEAD_DIM, label="(h3)"):
+    """(h3) and (h4): the kernels of one head_dim on a training path.
+    Gemma-2B's geometry with `head_dim` (WIDE_HEAD_DIM: the "wide"
+    kernels', which no preset has; 256: Gemma-2B's own, the "any"
+    kernels'), WIDE_LAYERS layers, random weights from a seed, batch 1 x
+    WIDE_SEQ, `steps` steps of `make_train_step` under remat "full", in
+    bf16 (the preset's dtype) or `dtype`: the loss must be finite and
+    fall, and every flash launch must go to the pair `_kernel_for` names.
+    Returns the record."""
     from ray_tpu_torch.train import default_optimizer, make_train_step
 
     cfg = dataclasses.replace(
         llama.LlamaConfig.gemma_2b(max_seq_len=WIDE_SEQ, remat_policy="full"),
-        n_layers=WIDE_LAYERS, custom_head_dim=WIDE_HEAD_DIM)
+        n_layers=WIDE_LAYERS, custom_head_dim=head_dim)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     dt = str(cfg.dtype).replace("torch.", "")
@@ -2177,22 +2210,26 @@ def wide_phase(torch, llama, attn, card, dev, dtype=None, steps=WIDE_STEPS):
     rec = train_steps(torch, llama, attn, cfg, state, step_fn, batch[:, :-1],
                       batch[:, 1:], False, steps=steps)
     n = cfg.n_layers
+    pair = attn._kernel_for(cfg.dtype, head_dim)
+    other = {"any": "wide", "wide": "any"}[pair]
     launches = rec["launches"]
     per_step = {k: v / steps for k, v in launches.items()}
     rec.update({"card": card, "config": f"gemma_2b geometry, {n} layers, "
-                f"head_dim {WIDE_HEAD_DIM}, {dt}, remat full", "layers": n,
-                "dtype": dt, "batch": 1, "seq": WIDE_SEQ,
+                f"head_dim {head_dim}, {dt}, remat full", "layers": n,
+                "dtype": dt, "batch": 1, "seq": WIDE_SEQ, "pair": pair,
                 "launches_per_step": per_step})
-    print(f"(h3) head_dim {WIDE_HEAD_DIM} ({n} layers, {dt}): losses "
+    print(f"{label} head_dim {head_dim} ({n} layers, {dt}): losses "
           f"{[round(x, 5) for x in rec['losses']]}, step ms "
-          f"{[round(x, 2) for x in rec['step_ms']]}, launches per step "
-          f"{per_step}")
+          f"{[round(x, 2) for x in rec['step_ms']]}, peak "
+          f"{rec['max_memory_allocated']} B, launches per step {per_step}")
     assert all(math.isfinite(x) for x in rec["losses"] + rec["grad_norms"])
     assert rec["losses"][-1] < rec["losses"][0], rec["losses"]
-    assert launches["flash_fwd"] == launches["flash_fwd_any"] == 0, launches
-    assert launches["flash_bwd"] == launches["flash_bwd_any"] == 0, launches
-    assert launches["flash_fwd_wide"] == steps * n * 2, launches
-    for name in bwd_launches("wide"):
+    assert launches["flash_fwd"] == launches[f"flash_fwd_{other}"] == 0, \
+        launches
+    assert launches["flash_bwd"] == launches[f"flash_bwd_{other}"] == 0, \
+        launches
+    assert launches[f"flash_fwd_{pair}"] == steps * n * 2, launches
+    for name in bwd_launches(pair):
         assert launches[name] == steps * n, launches
     del state, step_fn, init_fn, batch
     torch.cuda.empty_cache()
@@ -2679,6 +2716,11 @@ def main() -> int:
     wide["f32"] = wide_phase(torch, llama, attn, card, dev, torch.float32,
                              WIDE_F32_STEPS)
 
+    # ---- (h4) f32 at Gemma-2B's head_dim 256 on the "any" kernels -------
+    f32_any = wide_phase(torch, llama, attn, card, dev, torch.float32,
+                         WIDE_F32_STEPS, head_dim=F32_ANY_HEAD_DIM,
+                         label="(h4)")
+
     # ---- (f) remat policies, the mesh step, trainer and checkpoints ----
     sharded = train_sharded_phase(torch, llama, attn, card, n_layers, dev,
                                   args.profile)
@@ -2784,10 +2826,12 @@ def main() -> int:
             entry[key] = {k: v for k, v in any_times[other].items()
                           if k.startswith(timed_key) or k in (
                               "shape", "pair", "library_max_abs_err")}
-        if path is wide:  # the f32 "wide" kernels' own path: f32 (h3)
-            entry["f32"]["launches"] = wide["f32"]["launches"][name]
-            entry["f32"]["launches_per_step"] = (
-                wide["f32"]["launches_per_step"][name])
+        # The f32 kernels' own paths: f32 (h3) for the "wide" pair, (h4)
+        # for the "any" pair.
+        f32_path = wide["f32"] if path is wide else f32_any
+        entry["f32"]["launches"] = f32_path["launches"][name]
+        entry["f32"]["launches_per_step"] = (
+            f32_path["launches_per_step"][name])
         if label == "bf16_d256":
             entry["checks"] = dict(any_results)
         kernels.append(entry)
@@ -2840,6 +2884,7 @@ def main() -> int:
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"gemma": gemma}))
     print(json.dumps({"wide": wide}))
+    print(json.dumps({"f32_any": f32_any}))
     if args.against:
         print(json.dumps({"against": against(
             torch, attn, args.against, randn, n_layers)}))

@@ -5,19 +5,19 @@ Each variant is a copy of `ray_tpu_torch/` under
 `build/ablation/<variant>/` with one named change to its `csrc/`
 (VARIANTS), loaded beside this tree under a module name of its own (the
 op registers under the package's name, so the copies coexist) and built
-from its own sources; each tree's ptxas summary of the f32 "wide"
-kernels is printed (registers, spills, C75xx advisories). At each shape
-of SHAPES every tree's `flash_forward`, and at the f32 "wide" shapes
-(head_dim above 256) its `flash_backward` op too, is held to this
-tree's plain version (printed, not held: a variant may trade precision
-on purpose) and timed by CUDA events in turns (each tree, SDPA, then
-the same in reverse), beside `scaled_dot_product_attention` (its
-backward share: forward and backward less forward) and, with
-`--against ROOT`, the `ray_tpu_torch` of another checkout at ROOT.
+from its own sources; each tree's ptxas summary of the "wide" and the
+backward kernels is printed (registers, spills, C75xx advisories). At
+each shape of SHAPES (`--dtype`: those of one dtype) every tree's
+`flash_forward` and `flash_backward` op are held to this tree's plain
+version (printed, not held: a variant may trade precision on purpose)
+and timed by CUDA events in turns (each tree, SDPA, then the same in
+reverse), beside `scaled_dot_product_attention` (its backward share:
+forward and backward less forward) and, with `--against ROOT`, the
+`ray_tpu_torch` of another checkout at ROOT.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 kernel_ablation.py [--against ROOT] [VARIANT ...]
+    python3 kernel_ablation.py [--against ROOT] [--dtype DT] [VARIANT ...]
 
 With no VARIANT it times every one. Prints the card's name and power
 limit, then one line per shape and op: each tree's min / max over its
@@ -113,6 +113,63 @@ VARIANTS = {
         [("flash_bwd_any.cu",
           "      load_slice(smem + (nx & 1) * STAGE, s_stats",
           "      if (nx < ns) load_slice(smem + (nx & 1) * STAGE, s_stats")]),
+    "any_f32_nt4": (
+        "the f32 backward up to head_dim 256 with 32 columns a warp, as "
+        "above 256 (the route before its warps shared a narrow chunk)",
+        [("flash_bwd_any.cu",
+          "  auto fn = cw <= 8 * WARPS       ? launch_nt<1>\n"
+          "            : cw <= 16 * WARPS    ? launch_nt<2>\n"
+          "                                  : launch_nt<4>;",
+          "  auto fn = launch_nt<4>;")]),
+    "wide16_s_pipelined": (
+        "the 16-bit wide backward issues each box's S^T / dP^T products "
+        "before waiting for the last box's",
+        [("flash_bwd_any.cu",
+          "      wgmma_commit();\n"
+          "      wgmma_wait<0>();\n"
+          "      fence_operands(st);\n"
+          "      if (tid == 0) mbar_arrive(&empty[s]);\n"
+          "      if (++s == STAGES) {\n"
+          "        s = 0;\n"
+          "        phase ^= 1;\n"
+          "      }\n"
+          "    }\n",
+          "      wgmma_commit();\n"
+          "      if (h > 0) {\n"
+          "        wgmma_wait<1>();\n"
+          "        if (tid == 0)\n"
+          "          mbar_arrive(&empty[(s + STAGES - 1) % STAGES]);\n"
+          "      }\n"
+          "      if (++s == STAGES) {\n"
+          "        s = 0;\n"
+          "        phase ^= 1;\n"
+          "      }\n"
+          "    }\n"
+          "    wgmma_wait<0>();\n"
+          "    fence_operands(st);\n"
+          "    if (tid == 0) mbar_arrive(&empty[(s + STAGES - 1) % STAGES]);\n")]),
+    "wide16_ring2": (
+        "the 16-bit wide backward's ring of box columns in 2 stages, not 3",
+        [("flash_bwd_any.cu",
+          "constexpr int STAGES = 3;               // the ring of box columns",
+          "constexpr int STAGES = 2;               // the ring of box columns")]),
+    "wide16_dq_whole": (
+        "the 16-bit wide backward makes dQ_tile over both of a "
+        "warpgroup's boxes in one product (64 registers a thread)",
+        [("flash_bwd_any.cu", "    wg::tile_grads<T, MYB, W, NA, true>(",
+          "    wg::tile_grads<T, MYB, W, NA, false>(")]),
+    "wide16_no_dq": (
+        "the 16-bit wide backward without dQ's reductions into dq_acc and "
+        "its second box's product (wrong dq: the time of the rest)",
+        [("flash_bwd_any.cu", "    wg::tile_grads<T, MYB, W, NA, true>(",
+          "    wg::tile_grads<T, MYB, W, NA, true, false>("),
+         ("flash_bwd_any.cu",
+          "template <typename T, int MYB, int W, int NA, bool SPLIT_DQ = false>",
+          "template <typename T, int MYB, int W, int NA, bool SPLIT_DQ = false,\n"
+          "          bool DQ = true>"),
+         ("flash_bwd_any.cu",
+          "    for (int h0 = 0; h0 < MYB; h0 += DQB) {",
+          "    for (int h0 = 0; h0 < (DQ ? MYB : 0); h0 += DQB) {")]),
     "no_split": (
         "every TF32 split skipped: hi the f32 bits as they are, lo 0 "
         "(wrong past the f32 bar: the split's share)",
@@ -147,20 +204,22 @@ def make_variant(name: str) -> str:
     return root
 
 
-def print_wide_tf32(name: str, reports) -> None:
-    """ptxas's registers, spills and C75xx advisories of the f32 "wide"
-    kernels in one tree's build reports."""
+def print_ptxas_summary(name: str, reports) -> None:
+    """ptxas's registers, spills and C75xx advisories of the "wide" kernels
+    and the backward kernels in one tree's build reports."""
     for lib, report in reports.items():
         lines = report.splitlines()
         for i, line in enumerate(lines):
-            if "wide_tf32" not in line:
+            if "wide" not in line and "flash_bwd" not in line:
                 continue
             if "C75" in line:
                 print(f"  {name} {lib}: {line.strip()[:110]}")
             elif "Compiling entry" in line:
+                kernel = line.split("'")[1] if "'" in line else line
                 for follow in lines[i + 1:i + 4]:
                     if "registers" in follow or "spill" in follow:
-                        print(f"  {name} {lib}: {follow.strip()}")
+                        print(f"  {name} {lib} {kernel[:60]}: "
+                              f"{follow.strip()}")
 
 
 def load_port(root: str, name: str):
@@ -184,6 +243,8 @@ def main() -> int:
                              "(default: all)")
     parser.add_argument("--against", metavar="ROOT",
                         help="also time the checkout at ROOT")
+    parser.add_argument("--dtype", choices=("float32", "bfloat16"),
+                        help="time only the SHAPES of this dtype")
     args = parser.parse_args()
     unknown = set(args.variants) - set(VARIANTS)
     if unknown:
@@ -215,12 +276,14 @@ def main() -> int:
         reports = list(pool.map(lambda p: p.ops._build.build(libs),
                                 ports.values()))
     for name, report in zip(ports, reports):
-        print_wide_tf32(name, report)
+        print_ptxas_summary(name, report)
     attns = {name: port.ops.attention for name, port in ports.items()}
     this = attns["this"]
     gen = torch.Generator(device="cuda").manual_seed(4)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for dt, bh, t, d in SHAPES:
+        if args.dtype and dt != args.dtype:
+            continue
         dtype = getattr(torch, dt)
         tol = (chip_smoke.F32_REL_TOL if dtype == torch.float32
                else chip_smoke.REL_TOL)
@@ -229,8 +292,8 @@ def main() -> int:
                         * 0.5).to(dtype) for _ in range(4))
         q2 = this.prescale(q, scale)
         ref, ref_lse = this.flash_forward_plain(q2, k, v, True, t)
-        # The backward op too where the f32 "wide" kernels take the shape.
-        backward = dtype == torch.float32 and d > this.MAX_HEAD_DIM
+        # The backward op at every shape.
+        backward = True
         if backward:
             ref_grads = this.flash_backward_plain(q2, k, v, ref, do, ref_lse,
                                                   scale, True, t, t)
@@ -242,14 +305,14 @@ def main() -> int:
             fns["fwd"][name] = lambda attn=attn: attn.flash_forward(
                 q2, k, v, True, t)
             if backward:
-                args = (q2, k, v, out, do, lse, scale, True, t, t)
+                bwd_args = (q2, k, v, out, do, lse, scale, True, t, t)
                 for gname, got, want in zip(("dq", "dk", "dv"),
-                                            attn.flash_backward(*args),
+                                            attn.flash_backward(*bwd_args),
                                             ref_grads):
                     chip_smoke.held(f"{name} {(dt, bh, t, d)} {gname}", got,
                                     want, rel_tol=tol)
-                fns["bwd"][name] = lambda attn=attn, args=args: (
-                    attn.flash_backward(*args))
+                fns["bwd"][name] = lambda attn=attn, bwd_args=bwd_args: (
+                    attn.flash_backward(*bwd_args))
         q4, k4, v4, do4 = (x.view(1, bh, t, d) for x in (q, k, v, do))
         fns["fwd"]["sdpa"] = lambda: sdpa(q4, k4, v4, is_causal=True,
                                           scale=scale)

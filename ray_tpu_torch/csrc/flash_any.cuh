@@ -38,12 +38,6 @@ __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half_rn(x);
 }
 
-// x rounded to T and back, as the plain version's `.to(T).float()`.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
 // Two floats rounded to T and packed into one register, `lo` in the low
 // half (the lower column of a wgmma fragment).
 template <typename T>

@@ -24,7 +24,7 @@
 // (bh 16 x 4096 x d 256, causal) the bf16 bound is 0.348 ms; the bytes
 // (q2, k, v, out, do, lse and the three gradients) 0.09 ms at 3.35 TB/s.
 //
-// Four main kernels:
+// Three main kernels, every one on the tensor cores:
 //   - bf16/f16, d <= 256 (`flash_bwd_wgmma_kernel`; hopper.cuh has the
 //     primitives and the tile layout): one block per (64-row KV tile, bh)
 //     of three warpgroups. Warpgroup 2 is the producer: one thread issues
@@ -56,21 +56,35 @@
 //     Shared memory at d 256 (226 KB of the 227 KB a block may use): K
 //     and V 64 KB, the Q2/dO ring 128 KB, P^T and dS^T 16 KB, P^T in f32
 //     16 KB, lse and delta 1 KB.
-//   - f32, d <= 256 (`flash_bwd_simt_kernel`): CUDA-core FMA, one block of
-//     256 threads per (32-row KV tile, bh); K and V stay in shared memory as
-//     f32, Q2 and dO tiles of 32 rows come in turn; eight threads share a
-//     row for S and dP (P and dS through shared memory), for dK and dV
-//     (d/8 columns each in registers) and for dQ (summed in registers,
-//     then atomicAdd). Rows padded by one float. 140 KB at d 256.
-//   - bf16/f16, d > 256 (`flash_bwd_wide_kernel`), a simple kernel (no
-//     model the repo names has such a head_dim): the f32 SIMT kernel's
-//     work split by output columns, one block per (32-row KV tile, bh,
-//     chunk of at most 256 columns). Each block forms S and dP over all of
-//     d, streaming 32-column slices of Q2, dO, K and V through shared
-//     memory in the same order in every chunk (so P and dS agree to the
-//     bit across chunks), then adds its own columns of dK, dV and dQ. 124
-//     KB of shared memory at any d.
-//   - f32, d > 256 (`flash_bwd_wide_tf32_kernel`): the same split by
+//   - bf16/f16, d > 256 (`flash_bwd_wide_wgmma_kernel`): the kernel above
+//     with the gradients split by columns, one block per (64-row KV tile,
+//     bh, chunk of at most 256 columns = 4 boxes), so that dK and dV stay
+//     64 f32 registers a consumer thread at any d. Each block forms S^T
+//     and dP^T over all of d, box by box in column order (four m64n64k16
+//     a box, one wgmma group), the same products in the same order in
+//     every chunk, so the chunks' P and dS agree to the bit. Only the
+//     chunk's own boxes stay: K's (loaded once, for S^T and dQ) and the q
+//     tile's Q2 and dO boxes (for S^T, dP^T and then dK, dV), which the
+//     producer loads straight into their places once the last tile's
+//     products have read them (an mbarrier the consumers arrive on). Every
+//     other box column (K, Q2, V, dO: 32 KB) and every V box come through
+//     a 3-stage ring; a tile's lse and delta arrive with its first box, by
+//     the tile's parity. Then each consumer warpgroup runs the d <= 256
+//     kernel's tile step (`tile_grads`: P^T and dS^T, the handovers, dV,
+//     dK and dQ_tile on its own boxes of the chunk, dq_acc in the same
+//     order), except that dQ_tile is made one box at a time (with the
+//     ring's bookkeeping live beside dK, dV and a two-box dQ_tile the
+//     consumers spilled 800 B and ptxas serialised their wgmma, C7512;
+//     2.1x slower) and that the products' shared-memory addresses come
+//     from a base made opaque at each q tile (their wgmma descriptors,
+//     held across the loop as invariants, still spilled 16 B). Blocks
+//     heaviest KV tile first across all heads, a tile's chunks side by
+//     side. 226 KB of shared memory at any d: the chunk's K, Q2 and dO
+//     96 KB, the ring 96 KB, P^T and dS^T 16 KB, P^T in f32 16 KB. S^T and
+//     dP^T are made once per chunk: at d 512, 1.4x the products of the
+//     unsplit work (the split bound 0.061 ms at bh 16 x 1024 x 512 causal,
+//     0.043 unsplit).
+//   - f32 at every d (`flash_bwd_wide_tf32_kernel`): the same split by
 //     columns, the five products in three-term TF32 (as the f32 forward)
 //     on mma.sync m16n8k8. wgmma takes TF32 only K-major from shared
 //     memory, and dV, dK and dQ contract over rows: their transposed split
@@ -86,26 +100,30 @@
 //     tensor-core chain a slice added in f32, in column order in every
 //     chunk; the chunk's columns of Q2 and dO are copied out of the ring
 //     as they pass. P^T and dS^T go through shared memory; then each warp
-//     owns 32 of the chunk's columns: dV += P^T dO_c and dK += dS^T Q2_c
-//     (one chain a q tile, in registers), and dQ_c = dS K_c (K_c's
-//     fragments held in registers) added into dq_acc by
-//     red.global.add.v4.f32 once a lane pair has swapped halves. 219 KB of
-//     shared memory, 247 registers. Bound: 0.261 ms at bh 16 x 1024 x 512
-//     causal, 0.365 counting S^T and dP^T once per chunk.
-// What still holds the wgmma kernel back: within a q tile the warpgroups
+//     owns 8 * NT of the chunk's columns (NT 4 wherever a chunk is 256
+//     wide; at d <= 128 NT 2 or 1, so that the 8 warps share the one
+//     narrow chunk: at d 32 1.48x faster than 32 columns a warp, at d 128
+//     1.03x): dV += P^T dO_c and dK += dS^T Q2_c (one chain a q tile, in
+//     registers), and dQ_c = dS K_c (K_c's fragments held in registers)
+//     added into dq_acc by red.global.add.v4.f32 once a lane pair has
+//     swapped halves. 219 KB of shared memory, 247 registers at NT 4.
+//     Bound: 0.261 ms at bh 16 x 1024 x 512 causal, 0.365 counting S^T
+//     and dP^T once per chunk; at d <= 256 one chunk: S^T and dP^T once.
+// What still holds the wgmma kernels back: within a q tile the warpgroups
 // wait on each other twice (P^T, then dS^T), so their elementwise steps
 // do not overlap the other's products; the SS products at m64n64 read
 // both operands from shared memory; dq's reductions (64 KB of L2 traffic
-// a q tile at d 256) double with the 64-row KV tile.
-// What holds the f32 "wide" kernel back: mma.sync's TF32 rate (its three
-// terms, kernel_ablation.py's bwd_one_term), 8 warps to hide the latency
-// of each fragment's load, split and products, the stream of slices
+// a q tile at d 256) double with the 64-row KV tile. The "wide" one also
+// streams every box column of K, V, Q2 and dO but its chunk's through
+// the ring again for every q tile, and waits for each box's products.
+// What holds the f32 kernel back: mma.sync's TF32 rate (its three terms,
+// kernel_ablation.py's bwd_one_term), 8 warps to hide the latency of
+// each fragment's load, split and products, the stream of slices
 // reloaded for every q tile (bwd_no_stream) and dq's reductions
-// (bwd_no_dq); S^T and dP^T are made once per 256-column chunk (1.4x the
-// products at d 512).
+// (bwd_no_dq); above d 256, S^T and dP^T are made once per 256-column
+// chunk (1.4x the products at d 512).
 #include <cmath>
 #include <cstddef>
-#include <type_traits>
 
 #include "flash_any.cuh"
 
@@ -115,146 +133,6 @@ namespace any {
 constexpr int THREADS = 256;
 
 namespace bwd {
-
-constexpr int BQ = 32;             // q rows of a tile
-constexpr int BK = 32;             // KV rows of a block
-constexpr int TPR = THREADS / 32;  // threads of one row (q or KV)
-constexpr int CPT = BK / TPR;      // S columns of a thread
-
-template <int D>
-struct Smem {
-  static constexpr int LD = D + 1;  // padded row, in floats
-  static constexpr int PLD = BK + 1;
-  static constexpr int k = 0;
-  static constexpr int v = k + BK * LD;
-  static constexpr int q = v + BK * LD;
-  static constexpr int dout = q + BQ * LD;
-  static constexpr int p = dout + BQ * LD;
-  static constexpr int ds = p + BQ * PLD;
-  static constexpr int lse = ds + BQ * PLD;
-  static constexpr int delta = lse + BQ;
-  static constexpr int bytes = (delta + BQ) * 4;
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_simt_kernel(const T* __restrict__ q2, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dq_acc, T* __restrict__ dk,
-                     T* __restrict__ dv, int t, int tk, int kv_len, int q_len,
-                     int causal) {
-  using S = Smem<D>;
-  extern __shared__ float smem[];
-  float* sk = smem + S::k;
-  float* sv = smem + S::v;
-  float* sq = smem + S::q;
-  float* sdo = smem + S::dout;
-  float* sp = smem + S::p;
-  float* sds = smem + S::ds;
-  float* slse = smem + S::lse;
-  float* sdelta = smem + S::delta;
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int j0 = blockIdx.x * BK;
-  const int a = tid / TPR;  // row of the tile this thread works on
-  const int lane = tid % TPR;
-  const size_t kv_at = (static_cast<size_t>(bh) * tk + j0) * D;
-  const size_t q_base = static_cast<size_t>(bh) * t;
-
-  for (int e = tid; e < BK * D; e += THREADS) {
-    const int s_at = (e / D) * S::LD + e % D;
-    sk[s_at] = to_f(k[kv_at + e]);
-    sv[s_at] = to_f(v[kv_at + e]);
-  }
-  float dk_acc[D / TPR];
-  float dv_acc[D / TPR];
-#pragma unroll
-  for (int i = 0; i < D / TPR; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-
-  const int i_start = (causal && j0 < kv_len) ? j0 : 0;
-  const int i_end = j0 < kv_len ? q_len : 0;
-  for (int i0 = i_start; i0 < i_end; i0 += BQ) {
-    __syncthreads();  // the last tile's Q2, dO, P and dS are read
-    const size_t q_at = (q_base + i0) * D;
-    for (int e = tid; e < BQ * D; e += THREADS) {
-      const int s_at = (e / D) * S::LD + e % D;
-      sq[s_at] = to_f(q2[q_at + e]);
-      sdo[s_at] = to_f(dout[q_at + e]);
-    }
-    if (tid < BQ) {
-      slse[tid] = lse[q_base + i0 + tid];
-      sdelta[tid] = delta[q_base + i0 + tid];
-    }
-    __syncthreads();
-
-    // S = q2 k^T and dP = do v^T on (row a, columns lane + TPR*u).
-    float s[CPT], dp[CPT];
-#pragma unroll
-    for (int u = 0; u < CPT; ++u) s[u] = dp[u] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float qv = sq[a * S::LD + c];
-      const float dov = sdo[a * S::LD + c];
-#pragma unroll
-      for (int u = 0; u < CPT; ++u) {
-        const int j = lane + TPR * u;
-        s[u] = fmaf(qv, sk[j * S::LD + c], s[u]);
-        dp[u] = fmaf(dov, sv[j * S::LD + c], dp[u]);
-      }
-    }
-    const int row = i0 + a;
-#pragma unroll
-    for (int u = 0; u < CPT; ++u) {
-      const int j = lane + TPR * u;
-      const int col = j0 + j;
-      const bool valid =
-          row < q_len && col < kv_len && !(causal && col > row);
-      const float p = valid ? exp2f(s[u] - slse[a]) : 0.f;
-      sp[a * S::PLD + j] = round_to<T>(p);
-      sds[a * S::PLD + j] = round_to<T>(p * (dp[u] - sdelta[a]));
-    }
-    __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q2 on (KV row a, columns lane + TPR*i).
-#pragma unroll 2
-    for (int i = 0; i < BQ; ++i) {
-      const float pv = sp[i * S::PLD + a];
-      const float dsv = sds[i * S::PLD + a];
-#pragma unroll
-      for (int x = 0; x < D / TPR; ++x) {
-        const int c = lane + TPR * x;
-        dv_acc[x] = fmaf(pv, sdo[i * S::LD + c], dv_acc[x]);
-        dk_acc[x] = fmaf(dsv, sq[i * S::LD + c], dk_acc[x]);
-      }
-    }
-    // dQ += dS K on (q row a, columns lane + TPR*x).
-    if (row < q_len) {
-      float dq[D / TPR];
-#pragma unroll
-      for (int x = 0; x < D / TPR; ++x) dq[x] = 0.f;
-#pragma unroll 2
-      for (int j = 0; j < BK; ++j) {
-        const float dsv = sds[a * S::PLD + j];
-#pragma unroll
-        for (int x = 0; x < D / TPR; ++x)
-          dq[x] = fmaf(dsv, sk[j * S::LD + lane + TPR * x], dq[x]);
-      }
-      float* dq_row = dq_acc + (q_base + row) * D;
-#pragma unroll
-      for (int x = 0; x < D / TPR; ++x) atomicAdd(dq_row + lane + TPR * x, dq[x]);
-    }
-  }
-
-  T* dk_row = dk + kv_at + static_cast<size_t>(a) * D;
-  T* dv_row = dv + kv_at + static_cast<size_t>(a) * D;
-#pragma unroll
-  for (int x = 0; x < D / TPR; ++x) {
-    dk_row[lane + TPR * x] = from_f<T>(dk_acc[x] * LN2);
-    dv_row[lane + TPR * x] = from_f<T>(dv_acc[x]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16/f16 at d <= 256: wgmma on a TMA ring
@@ -315,8 +193,173 @@ __device__ __forceinline__ void store_box(unsigned char* box,
   }
 }
 
-// One consumer warpgroup's loop. W 0 forms S^T and P^T, W 1 dP^T and
-// dS^T; each then adds its own boxes of dV, dK and dQ.
+// The rest of one q tile (q rows from q0) for a consumer warpgroup, once
+// its product over d is in `st`: W 0 holds S^T and makes P^T =
+// exp2(S^T - lse[q]), zero where masked; W 1 holds dP^T and makes dS^T =
+// P^T (dP^T - delta[q]) from P^T in f32, which W 0 hands over in its
+// accumulator order through `xch`. Both write theirs rounded to T into a
+// swizzled box (`pt`, `ds`). Then on this warpgroup's MYB boxes of 64
+// gradient columns, whose K, Q2 and dO rows start at k_box, q_box and
+// o_box (boxes of 64 rows, one after the other): dQ_tile = dS K, added
+// into dq_acc at `dq_dst` (box h at h * DQ_CHUNK) while dV += P^T dO and
+// dK += dS^T Q2 run; SPLIT_DQ: dQ_tile one box at a time (32 registers a
+// thread, not 64, for a caller with more of its own live), the second
+// box's product after the first's reductions. The handovers are three
+// named barriers a q tile: both warpgroups done with the last tile's P^T,
+// dS^T (BAR_FREE); P^T in place (BAR_P); dS^T in place (BAR_DS).
+template <typename T, int MYB, int W, int NA, bool SPLIT_DQ = false>
+__device__ __forceinline__ void tile_grads(
+    float (&st)[BM / 2], float (&dK)[NA * 32], float (&dV)[NA * 32],
+    unsigned char* pt, unsigned char* ds, float* xch, uint32_t k_box,
+    uint32_t q_box, uint32_t o_box, const float* lse_s, const float* delta_s,
+    float* dq_dst, int k0, int q0, int kv_len, int q_len, int causal) {
+  const int tid = threadIdx.x % WG_THREADS;
+  const int warp = tid / 32;
+  const int g = (tid % 32) >> 2;
+  const int c = tid & 3;
+  const int r0 = warp * 16 + g;  // this thread's KV rows: r0, r0 + 8
+  const uint32_t pt_tile = smem_u32(pt);
+  const uint32_t ds_tile = smem_u32(ds);
+  uint32_t fr[BM / 16][4];  // P^T (W 0) or dS^T (W 1) in T
+  if constexpr (W == 0) {
+    const bool masked = k0 + BN - 1 >= kv_len || q0 + BM > q_len ||
+                        (causal && k0 + BN - 1 > q0);
+#pragma unroll
+    for (int e = 0; e < BM / 2; ++e) {
+      const int qc = 8 * (e >> 2) + 2 * c + (e & 1);
+      float p = exp2f(st[e] - lse_s[qc]);
+      if (masked) {
+        const int kv_row = k0 + r0 + 8 * ((e >> 1) & 1);
+        const int q_row = q0 + qc;
+        if (kv_row >= kv_len || q_row >= q_len ||
+            (causal && q_row < kv_row))
+          p = 0.f;
+      }
+      st[e] = p;
+    }
+    named_barrier(BAR_FREE, CONSUMER_THREADS);
+#pragma unroll
+    for (int e = 0; e < BM / 2; ++e) xch[e * WG_THREADS] = st[e];
+#pragma unroll
+    for (int k = 0; k < BM / 16; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        fr[k][r] = pack2<T>(st[8 * k + 2 * r], st[8 * k + 2 * r + 1]);
+    store_box(pt, fr, warp, g, c);
+    fence_proxy_async();
+    named_barrier_arrive(BAR_P, CONSUMER_THREADS);
+    named_barrier(BAR_DS, CONSUMER_THREADS);
+  } else {
+    named_barrier(BAR_FREE, CONSUMER_THREADS);
+    named_barrier(BAR_P, CONSUMER_THREADS);
+#pragma unroll
+    for (int e = 0; e < BM / 2; ++e) {
+      const int qc = 8 * (e >> 2) + 2 * c + (e & 1);
+      st[e] = xch[e * WG_THREADS] * (st[e] - delta_s[qc]);
+    }
+#pragma unroll
+    for (int k = 0; k < BM / 16; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        fr[k][r] = pack2<T>(st[8 * k + 2 * r], st[8 * k + 2 * r + 1]);
+    store_box(ds, fr, warp, g, c);
+    fence_proxy_async();
+    named_barrier_arrive(BAR_DS, CONSUMER_THREADS);
+  }
+
+  // On this warpgroup's boxes: dV += P^T dO, dK += dS^T Q2 (A K-major
+  // from the P^T / dS^T box, B read transposed), and dQ_tile = dS K (A
+  // = (dS^T)^T and B = K, both read transposed; the contraction runs
+  // over the block's 64 KV rows).
+  if constexpr (MYB > 0) {
+    constexpr int DQB = SPLIT_DQ ? 1 : MYB;  // boxes of one dQ product
+    float dq[DQB * 32];
+    fence_operands(dV);
+    fence_operands(dK);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BN / 16; ++k)
+      wgmma_ss<1, 1, T>(dq, mnmajor_desc(ds_tile, BN, k),
+                        mnmajor_desc(k_box, BN, k), k > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < BM / 16; ++k)
+      wgmma_ss<0, 1, T>(dV, kmajor_desc(pt_tile, BN, k),
+                        mnmajor_desc(o_box, BM, k), 1);
+#pragma unroll
+    for (int k = 0; k < BM / 16; ++k)
+      wgmma_ss<0, 1, T>(dK, kmajor_desc(ds_tile, BN, k),
+                        mnmajor_desc(q_box, BM, k), 1);
+    wgmma_commit();
+    // dQ_tile is done (its group was committed first): added into dq_acc
+    // while dV's and dK's products run. dq_acc is in the accumulator's
+    // register order: float4 r of thread tid at (r * 128 + tid) * 4 of the
+    // (bh, q tile, box) chunk, so each warp's reduction covers 512
+    // contiguous bytes.
+    wgmma_wait<1>();
+#pragma unroll
+    for (int h0 = 0; h0 < MYB; h0 += DQB) {
+      if (h0 > 0) {  // SPLIT_DQ: the next box's dQ_tile
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BN / 16; ++k)
+          wgmma_ss<1, 1, T>(
+              dq, mnmajor_desc(ds_tile, BN, k),
+              mnmajor_desc(k_box + h0 * BN * BOX_ROW_BYTES, BN, k), k > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+      fence_operands(dq);
+#pragma unroll
+      for (int h = 0; h < DQB; ++h) {
+        float* dst = dq_dst + (h0 + h) * DQ_CHUNK + tid * 4;
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          red_add_v4(dst + r * WG_THREADS * 4, dq[32 * h + 4 * r],
+                     dq[32 * h + 4 * r + 1], dq[32 * h + 4 * r + 2],
+                     dq[32 * h + 4 * r + 3]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(dV);
+    fence_operands(dK);
+  }
+}
+
+// dk = dK * ln2 and dv = dV in T on this warpgroup's MYB boxes of
+// columns from col0 (the true columns, below d) of the block's 64 KV rows
+// from k0.
+template <typename T, int MYB, int NA>
+__device__ __forceinline__ void store_grads(const float (&dK)[NA * 32],
+                                            const float (&dV)[NA * 32],
+                                            T* __restrict__ dk,
+                                            T* __restrict__ dv, int bh,
+                                            int tk, int d, int k0, int col0) {
+  const int tid = threadIdx.x % WG_THREADS;
+  const int r0 = (tid / 32) * 16 + ((tid % 32) >> 2);
+  const size_t base =
+      (static_cast<size_t>(bh) * tk + k0 + r0) * d + 2 * (tid & 3);
+#pragma unroll
+  for (int h = 0; h < MYB; ++h) {
+#pragma unroll
+    for (int nt = 0; nt < BOX_COLS / 8; ++nt) {
+      const int col = col0 + h * BOX_COLS + 8 * nt;  // + 2c, in one box
+      if (col >= d) continue;
+      *reinterpret_cast<uint32_t*>(dk + base + col) =
+          pack2<T>(dK[32 * h + 4 * nt] * LN2, dK[32 * h + 4 * nt + 1] * LN2);
+      *reinterpret_cast<uint32_t*>(dv + base + col) =
+          pack2<T>(dV[32 * h + 4 * nt], dV[32 * h + 4 * nt + 1]);
+      *reinterpret_cast<uint32_t*>(dk + base + 8 * d + col) =
+          pack2<T>(dK[32 * h + 4 * nt + 2] * LN2, dK[32 * h + 4 * nt + 3] * LN2);
+      *reinterpret_cast<uint32_t*>(dv + base + 8 * d + col) =
+          pack2<T>(dV[32 * h + 4 * nt + 2], dV[32 * h + 4 * nt + 3]);
+    }
+  }
+}
+
+// One consumer warpgroup's loop. W 0 forms S^T, W 1 dP^T, each over all
+// of d from the resident K or V and the ring's Q2 or dO tile; then
+// `tile_grads` on its own boxes of dK, dV and dQ.
 template <typename T, int D, int W>
 __device__ __forceinline__ void consumer(
     unsigned char* smem, uint64_t* kv_full, uint64_t* full, uint64_t* empty,
@@ -330,20 +373,14 @@ __device__ __forceinline__ void consumer(
   constexpr int BOX0 = W == 0 ? 0 : NB0;
   constexpr int NA = MYB > 0 ? MYB : 1;
   const int tid = threadIdx.x % WG_THREADS;
-  const int warp = tid / 32;
-  const int g = (tid % 32) >> 2;
-  const int c = tid & 3;
-  const int r0 = warp * 16 + g;  // this thread's KV rows: r0, r0 + 8
   const uint32_t k_tile = smem_u32(smem + S::k_off);
   const uint32_t v_tile = smem_u32(smem + S::v_off);
-  const uint32_t pt_tile = smem_u32(smem + S::pt_off);
-  const uint32_t ds_tile = smem_u32(smem + S::ds_off);
   float* xch = reinterpret_cast<float*>(smem + S::x_off) + tid;
   const float* s_lse = reinterpret_cast<const float*>(smem + S::lse_off);
   const float* s_delta = reinterpret_cast<const float*>(smem + S::delta_off);
   const int n_qt = t / BM;
 
-  // dK, dV and dQ_tile over this warpgroup's boxes: one m64n{64 * MYB}
+  // dK and dV over this warpgroup's boxes: one m64n{64 * MYB}
   // accumulator each, box h's 32 registers at [32h, 32h + 32).
   float dK[NA * 32], dV[NA * 32];
 #pragma unroll
@@ -355,8 +392,6 @@ __device__ __forceinline__ void consumer(
     const int s = n % STAGES;
     const uint32_t q_tile = smem_u32(smem + S::q_off + s * S::q_bytes);
     const uint32_t o_tile = smem_u32(smem + S::o_off + s * S::q_bytes);
-    const float* lse_s = s_lse + s * BM;
-    const float* delta_s = s_delta + s * BM;
     mbar_wait(&full[s], (n / STAGES) & 1);
 
     // W 0: S^T = K Q2^T; W 1: dP^T = V dO^T. [64 kv, 64 q] each.
@@ -370,127 +405,15 @@ __device__ __forceinline__ void consumer(
     wgmma_wait<0>();
     fence_operands(st);
 
-    uint32_t fr[BM / 16][4];  // P^T (W 0) or dS^T (W 1) in T
-    if constexpr (W == 0) {
-      // P^T = exp2(S^T - lse[q]), zero where masked.
-      const int q0 = i * BM;
-      const bool masked = k0 + BN - 1 >= kv_len || q0 + BM > q_len ||
-                          (causal && k0 + BN - 1 > q0);
-#pragma unroll
-      for (int e = 0; e < BM / 2; ++e) {
-        const int qc = 8 * (e >> 2) + 2 * c + (e & 1);
-        float p = exp2f(st[e] - lse_s[qc]);
-        if (masked) {
-          const int kv_row = k0 + r0 + 8 * ((e >> 1) & 1);
-          const int q_row = q0 + qc;
-          if (kv_row >= kv_len || q_row >= q_len ||
-              (causal && q_row < kv_row))
-            p = 0.f;
-        }
-        st[e] = p;
-      }
-      named_barrier(BAR_FREE, CONSUMER_THREADS);
-#pragma unroll
-      for (int e = 0; e < BM / 2; ++e) xch[e * WG_THREADS] = st[e];
-#pragma unroll
-      for (int k = 0; k < BM / 16; ++k)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          fr[k][r] = pack2<T>(st[8 * k + 2 * r], st[8 * k + 2 * r + 1]);
-      store_box(smem + S::pt_off, fr, warp, g, c);
-      fence_proxy_async();
-      named_barrier_arrive(BAR_P, CONSUMER_THREADS);
-      named_barrier(BAR_DS, CONSUMER_THREADS);
-    } else {
-      // dS^T = P^T * (dP^T - delta[q]), P^T from warpgroup 0's thread
-      // of the same rank (the same accumulator element).
-      named_barrier(BAR_FREE, CONSUMER_THREADS);
-      named_barrier(BAR_P, CONSUMER_THREADS);
-#pragma unroll
-      for (int e = 0; e < BM / 2; ++e) {
-        const int qc = 8 * (e >> 2) + 2 * c + (e & 1);
-        st[e] = xch[e * WG_THREADS] * (st[e] - delta_s[qc]);
-      }
-#pragma unroll
-      for (int k = 0; k < BM / 16; ++k)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          fr[k][r] = pack2<T>(st[8 * k + 2 * r], st[8 * k + 2 * r + 1]);
-      store_box(smem + S::ds_off, fr, warp, g, c);
-      fence_proxy_async();
-      named_barrier_arrive(BAR_DS, CONSUMER_THREADS);
-    }
-
-    // On this warpgroup's boxes: dV += P^T dO, dK += dS^T Q2 (A K-major
-    // from the P^T / dS^T box, B read transposed), and dQ_tile = dS K (A
-    // = (dS^T)^T and B = K, both read transposed; the contraction runs
-    // over the block's 64 KV rows).
-    float dq[NA * 32];
-    if constexpr (MYB > 0) {
-      fence_operands(dV);
-      fence_operands(dK);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < BN / 16; ++k)
-        wgmma_ss<1, 1, T>(
-            dq, mnmajor_desc(ds_tile, BN, k),
-            mnmajor_desc(k_tile + BOX0 * BN * BOX_ROW_BYTES, BN, k), k > 0);
-      wgmma_commit();
-#pragma unroll
-      for (int k = 0; k < BM / 16; ++k)
-        wgmma_ss<0, 1, T>(
-            dV, kmajor_desc(pt_tile, BN, k),
-            mnmajor_desc(o_tile + BOX0 * BM * BOX_ROW_BYTES, BM, k), 1);
-#pragma unroll
-      for (int k = 0; k < BM / 16; ++k)
-        wgmma_ss<0, 1, T>(
-            dK, kmajor_desc(ds_tile, BN, k),
-            mnmajor_desc(q_tile + BOX0 * BM * BOX_ROW_BYTES, BM, k), 1);
-      wgmma_commit();
-      // dQ_tile is done (its group was committed first): added into
-      // dq_acc while dV's and dK's products run. dq_acc is in the
-      // accumulator's register order: float4 r of thread tid at (r * 128
-      // + tid) * 4 of the (bh, q tile, box) chunk, so each warp's
-      // reduction covers 512 contiguous bytes.
-      wgmma_wait<1>();
-      fence_operands(dq);
-#pragma unroll
-      for (int h = 0; h < MYB; ++h) {
-        float* dst = dq_acc +
-                     ((static_cast<size_t>(bh) * n_qt + i) * NB + BOX0 + h) *
-                         DQ_CHUNK +
-                     tid * 4;
-#pragma unroll
-        for (int r = 0; r < 8; ++r)
-          red_add_v4(dst + r * WG_THREADS * 4, dq[32 * h + 4 * r],
-                     dq[32 * h + 4 * r + 1], dq[32 * h + 4 * r + 2],
-                     dq[32 * h + 4 * r + 3]);
-      }
-      wgmma_wait<0>();
-      fence_operands(dV);
-      fence_operands(dK);
-    }
+    tile_grads<T, MYB, W, NA>(
+        st, dK, dV, smem + S::pt_off, smem + S::ds_off, xch,
+        k_tile + BOX0 * BN * BOX_ROW_BYTES, q_tile + BOX0 * BM * BOX_ROW_BYTES,
+        o_tile + BOX0 * BM * BOX_ROW_BYTES, s_lse + s * BM, s_delta + s * BM,
+        dq_acc + ((static_cast<size_t>(bh) * n_qt + i) * NB + BOX0) * DQ_CHUNK,
+        k0, i * BM, kv_len, q_len, causal);
     if (tid == 0) mbar_arrive(&empty[s]);
   }
-
-  // dk = dK * ln2, dv = dV, on this warpgroup's true columns.
-  const size_t base = (static_cast<size_t>(bh) * tk + k0 + r0) * d + 2 * c;
-#pragma unroll
-  for (int h = 0; h < MYB; ++h) {
-#pragma unroll
-    for (int nt = 0; nt < BOX_COLS / 8; ++nt) {
-      const int col = (BOX0 + h) * BOX_COLS + 8 * nt;  // + 2c, in one box
-      if (col >= d) continue;
-      *reinterpret_cast<uint32_t*>(dk + base + col) =
-          pack2<T>(dK[32 * h + 4 * nt] * LN2, dK[32 * h + 4 * nt + 1] * LN2);
-      *reinterpret_cast<uint32_t*>(dv + base + col) =
-          pack2<T>(dV[32 * h + 4 * nt], dV[32 * h + 4 * nt + 1]);
-      *reinterpret_cast<uint32_t*>(dk + base + 8 * d + col) =
-          pack2<T>(dK[32 * h + 4 * nt + 2] * LN2, dK[32 * h + 4 * nt + 3] * LN2);
-      *reinterpret_cast<uint32_t*>(dv + base + 8 * d + col) =
-          pack2<T>(dV[32 * h + 4 * nt + 2], dV[32 * h + 4 * nt + 3]);
-    }
-  }
+  store_grads<T, MYB, NA>(dK, dV, dk, dv, bh, tk, d, k0, BOX0 * BOX_COLS);
 }
 
 template <typename T, int D>
@@ -658,172 +581,242 @@ flash_bwd_any_dq_ordered_kernel(const float* __restrict__ dq_acc,
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// every dtype at d > 256: the gradients split by columns
+// bf16/f16 at d > 256: wgmma on a TMA ring, the gradients split by columns
 // ---------------------------------------------------------------------------
 
-namespace wide {
+namespace wide_wg {
 
-constexpr int BK = 32;              // KV rows of a block
-constexpr int BQ = 32;              // q rows of a tile
-constexpr int SL = 32;              // columns of a slice of Q2, dO, K, V
-constexpr int DC = 256;             // gradient columns of a block (a chunk)
-constexpr int TPR = THREADS / 32;   // threads of one row (q or KV)
-constexpr int CPT = BK / TPR;       // S columns of a thread
-constexpr int LDC = DC + 1;         // padded rows, in floats
-constexpr int LDS = SL + 1;
-constexpr int PLD = BK + 1;
-constexpr int SKC = 0;                     // K's chunk [BK][LDC]
-constexpr int SQC = SKC + BK * LDC;        // Q2's chunk [BQ][LDC]
-constexpr int SDOC = SQC + BQ * LDC;       // dO's chunk [BQ][LDC]
-constexpr int SQS = SDOC + BQ * LDC;       // slices [32][LDS]: Q2, K, dO, V
-constexpr int SKS = SQS + BQ * LDS;
-constexpr int SDOS = SKS + BK * LDS;
-constexpr int SVS = SDOS + BQ * LDS;
-constexpr int SP = SVS + BK * LDS;         // P and dS [BQ][PLD]
-constexpr int SDS = SP + BQ * PLD;
-constexpr int SLSE = SDS + BQ * PLD;
-constexpr int SDELTA = SLSE + BQ;
-constexpr int BYTES = (SDELTA + BQ) * 4;
+using wg::BM;
+using wg::BN;
+using wg::CONSUMERS;
+using wg::DQ_CHUNK;
+using wg::THREADS;
 
-// bf16 and f16 only: f32 runs on flash_bwd_wide_tf32_kernel.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_wide_kernel(const T* __restrict__ q2, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      float* __restrict__ dq_acc, T* __restrict__ dk,
-                      T* __restrict__ dv, int t, int tk, int d, int kv_len,
-                      int q_len, int causal) {
-  static_assert(!std::is_same<T, float>::value,
-                "f32 runs on flash_bwd_wide_tf32_kernel");
-  extern __shared__ float smem[];
-  float* skc = smem + SKC;
-  float* sqc = smem + SQC;
-  float* sdoc = smem + SDOC;
-  float* sqs = smem + SQS;
-  float* sks = smem + SKS;
-  float* sdos = smem + SDOS;
-  float* svs = smem + SVS;
-  float* sp = smem + SP;
-  float* sds = smem + SDS;
-  float* slse = smem + SLSE;
-  float* sdelta = smem + SDELTA;
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int j0 = blockIdx.x * BK;
-  const int c0 = blockIdx.z * DC;        // this block's gradient columns:
-  const int cw = min(DC, d - c0);        // [c0, c0 + cw)
-  const int a = tid / TPR;  // row of the tile this thread works on
-  const int lane = tid % TPR;
-  const size_t kv_at = (static_cast<size_t>(bh) * tk + j0) * d;
-  const size_t q_base = static_cast<size_t>(bh) * t;
+constexpr int DC = 256;                 // gradient columns of a block
+constexpr int NCB = DC / BOX_COLS;      // boxes of a whole chunk
+constexpr int STAGES = 3;               // the ring of box columns
+constexpr int BOX = BM * BOX_ROW_BYTES;  // 8 KB: 64 rows of one box
+static_assert(BM == BN, "K, V, Q2 and dO boxes share one size");
+// Shared memory: the chunk's boxes of K, Q2 and dO ([NCB] each), a ring
+// of STAGES stages of one box column each (K, Q2, V, dO), P^T and dS^T
+// in T, P^T in f32, the lse and delta of two q tiles, the barriers:
+// 231,552 bytes with the alignment slack, of the 232,448 a block may use.
+constexpr int KC_OFF = 0;
+constexpr int QC_OFF = KC_OFF + NCB * BOX;
+constexpr int OC_OFF = QC_OFF + NCB * BOX;
+constexpr int RING_OFF = OC_OFF + NCB * BOX;
+constexpr int STAGE = 4 * BOX;          // K, Q2, V, dO at 0, 1, 2, 3 boxes
+constexpr int PT_OFF = RING_OFF + STAGES * STAGE;
+constexpr int DS_OFF = PT_OFF + BN * BM * 2;
+constexpr int X_OFF = DS_OFF + BN * BM * 2;
+constexpr int STATS_OFF = X_OFF + BN * BM * 4;  // [2 tiles][lse, delta][BM]
+constexpr int BAR_OFF = STATS_OFF + 2 * 2 * BM * 4;
+constexpr int BYTES = BAR_OFF + 128 + 1024;     // + alignment slack
 
-  for (int e = tid; e < BK * cw; e += THREADS)
-    skc[(e / cw) * LDC + e % cw] =
-        to_f(k[kv_at + static_cast<size_t>(e / cw) * d + c0 + e % cw]);
-  float dk_acc[DC / TPR], dv_acc[DC / TPR];
-#pragma unroll
-  for (int x = 0; x < DC / TPR; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+// One consumer warpgroup's loop over the q tiles, for a chunk of NC boxes
+// (its first box hc0 of the row's nb). W 0 forms S^T = K Q2^T, W 1 dP^T
+// = V dO^T, each over all nb boxes in column order (the chunk's own K,
+// Q2 and dO boxes from where they stay, the others from the ring), one
+// wgmma group a box; then `tile_grads` on its own boxes of the chunk.
+template <typename T, int NC, int W>
+__device__ __forceinline__ void consumer(
+    unsigned char* smem, float* __restrict__ dq_acc, T* __restrict__ dk,
+    T* __restrict__ dv, int bh, int t, int tk, int d, int nb, int hc0,
+    int k0, int i0, int i1, int kv_len, int q_len, int causal) {
+  constexpr int NC0 = (NC + 1) / 2;
+  constexpr int MYB = W == 0 ? NC0 : NC - NC0;  // this warpgroup's boxes
+  constexpr int BOX0 = W == 0 ? 0 : NC0;
+  constexpr int NA = MYB > 0 ? MYB : 1;
+  const int tid = threadIdx.x % WG_THREADS;
+  // dq_acc's (bh, q tile, box) chunks of this warpgroup's first box: q
+  // tile i's at i * nb chunks further.
+  float* dq_blk =
+      dq_acc + (static_cast<size_t>(bh) * (t / BM) * nb + hc0 + BOX0) *
+                   DQ_CHUNK;
 
-  const int i_start = (causal && j0 < kv_len) ? j0 : 0;
-  const int i_end = j0 < kv_len ? q_len : 0;
-  for (int i0 = i_start; i0 < i_end; i0 += BQ) {
-    const size_t q_at = (q_base + i0) * d;
-    // S = q2 k^T and dP = do v^T on (row a, columns lane + TPR*u), over
-    // all of d in slices, in the same order in every chunk.
-    float s[CPT], dp[CPT];
+  float dK[NA * 32], dV[NA * 32];
 #pragma unroll
-    for (int u = 0; u < CPT; ++u) s[u] = dp[u] = 0.f;
-    for (int d0 = 0; d0 < d; d0 += SL) {
-      __syncthreads();  // the last slice (and the last tile's chunks) read
-      for (int e = tid; e < BQ * SL; e += THREADS) {
-        const int at = (e / SL) * LDS + e % SL;
-        const size_t qe = q_at + static_cast<size_t>(e / SL) * d + d0 + e % SL;
-        const size_t ke = kv_at + static_cast<size_t>(e / SL) * d + d0 + e % SL;
-        sqs[at] = to_f(q2[qe]);
-        sdos[at] = to_f(dout[qe]);
-        sks[at] = to_f(k[ke]);
-        svs[at] = to_f(v[ke]);
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < SL; ++c) {
-        const float qv = sqs[a * LDS + c];
-        const float dov = sdos[a * LDS + c];
-#pragma unroll
-        for (int u = 0; u < CPT; ++u) {
-          const int j = lane + TPR * u;
-          s[u] = fmaf(qv, sks[j * LDS + c], s[u]);
-          dp[u] = fmaf(dov, svs[j * LDS + c], dp[u]);
-        }
-      }
-    }
-    // This chunk's columns of Q2 and dO, and the tile's lse and delta.
-    for (int e = tid; e < BQ * cw; e += THREADS) {
-      const size_t qe = q_at + static_cast<size_t>(e / cw) * d + c0 + e % cw;
-      sqc[(e / cw) * LDC + e % cw] = to_f(q2[qe]);
-      sdoc[(e / cw) * LDC + e % cw] = to_f(dout[qe]);
-    }
-    if (tid < BQ) {
-      slse[tid] = lse[q_base + i0 + tid];
-      sdelta[tid] = delta[q_base + i0 + tid];
-    }
-    __syncthreads();
-    const int row = i0 + a;
-#pragma unroll
-    for (int u = 0; u < CPT; ++u) {
-      const int j = lane + TPR * u;
-      const int col = j0 + j;
-      const bool valid =
-          row < q_len && col < kv_len && !(causal && col > row);
-      const float p = valid ? exp2f(s[u] - slse[a]) : 0.f;
-      sp[a * PLD + j] = round_to<T>(p);
-      sds[a * PLD + j] = round_to<T>(p * (dp[u] - sdelta[a]));
-    }
-    __syncthreads();
+  for (int i = 0; i < NA * 32; ++i) dK[i] = dV[i] = 0.f;
 
-    // dV += P^T dO and dK += dS^T Q2 on (KV row a, columns lane + TPR*x).
-#pragma unroll 2
-    for (int i = 0; i < BQ; ++i) {
-      const float pv = sp[i * PLD + a];
-      const float dsv = sds[i * PLD + a];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* full = bars + 2;
+  uint64_t* empty = full + STAGES;
+  const uint32_t kc = smem_u32(smem + KC_OFF);
+  const uint32_t qc = smem_u32(smem + QC_OFF);
+  const uint32_t oc = smem_u32(smem + OC_OFF);
+  const uint32_t ring = smem_u32(smem + RING_OFF);
+  const float* stats = reinterpret_cast<const float*>(smem + STATS_OFF);
+  if (i0 < i1) mbar_wait(bars, 0);
+  int s = 0;  // the ring's stage, and its phase, counted
+  uint32_t phase = 0;
+  for (int i = i0; i < i1; ++i) {
+    // The products' shared-memory addresses from a base the compiler
+    // cannot see through at each q tile: it then forms their wgmma
+    // descriptors where they are used, instead of holding the
+    // loop-invariant ones (64 bits each) beside dK and dV, which spilled.
+    unsigned char* sm = smem;
+    asm volatile("" : "+l"(sm));
+    const float* lse_s = stats + ((i - i0) & 1) * 2 * BM;
+    float st[BM / 2];
+    for (int h = 0; h < nb; ++h) {
+      const uint32_t stage = ring + s * STAGE;
+      const int hc = h - hc0;
+      const bool own = hc >= 0 && hc < NC;  // a box of this chunk
+      const uint32_t a_box = W == 0 ? (own ? kc + hc * BOX : stage)
+                                    : stage + 2 * BOX;
+      const uint32_t b_box = own ? (W == 0 ? qc : oc) + hc * BOX
+                                 : stage + (W == 0 ? 1 : 3) * BOX;
+      mbar_wait(&full[s], phase);
+      wgmma_fence();
 #pragma unroll
-      for (int x = 0; x < DC / TPR; ++x) {
-        const int cc = lane + TPR * x;
-        if (cc < cw) {
-          dv_acc[x] = fmaf(pv, sdoc[i * LDC + cc], dv_acc[x]);
-          dk_acc[x] = fmaf(dsv, sqc[i * LDC + cc], dk_acc[x]);
-        }
+      for (int k = 0; k < BOX_COLS / 16; ++k)
+        wgmma_ss<0, 0, T>(st, kmajor_desc(a_box, BN, k),
+                          kmajor_desc(b_box, BM, k), h > 0 || k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(st);
+      if (tid == 0) mbar_arrive(&empty[s]);
+      if (++s == STAGES) {
+        s = 0;
+        phase ^= 1;
       }
     }
-    // dQ += dS K on (q row a, columns lane + TPR*x).
-    if (row < q_len) {
-      float dq[DC / TPR];
-#pragma unroll
-      for (int x = 0; x < DC / TPR; ++x) dq[x] = 0.f;
-#pragma unroll 2
-      for (int j = 0; j < BK; ++j) {
-        const float dsv = sds[a * PLD + j];
-#pragma unroll
-        for (int x = 0; x < DC / TPR; ++x)
-          dq[x] = fmaf(dsv, skc[j * LDC + lane + TPR * x], dq[x]);
-      }
-      float* dq_row = dq_acc + (q_base + row) * d + c0;
-#pragma unroll
-      for (int x = 0; x < DC / TPR; ++x)
-        if (lane + TPR * x < cw) atomicAdd(dq_row + lane + TPR * x, dq[x]);
-    }
+
+    wg::tile_grads<T, MYB, W, NA, true>(
+        st, dK, dV, sm + PT_OFF, sm + DS_OFF,
+        reinterpret_cast<float*>(sm + X_OFF) + tid,
+        smem_u32(sm + KC_OFF) + BOX0 * BOX, smem_u32(sm + QC_OFF) + BOX0 * BOX,
+        smem_u32(sm + OC_OFF) + BOX0 * BOX, lse_s, lse_s + BM,
+        dq_blk + static_cast<size_t>(i) * nb * DQ_CHUNK, k0, i * BM, kv_len,
+        q_len, causal);
+    if (tid == 0) mbar_arrive(bars + 1);  // Q2's and dO's chunk read
   }
+  wg::store_grads<T, MYB, NA>(dK, dV, dk, dv, bh, tk, d, k0,
+                              (hc0 + BOX0) * BOX_COLS);
+}
 
-  T* dk_row = dk + kv_at + static_cast<size_t>(a) * d + c0;
-  T* dv_row = dv + kv_at + static_cast<size_t>(a) * d + c0;
-#pragma unroll
-  for (int x = 0; x < DC / TPR; ++x) {
-    if (lane + TPR * x < cw) {
-      dk_row[lane + TPR * x] = from_f<T>(dk_acc[x] * LN2);
-      dv_row[lane + TPR * x] = from_f<T>(dv_acc[x]);
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq_acc, T* __restrict__ dk,
+                            T* __restrict__ dv, int t, int tk, int d,
+                            int kv_len, int q_len, int causal) {
+  extern __shared__ unsigned char smem_wide_bwd[];
+  unsigned char* smem = align_1024(smem_wide_bwd);
+  float* stats = reinterpret_cast<float*>(smem + STATS_OFF);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* kc_full = bars;
+  uint64_t* chunk_empty = bars + 1;
+  uint64_t* full = bars + 2;
+  uint64_t* empty = full + STAGES;
+
+  // Blocks in linear order: a KV tile's chunks side by side (they stream
+  // the same boxes), the KV tiles heaviest first (the causal diagonal's)
+  // across all heads.
+  const int lin =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int rest = lin / gridDim.z;
+  const int bh = rest % gridDim.y;
+  const int k0 = rest / gridDim.y * BN;
+  const int nb = (d + BOX_COLS - 1) / BOX_COLS;  // 64-column boxes of a row
+  const int hc0 = lin % gridDim.z * NCB;         // this chunk's first box
+  const int nc = min(NCB, nb - hc0);             // and its boxes (1-4)
+  const int n_q = (q_len + BM - 1) / BM;
+  // q tiles [i0, i1): from the causal start; none for a KV tile wholly
+  // past kv_len.
+  const int i0 = causal ? k0 / BM : 0;
+  const int i1 = k0 < kv_len ? n_q : i0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kc_full, 1);
+    mbar_init(chunk_empty, CONSUMERS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread issues every TMA load ----------------------
+    setmaxnreg_dec<24>();
+    // It runs on 24 registers: the stage and its phase are counted, not
+    // divided out.
+    if (threadIdx.x % WG_THREADS == 0 && i0 < i1) {
+      mbar_arrive_expect_tx(kc_full, nc * BOX);
+      for (int h = 0; h < nc; ++h)
+        tma_load_3d(smem + KC_OFF + h * BOX, &tm_k, kc_full,
+                    (hc0 + h) * BOX_COLS, k0, bh);
+      const float* lse_row = lse + static_cast<size_t>(bh) * t;
+      const float* delta_row = delta + static_cast<size_t>(bh) * t;
+      int s = 0;
+      uint32_t phase = 0;
+      for (int i = i0; i < i1; ++i) {
+        for (int h = 0; h < nb; ++h) {
+          const int hc = h - hc0;
+          const bool own =
+              static_cast<unsigned>(hc) < static_cast<unsigned>(nc);
+          unsigned char* stage = smem + RING_OFF + s * STAGE;
+          mbar_wait(&empty[s], phase ^ 1);
+          mbar_arrive_expect_tx(&full[s], (own ? 3 : 4) * BOX +
+                                              (h == 0 ? 2 * BM * 4 : 0));
+          tma_load_3d(stage + 2 * BOX, &tm_v, &full[s], h * BOX_COLS, k0, bh);
+          if (own) {
+            // The chunk's Q2 and dO boxes of the last q tile are read
+            // until its dK and dV products are done.
+            if (hc == 0) mbar_wait(chunk_empty, ((i - i0) & 1) ^ 1);
+            tma_load_3d(smem + QC_OFF + hc * BOX, &tm_q, &full[s],
+                        h * BOX_COLS, i * BM, bh);
+            tma_load_3d(smem + OC_OFF + hc * BOX, &tm_do, &full[s],
+                        h * BOX_COLS, i * BM, bh);
+          } else {
+            tma_load_3d(stage, &tm_k, &full[s], h * BOX_COLS, k0, bh);
+            tma_load_3d(stage + BOX, &tm_q, &full[s], h * BOX_COLS, i * BM,
+                        bh);
+            tma_load_3d(stage + 3 * BOX, &tm_do, &full[s], h * BOX_COLS,
+                        i * BM, bh);
+          }
+          if (h == 0) {
+            // The tile's lse and delta, by its parity: the ring is
+            // shallower than a tile's boxes, so the tile two back is done
+            // with its own.
+            float* st = stats + ((i - i0) & 1) * 2 * BM;
+            bulk_load(st, lse_row + i * BM, BM * 4, &full[s]);
+            bulk_load(st + BM, delta_row + i * BM, BM * 4, &full[s]);
+          }
+          if (++s == STAGES) {
+            s = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers ---------------------------------------------------
+    setmaxnreg_inc<240>();
+#define RTT_BWD_WIDE_CONSUME(NC)                                          \
+  case NC:                                                                \
+    if (wg == 0)                                                          \
+      consumer<T, NC, 0>(smem, dq_acc, dk, dv, bh, t, tk, d, nb, hc0, k0, \
+                         i0, i1, kv_len, q_len, causal);                  \
+    else                                                                  \
+      consumer<T, NC, 1>(smem, dq_acc, dk, dv, bh, t, tk, d, nb, hc0, k0, \
+                         i0, i1, kv_len, q_len, causal);                  \
+    break;
+    switch (nc) {
+      RTT_BWD_WIDE_CONSUME(1)
+      RTT_BWD_WIDE_CONSUME(2)
+      RTT_BWD_WIDE_CONSUME(3)
+      RTT_BWD_WIDE_CONSUME(4)
+    }
+#undef RTT_BWD_WIDE_CONSUME
   }
 }
 
@@ -833,21 +826,30 @@ static cudaError_t launch(const void* q2, const void* k, const void* v,
                           void* dq_acc, void* dk, void* dv, int bh, int t,
                           int tk, int d, int kv_len, int q_len, int causal,
                           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      BYTES);
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  cudaError_t err = make_tile_map(&tm_q, q2, d, t, bh, BM, tma_type<T>());
+  if (err == cudaSuccess)
+    err = make_tile_map(&tm_do, dout, d, t, bh, BM, tma_type<T>());
+  if (err == cudaSuccess)
+    err = make_tile_map(&tm_k, k, d, tk, bh, BN, tma_type<T>());
+  if (err == cudaSuccess)
+    err = make_tile_map(&tm_v, v, d, tk, bh, BN, tma_type<T>());
   if (err != cudaSuccess) return err;
-  dim3 grid(tk / BK, bh, (d + DC - 1) / DC);
-  flash_bwd_wide_kernel<T><<<grid, THREADS, BYTES, stream>>>(
-      static_cast<const T*>(q2), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq_acc), static_cast<T*>(dk), static_cast<T*>(dv),
-      t, tk, d, kv_len, q_len, causal);
+  err = cudaFuncSetAttribute(flash_bwd_wide_wgmma_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             BYTES);
+  if (err != cudaSuccess) return err;
+  const int nb = (d + BOX_COLS - 1) / BOX_COLS;
+  dim3 grid(tk / BN, bh, (nb + NCB - 1) / NCB);
+  flash_bwd_wide_wgmma_kernel<T><<<grid, THREADS, BYTES, stream>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq_acc),
+      static_cast<T*>(dk), static_cast<T*>(dv), t, tk, d, kv_len, q_len,
+      causal);
   return cudaGetLastError();
 }
 
-}  // namespace wide
+}  // namespace wide_wg
 
 // ---------------------------------------------------------------------------
 // f32 at d > 256: three-term TF32 on mma.sync, the gradients split by columns
@@ -965,26 +967,31 @@ __device__ __forceinline__ void add(float (&x)[M][N][4],
   }
 }
 
-// Warp w's product over one q tile for its 32 gradient columns from n0:
-// part [2 m-tiles of KV rows][4 n-tiles] = X^T[kv][q] (tile x, K-major,
-// pitch LDP) times Y[q][n] (the chunk tile y, N-major), BQ / 8 k-steps.
+// Warp w's product over one q tile for its 8 * NT gradient columns from
+// n0: part [2 m-tiles of KV rows][NT n-tiles] = X^T[kv][q] (tile x,
+// K-major, pitch LDP) times Y[q][n] (the chunk tile y, N-major), BQ / 8
+// k-steps.
+template <int NT>
 __device__ __forceinline__ void kv_product(const float* x, const float* y,
                                            int n0, int g, int c,
-                                           float (&part)[2][4][4]) {
+                                           float (&part)[2][NT][4]) {
   zero(part);
 #pragma unroll 2
   for (int ks = 0; ks < BQ / 8; ++ks) {
-    uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
+    uint32_t a_hi[2][4], a_lo[2][4], b_hi[NT][2], b_lo[NT][2];
     frag_a(x, LDP, 0, ks, g, c, a_hi[0], a_lo[0]);
     frag_a(x, LDP, 16, ks, g, c, a_hi[1], a_lo[1]);
     const float* yr = y + (8 * ks + 2 * c) * LDC + n0 + g;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
       split_b(yr[8 * nt], yr[LDC + 8 * nt], b_hi[nt], b_lo[nt]);
     mma_tf32x3(part, a_hi, a_lo, b_hi, b_lo);
   }
 }
 
+// NT: n-tiles of 8 gradient columns a warp owns (1, 2 or 4; 4 wherever a
+// chunk is 256 columns wide), so that the 8 warps share a narrow chunk.
+template <int NT>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_wide_tf32_kernel(const float* __restrict__ q2,
                            const float* __restrict__ k,
@@ -1017,7 +1024,7 @@ flash_bwd_wide_tf32_kernel(const float* __restrict__ q2,
   const int j0 = rest / gridDim.y * BK;
   const int c0 = lin % gridDim.z * DC;  // this block's gradient columns:
   const int cw = min(DC, d - c0);       // [c0, c0 + cw)
-  const int n0 = 32 * warp;        // warp's columns of the chunk, if < cw
+  const int n0 = 8 * NT * warp;    // warp's columns of the chunk, if < cw
   const bool cols = n0 < cw;
   const size_t kv_at = (static_cast<size_t>(bh) * tk + j0) * d;
   const size_t q_base = static_cast<size_t>(bh) * t;
@@ -1025,11 +1032,11 @@ flash_bwd_wide_tf32_kernel(const float* __restrict__ q2,
   // K's chunk columns as this warp's B fragments of dQ = dS K_c: k-step ks
   // (KV rows 8ks + 2c, + 1), n-tile nt (column n0 + 8nt + g); f32, split
   // at each use.
-  float kc[BK / 8][4][2];
+  float kc[BK / 8][NT][2];
 #pragma unroll
   for (int ks = 0; ks < BK / 8; ++ks) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+    for (int nt = 0; nt < NT; ++nt) {
       const float* p =
           k + kv_at + static_cast<size_t>(8 * ks + 2 * c) * d + c0 + n0 +
           8 * nt + g;
@@ -1037,7 +1044,7 @@ flash_bwd_wide_tf32_kernel(const float* __restrict__ q2,
       kc[ks][nt][1] = cols ? p[d] : 0.f;
     }
   }
-  float dk_acc[2][4][4], dv_acc[2][4][4];
+  float dk_acc[2][NT][4], dv_acc[2][NT][4];
   zero(dk_acc);
   zero(dv_acc);
 
@@ -1162,7 +1169,7 @@ flash_bwd_wide_tf32_kernel(const float* __restrict__ q2,
     __syncthreads();
     if (cols) {
       // dV += P^T dO_c and dK += dS^T Q2_c: one chain each over the tile.
-      float part[2][4][4];
+      float part[2][NT][4];
       kv_product(s_pt, s_oc, n0, g, c, part);
       add(dv_acc, part);
       kv_product(s_dst, s_qc, n0, g, c, part);
@@ -1176,11 +1183,11 @@ flash_bwd_wide_tf32_kernel(const float* __restrict__ q2,
         zero(part);
 #pragma unroll
         for (int ks = 0; ks < BK / 8; ++ks) {
-          uint32_t a_hi[2][4], a_lo[2][4], b_hi[4][2], b_lo[4][2];
+          uint32_t a_hi[2][4], a_lo[2][4], b_hi[NT][2], b_lo[NT][2];
           frag_a(s_ds, LDD, 32 * hq, ks, g, c, a_hi[0], a_lo[0]);
           frag_a(s_ds, LDD, 32 * hq + 16, ks, g, c, a_hi[1], a_lo[1]);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
+          for (int nt = 0; nt < NT; ++nt)
             split_b(kc[ks][nt][0], kc[ks][nt][1], b_hi[nt], b_lo[nt]);
           mma_tf32x3(part, a_hi, a_lo, b_hi, b_lo);
         }
@@ -1189,7 +1196,7 @@ flash_bwd_wide_tf32_kernel(const float* __restrict__ q2,
         for (int mt = 0; mt < 2; ++mt) {
           const int q = i0 + 32 * hq + 16 * mt + g + (odd ? 8 : 0);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
+          for (int nt = 0; nt < NT; ++nt) {
             const float* a = part[mt][nt];
             const float x = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[2], 1);
             const float y = __shfl_xor_sync(0xffffffffu, odd ? a[1] : a[3], 1);
@@ -1212,7 +1219,7 @@ flash_bwd_wide_tf32_kernel(const float* __restrict__ q2,
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const size_t at = kv_at +
@@ -1229,23 +1236,40 @@ flash_bwd_wide_tf32_kernel(const float* __restrict__ q2,
   }
 }
 
-static cudaError_t launch(const void* q2, const void* k, const void* v,
-                          const void* dout, const void* lse, const void* delta,
-                          void* dq_acc, void* dk, void* dv, int bh, int t,
-                          int tk, int d, int kv_len, int q_len, int causal,
-                          cudaStream_t stream) {
+template <int NT>
+static cudaError_t launch_nt(const void* q2, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dq_acc, void* dk,
+                             void* dv, int bh, int t, int tk, int d,
+                             int kv_len, int q_len, int causal,
+                             cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_wide_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      BYTES);
+      flash_bwd_wide_tf32_kernel<NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, BYTES);
   if (err != cudaSuccess) return err;
   dim3 grid(tk / BK, bh, (d + DC - 1) / DC);
-  flash_bwd_wide_tf32_kernel<<<grid, THREADS, BYTES, stream>>>(
+  flash_bwd_wide_tf32_kernel<NT><<<grid, THREADS, BYTES, stream>>>(
       static_cast<const float*>(q2), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<float*>(dq_acc), static_cast<float*>(dk),
       static_cast<float*>(dv), t, tk, d, kv_len, q_len, causal);
   return cudaGetLastError();
+}
+
+// Each warp owns 8, 16 or 32 columns of a chunk: the least that gives the
+// 8 warps all of the first chunk's (min(d, DC)) columns.
+static cudaError_t launch(const void* q2, const void* k, const void* v,
+                          const void* dout, const void* lse, const void* delta,
+                          void* dq_acc, void* dk, void* dv, int bh, int t,
+                          int tk, int d, int kv_len, int q_len, int causal,
+                          cudaStream_t stream) {
+  const int cw = d < DC ? d : DC;
+  auto fn = cw <= 8 * WARPS       ? launch_nt<1>
+            : cw <= 16 * WARPS    ? launch_nt<2>
+                                  : launch_nt<4>;
+  return fn(q2, k, v, dout, lse, delta, dq_acc, dk, dv, bh, t, tk, d, kv_len,
+            q_len, causal, stream);
 }
 
 }  // namespace wide_tf32
@@ -1290,60 +1314,15 @@ flash_bwd_any_dq_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq,
   if (i < n) dq[i] = from_f<T>(dq_acc[i] * scale);
 }
 
-template <int D>
-static cudaError_t launch_simt(const void* q2, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* delta, void* dq_acc, void* dk,
-                               void* dv, int bh, int t, int tk, int kv_len,
-                               int q_len, int causal, cudaStream_t stream) {
-  const int bytes = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_simt_kernel<float, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid(tk / BK, bh);
-  flash_bwd_simt_kernel<float, D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const float*>(q2), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq_acc), static_cast<float*>(dk),
-      static_cast<float*>(dv), t, tk, kv_len, q_len, causal);
-  return cudaGetLastError();
-}
-
-static cudaError_t launch_simt_d(const void* q2, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dq_acc, void* dk,
-                                 void* dv, int bh, int t, int tk, int d,
-                                 int kv_len, int q_len, int causal,
-                                 cudaStream_t s) {
-  switch (d) {
-#define RTT_BWD_ANY_D(D)                                                    \
-  case D:                                                                   \
-    return launch_simt<D>(q2, k, v, dout, lse, delta, dq_acc, dk, dv, bh, \
-                          t, tk, kv_len, q_len, causal, s);
-    RTT_BWD_ANY_D(32)
-    RTT_BWD_ANY_D(64)
-    RTT_BWD_ANY_D(96)
-    RTT_BWD_ANY_D(128)
-    RTT_BWD_ANY_D(160)
-    RTT_BWD_ANY_D(192)
-    RTT_BWD_ANY_D(224)
-    RTT_BWD_ANY_D(256)
-#undef RTT_BWD_ANY_D
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace bwd
 }  // namespace any
 }  // namespace rtt
 
 // dtype: 0 f32, 1 bf16, 2 f16 (out, dout [rows, d], d a multiple of 32);
 // delta f32 [rows];
-// dq_acc f32 [rows * acc_d], zeroed here: acc_d is d for the f32 and wide
-// kernels' row-major accumulator, d rounded up to 64 for the wgmma
-// kernel's. All contiguous. Returns the CUDA error of the launch.
+// dq_acc f32 [rows * acc_d], zeroed here: acc_d is d for the f32
+// kernel's row-major accumulator, d rounded up to 64 for the 16-bit
+// kernels'. All contiguous. Returns the CUDA error of the launch.
 extern "C" int rtt_flash_bwd_any_pre(int dtype, const void* out,
                                      const void* dout, void* delta,
                                      void* dq_acc, int rows, int d, int acc_d,
@@ -1397,8 +1376,8 @@ extern "C" int rtt_flash_bwd_any(int dtype, const void* q2, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:
-      return launch_simt_d(q2, k, v, dout, lse, delta, dq_acc, dk, dv, bh, t,
-                           tk, d, kv_len, q_len, causal, s);
+      return wide_tf32::launch(q2, k, v, dout, lse, delta, dq_acc, dk, dv,
+                               bh, t, tk, d, kv_len, q_len, causal, s);
     case 1:
       return wg::launch_d<__nv_bfloat16>(q2, k, v, dout, lse, delta, dq_acc,
                                          dk, dv, bh, t, tk, d, kv_len, q_len,
@@ -1411,8 +1390,9 @@ extern "C" int rtt_flash_bwd_any(int dtype, const void* q2, const void* k,
 }
 
 // The same for any d that is a multiple of 32 (the op takes it for d >
-// 256), on the column-split kernels: f32 on three-term TF32 mma.sync,
-// bf16 and f16 on CUDA-core FMA; dq_acc row-major [bh * t * d].
+// 256), on the column-split kernels: f32 on three-term TF32 mma.sync
+// (dq_acc row-major [bh * t * d]), bf16 and f16 on wgmma (dq_acc [bh * t
+// * round_up(d, 64)] in the wgmma kernels' order).
 extern "C" int rtt_flash_bwd_wide(int dtype, const void* q2, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
@@ -1429,19 +1409,20 @@ extern "C" int rtt_flash_bwd_wide(int dtype, const void* q2, const void* k,
       return wide_tf32::launch(q2, k, v, dout, lse, delta, dq_acc, dk, dv,
                                bh, t, tk, d, kv_len, q_len, causal, s);
     case 1:
-      return wide::launch<__nv_bfloat16>(q2, k, v, dout, lse, delta, dq_acc,
-                                         dk, dv, bh, t, tk, d, kv_len, q_len,
-                                         causal, s);
+      return wide_wg::launch<__nv_bfloat16>(q2, k, v, dout, lse, delta,
+                                            dq_acc, dk, dv, bh, t, tk, d,
+                                            kv_len, q_len, causal, s);
     case 2:
-      return wide::launch<__half>(q2, k, v, dout, lse, delta, dq_acc, dk, dv,
-                                  bh, t, tk, d, kv_len, q_len, causal, s);
+      return wide_wg::launch<__half>(q2, k, v, dout, lse, delta, dq_acc, dk,
+                                     dv, bh, t, tk, d, kv_len, q_len, causal,
+                                     s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dq [bh, t, d] in T = dq_acc * scale. `ordered`: dq_acc in the wgmma
-// kernel's order ([bh * t * round_up(d, 64)]); else row-major [bh * t *
-// d] (the f32 and wide kernels'). Returns the CUDA error of the launch.
+// dq [bh, t, d] in T = dq_acc * scale. `ordered`: dq_acc in the 16-bit
+// kernels' order ([bh * t * round_up(d, 64)]); else row-major [bh * t *
+// d] (the f32 kernel's). Returns the CUDA error of the launch.
 extern "C" int rtt_flash_bwd_any_dq(int dtype, int ordered, const void* dq_acc,
                                     void* dq, int bh, int t, int d,
                                     float scale, void* stream) {

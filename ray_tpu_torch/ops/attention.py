@@ -4,12 +4,12 @@ Hopper. Three pairs: the wgmma kernels for bf16 at head_dim 64 and 128
 (`csrc/flash_fwd.cu`; `csrc/flash_bwd.cu`, whose op is three launches),
 the "any" kernels for bf16, f16 and f32 at every other head_dim up to
 256 (`csrc/flash_fwd_any.cu`, `csrc/flash_bwd_any.cu`: wgmma on a TMA
-ring in bf16/f16; in f32 the forward on the tensor cores in three-term
-TF32, the backward in CUDA-core FMA), and the "wide" kernels in the
-same two sources for every dtype at head_dim above 256 (the outputs
-split into chunks of 256 columns; the 16-bit forward on wgmma, the f32
-pair on the tensor cores in three-term TF32, the forward on wgmma and
-the backward on mma.sync; the 16-bit backward CUDA-core FMA).
+ring in bf16/f16; in f32 on the tensor cores in three-term TF32, the
+forward on wgmma, the backward on mma.sync), and the "wide" kernels in
+the same two sources for every dtype at head_dim above 256 (the outputs
+split into chunks of 256 columns; the 16-bit pair on wgmma, the f32
+pair in three-term TF32, the forward on wgmma and the backward on
+mma.sync: one f32 backward main kernel at every head_dim).
 `_kernel_for` picks the pair; nothing falls back from one to another.
 
 Each kernel has a plain PyTorch version here that computes the same
@@ -408,9 +408,9 @@ def _flash_backward_any(q2, k, v, out, do, lse, scale: float, causal: bool,
     """`flash_backward` on the "any" kernels (csrc/flash_bwd_any.cu), or
     on the "wide" main kernel there for head_dim above MAX_HEAD_DIM:
     delta and a zeroed f32 dq accumulator, the main kernel, and dq's
-    scale and cast, each launch counted. The 16-bit "any" kernel keeps
-    the accumulator in its own order, at head_dim rounded up to whole
-    boxes; the others row-major."""
+    scale and cast, each launch counted. The 16-bit kernels keep the
+    accumulator in their own order, at head_dim rounded up to whole
+    boxes; the f32 one row-major."""
     name = "flash_bwd_wide" if wide else "flash_bwd_any"
     dtype = q2.dtype
     _check_cuda(name, q2.device, dtype, q2, k, v, out, do)
@@ -423,7 +423,7 @@ def _flash_backward_any(q2, k, v, out, do, lse, scale: float, causal: bool,
         raise ValueError(f"{name}: out/do/lse shapes do not match q")
     bh, t, dp = q2p.shape
     code = _DTYPE_CODES[dtype]
-    ordered = not wide and dtype != torch.float32
+    ordered = dtype != torch.float32
     acc_d = -(-dp // BOX_COLS) * BOX_COLS if ordered else dp
     delta = torch.empty(bh, t, dtype=torch.float32, device=q2.device)
     dq_acc = torch.empty(bh * t * acc_d, dtype=torch.float32,

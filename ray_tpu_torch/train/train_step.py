@@ -214,7 +214,7 @@ def _check_mesh(mesh, param_annotations) -> Dict[str, int]:
         raise NotImplementedError(
             "MoE under tp > 1: the expert products would need DTensor "
             "rules for the batched expert matmuls and the token dispatch "
-            "(ROADMAP queue 1, item 8); run MoE on dp/fsdp meshes, or "
+            "(ROADMAP queue 1, item 5); run MoE on dp/fsdp meshes, or "
             "over ep with make_pp_train_step")
     if sizes.get("pp", 1) > 1:
         raise NotImplementedError(
@@ -224,7 +224,7 @@ def _check_mesh(mesh, param_annotations) -> Dict[str, int]:
         raise NotImplementedError(
             f"sp={sizes['sp']}: make_train_step shards no activation over "
             "the sequence (JAX's GSPMD sequence sharding is not ported: "
-            "ROADMAP queue 1, item 8); make_pp_train_step runs ring "
+            "ROADMAP queue 1, item 5); make_pp_train_step runs ring "
             "attention over sp")
     return sizes
 

@@ -7,11 +7,9 @@ CPU test runs). On a machine with a card and nvcc:
 
 Every output is held to its plain version relatively: max abs error at
 most 1e-2 * max|ref| and L2 error at most 1e-2 * ||ref|| in bf16/f16,
-1e-5 of each in f32 (the f32 forward and the f32 "wide" pair multiply in
-three-term TF32, the f32 backward up to 256 in f32: they read about 1e-7
-to 1e-6, while one TF32 term or a bf16 product reads order 1e-4 or more,
-which
-`test_f32_bar_rejects_tf32_and_bf16_products` and
+1e-5 of each in f32 (the f32 kernels multiply in three-term TF32: they
+read about 1e-7 to 1e-6, while one TF32 term or a bf16 product reads
+order 1e-4 or more, which `test_f32_bar_rejects_tf32_and_bf16_products` and
 `test_three_term_scores_alone_meet_the_f32_bar` check). The backward
 runs under a random upstream gradient, so that every row of `do`
 matters to dq, dk and dv. The shapes include the edges of the kernels'
@@ -19,12 +17,14 @@ matters to dq, dk and dv. The shapes include the edges of the kernels'
 single partial tile (t 64), q and KV of different lengths, kv_len inside
 a tile, q rows past q_len, and one head; and head_dims that overhang a
 64-column box (96, 160), and above 256 (320, 352, 512, 608, 704: the
-"wide" kernels; above 512 the 16-bit one streams Q). The f32 forward's
-edges: t 64 and 192 against its q tiles, kv_len inside its 64-row and
+"wide" kernels; above 512 the 16-bit forward streams Q; the 16-bit
+backward streams every box but its chunk's through a ring). The f32
+forward's edges: t 64 and 192 against its q tiles, kv_len inside its 64-row and
 32-row KV tiles, and its 32-column last chunk of O. The f32 "wide" pair's:
 a 32-column last K box, a last chunk of 64 to 192 columns, Q2 read from
 global memory (d above 512), t 64, kv_len inside a 32-row KV tile, ragged
-q_len and causal t_q != t_k; and its chunks agree to the bit.
+q_len and causal t_q != t_k; and the "wide" chunks agree to the bit in
+every dtype.
 """
 
 import ctypes
@@ -189,6 +189,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(gen):
     (torch.float32, 192, 192, 512, False, 192, 170, 2),
     (torch.float32, 128, 384, 512, True, 128, 384, 2),
     (torch.float32, 320, 320, 320, True, 300, 280, 2),
+    # The 16-bit "wide" backward (wgmma, 64-row KV and q tiles, boxes of
+    # K, Q2, V and dO through a ring): t 64 (one tile), kv_len inside a
+    # tile, ragged q_len, causal t_q != t_k both ways, at d 352 (an
+    # overhanging last box, a 2-box last chunk), 512, 608 and 704.
+    (torch.bfloat16, 64, 64, 352, True, 64, 64, 2),
+    (torch.float16, 256, 256, 608, False, 256, 100, 1),
+    (torch.bfloat16, 320, 320, 704, True, 300, 300, 1),
+    (torch.float16, 128, 384, 512, True, 128, 384, 1),
+    (torch.bfloat16, 384, 128, 352, True, 384, 128, 2),
+    # The f32 backward up to head_dim 256 on the three-term TF32 kernel
+    # (8, 16 or 32 columns a warp): t 64, kv_len inside a 32-row KV tile,
+    # ragged q_len, causal t_q != t_k, at d 32, 96, 224 and 256.
+    (torch.float32, 64, 64, 32, True, 64, 64, 2),
+    (torch.float32, 256, 256, 96, False, 256, 100, 2),
+    (torch.float32, 320, 320, 224, True, 300, 280, 2),
+    (torch.float32, 384, 128, 96, True, 384, 128, 2),
+    (torch.float32, 192, 192, 256, True, 170, 192, 2),
 ])
 def test_any_kernels_match_plain_versions(gen, monkeypatch, dtype, t, tk, d,
                                           causal, q_len, kv_len, bh):
@@ -230,15 +247,17 @@ def test_any_kernels_match_plain_versions(gen, monkeypatch, dtype, t, tk, d,
 
 
 @pytest.mark.parametrize("d", [512, 608])
-def test_f32_wide_chunks_agree_to_the_bit(gen, d):
-    """Every 256-column chunk of the f32 "wide" kernels forms S (and dP)
-    over all of d in one order: with q, k, v and do made of equal column
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_wide_chunks_agree_to_the_bit(gen, dtype, d):
+    """Every 256-column chunk of the "wide" kernels forms S (and dP) over
+    all of d in one order: with q, k, v and do made of equal column
     chunks, the chunks of out, dk and dv come out equal bit for bit (their
     P, lse and dS agree; dq sums in f32 reductions of no fixed order)."""
     bh, t = 2, 256
     def chunked(rows):
         x = torch.randn(bh, rows, 256, generator=gen, device="cuda") * 0.5
-        return x.repeat(1, 1, -(-d // 256))[..., :d].contiguous()
+        return x.repeat(1, 1, -(-d // 256))[..., :d].to(dtype).contiguous()
 
     q2 = attn.prescale(chunked(t), 1.0 / math.sqrt(d))
     k, v, do = chunked(t), chunked(t), chunked(t)

@@ -332,8 +332,13 @@ def test_cancel_during_decode_during_prefill_and_while_waiting(engine):
     assert engine.stats()["dead"] is False
 
 
-def test_overload_and_pool_oom_shed(tiny):
+def test_overload_and_pool_oom_shed(tiny, monkeypatch):
     eng = _engine(tiny, max_waiting=1, kv_blocks=7, max_len=64)
+    # The two busy streams must hold both slots through the submits below
+    # however fast the tiny model decodes (a 20-token stream can finish
+    # between them on an idle CPU, or while a loaded one starves the test
+    # thread): the engine admits and prefills them, and decodes nothing.
+    monkeypatch.setattr(eng, "_decode", lambda: False)
     try:
         # 29-token prompt + 24 budget: 7 blocks, the pool holds 6.
         with pytest.raises(EngineOverloaded):
@@ -422,11 +427,18 @@ class LinearPolicy(BatchProgram):
                 "values": logits.sum(-1)}
 
 
-def test_policy_requests_batch_into_one_forward():
+def test_policy_requests_batch_into_one_forward(monkeypatch):
     torch.manual_seed(0)
     policy = torch.nn.Linear(4, 3)
     eng = InferenceEngine(policy, None, EngineConfig(), family="policy",
                           program=LinearPolicy())
+    # Nothing is served until all 12 requests are pending, however slowly
+    # their threads start (on a loaded CPU each could be served alone):
+    # then they must share fewer than 12 forwards.
+    release = threading.Event()
+    serve = eng._policy_step
+    monkeypatch.setattr(eng, "_policy_step",
+                        lambda: release.is_set() and serve())
     try:
         results = {}
 
@@ -438,6 +450,9 @@ def test_policy_requests_batch_into_one_forward():
                    for i in range(12)]
         for t in threads:
             t.start()
+        rows = sum(1 + i % 3 for i in range(12))
+        assert _wait_for(lambda: eng.stats()["policy_pending_rows"] == rows)
+        release.set()
         for t in threads:
             t.join(timeout=60)
         assert len(results) == 12

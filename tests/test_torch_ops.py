@@ -333,6 +333,21 @@ def _split_backward(q2, k, v, out, do, lse, scale, causal, kv_len, q_len,
                  for g, x in zip(grads, (q2, k, v)))
 
 
+def _box_sums(a, b, width=64, first=0):
+    """a @ b^T over the last axis as the 16-bit "wide" backward forms S^T
+    and dP^T: one f32 product a `width`-column box, the products added in
+    f32 box by box from box `first` on, then the boxes before it (first 0:
+    column order, the kernel's in every chunk)."""
+    n = -(-a.shape[-1] // width)
+    out = None
+    for i in list(range(first, n)) + list(range(first)):
+        sl = slice(i * width, (i + 1) * width)
+        part = torch.matmul(a[..., sl].float(),
+                            b[..., sl].float().transpose(1, 2))
+        out = part if out is None else out + part
+    return out
+
+
 class TestColumnSplitPlainVersion:
     """The algorithm of the "wide" kernels (head_dim above 256), held on
     the CPU: S (and dP) summed over 32-column slices of d, the outputs
@@ -341,6 +356,62 @@ class TestColumnSplitPlainVersion:
     (rtol 1e-5, atol 1e-5); bf16, where P and dS round to bf16 and a sum
     regrouped in f32 may tip a rounding, within BF16_REL_TOL of each
     output's largest element."""
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    def test_16bit_chunks_share_p_and_ds_in_column_order(self, dtype):
+        """The 16-bit "wide" backward's order: each 256-column chunk sums
+        S^T and dP^T over the 64-column boxes of all of d in column order,
+        so every chunk holds the same P and dS (in f32, and rounded to the
+        dtype), and its columns of dq, dk and dv formed from them equal the
+        unsplit plain version's (within BF16_REL_TOL of each output's
+        largest element); chunk 1 summing its own boxes first would not
+        hold chunk 0's f32 P and dS to the bit."""
+        d, t, kv_len, q_len, chunk = 512, 128, 100, 90, 256
+        q, k, v, do = (torch.from_numpy(_rand(150 + i, 2, t, d)).to(dtype)
+                       for i in range(4))
+        q[:, q_len:] = 0
+        do[:, q_len:] = 0
+        k[:, kv_len:] = 0
+        v[:, kv_len:] = 0
+        scale = 1.0 / math.sqrt(d)
+        q2 = attn.prescale(q, scale)
+        out, lse = attn.flash_forward_plain(q2, k, v, True, kv_len)
+        delta = (out.float() * do.float()).sum(dim=-1)
+        valid = attn._valid_mask(t, t, True, kv_len, q2.device) & (
+            torch.arange(t)[:, None] < q_len)
+
+        def p_and_ds(first):
+            s = _box_sums(q2, k, first=first)
+            dp = _box_sums(do, v, first=first)
+            p = torch.where(valid, (s - lse[..., None]).exp2(),
+                            torch.zeros_like(s))
+            return p, p * (dp - delta[..., None])
+
+        per_chunk = [p_and_ds(0) for _ in range(0, d, chunk)]
+        for p, ds in per_chunk[1:]:
+            for x, x0 in ((p, per_chunk[0][0]), (ds, per_chunk[0][1])):
+                assert torch.equal(x, x0) and torch.equal(x.to(dtype),
+                                                          x0.to(dtype))
+        grads = [[], [], []]
+        for (p, ds), c0 in zip(per_chunk, range(0, d, chunk)):
+            cs = slice(c0, c0 + chunk)
+            p, ds = p.to(dtype).float(), ds.to(dtype).float()
+            grads[0].append(torch.matmul(ds, k[..., cs].float()) * scale)
+            grads[1].append(torch.matmul(ds.transpose(1, 2),
+                                         q2[..., cs].float()) * math.log(2.0))
+            grads[2].append(torch.matmul(p.transpose(1, 2),
+                                         do[..., cs].float()))
+        want = attn.flash_backward_plain(q2, k, v, out, do, lse, scale, True,
+                                         kv_len, q_len)
+        for g, w, name in zip(grads, want, ("dq", "dk", "dv")):
+            err = (torch.cat(g, dim=-1) - w.float()).abs().max().item()
+            assert err <= BF16_REL_TOL * w.float().abs().max().item(), \
+                (name, err)
+        # Control: chunk 1 summing its own boxes (4-7) first.
+        assert not torch.equal(_box_sums(q2, k, first=4), _box_sums(q2, k))
+        p1, ds1 = p_and_ds(chunk // 64)
+        assert not (torch.equal(p1, per_chunk[1][0])
+                    and torch.equal(ds1, per_chunk[1][1]))
 
     @pytest.mark.parametrize("dtype,d,causal,kv_len,q_len", [
         (torch.float32, 320, True, 128, 128),
@@ -448,8 +519,9 @@ def _tf32_split_forward(q2, k, v, causal, kv_len, terms, chunk=256,
 
 def _tf32_backward(q2, k, v, out, do, lse, scale, causal, kv_len, q_len,
                    terms, chunk=256, width=32, bq=64, bk=32):
-    """The f32 "wide" backward as its kernel forms it, every product in
-    `terms`-term TF32: S^T and dP^T over all of d in chains of `width`
+    """The f32 backward as its kernel forms it at every head_dim (the
+    "wide" kernel's, one chunk up to 256), every product in `terms`-term
+    TF32: S^T and dP^T over all of d in chains of `width`
     columns in column order; P and dS in f32; then chunk by chunk of
     `chunk` columns dV and dK summed over q tiles of `bq` rows in order
     (one chain a tile; dK times ln2 at the end) and dQ over KV tiles of
@@ -492,7 +564,8 @@ class TestThreeTermTf32PlainVersion:
     (head_dim above 256) likewise, in its own chains and order: the
     forward's column split at d 512 (its chunks' lse and P agree to the
     bit), and the backward's five products (dq, dk, dv against
-    `flash_backward_plain` at d 320 and 512). The tensor cores' own
+    `flash_backward_plain` at d 64, 128 and 256, one chunk, and 320 and
+    512). The tensor cores' own
     summation order and rounding within a chain are not emulated:
     chip_smoke.py holds the kernels and the forward's product alone on
     the card."""
@@ -557,7 +630,7 @@ class TestThreeTermTf32PlainVersion:
         one, _, _ = _tf32_split_forward(q2, k, v, causal, kv_len, 1)
         assert not self._within(one[:, rows], want[:, rows], self.F32_BAR)
 
-    @pytest.mark.parametrize("d", [320, 512])
+    @pytest.mark.parametrize("d", [64, 128, 256, 320, 512])
     @pytest.mark.parametrize("causal", [True, False])
     def test_three_term_backward_meets_the_f32_bar(self, d, causal):
         kv_len, q_len = 100, 90
