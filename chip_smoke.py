@@ -142,13 +142,39 @@ Phases, none of whose failures is caught:
       the largest error of (e2)'s logits against the bf16 forward) of
       its row's maximum; held to the
       next position's logits (the control) not every token may be.
+  (e4) the LLM app on the card, after (e3) has freed its model:
+      `ray_tpu_torch.init(num_cpus=4, num_gpus=1)`, the Serve controller
+      and HTTP proxy, and `build_llm_app` (one `num_gpus=1` replica,
+      (e3)'s engine config) over two families: (e3)'s Llama-2-7B config
+      in bf16, weights drawn from APP_SEED, and (e1)'s small width in
+      f32. One request through the handle pays the replica's model
+      build, untimed. Then (e3)'s 16 prompts go over HTTP, 16 concurrent
+      clients reading the chunked streams off the socket (SLO admission
+      off: the router's default threshold of 1024 outstanding tokens
+      sheds such a burst). Every stream must hold 64 chunks of one
+      decimal id each; every token must lie within (e3)'s delta of its
+      row's maximum in the teacher-forced logits of the same spec built
+      in the driver, and the one-position-shift control must fail. A
+      client drops a stream of APP_CANCEL_BUDGET tokens after its first
+      chunk: the replica's engine must free the slot within
+      APP_CANCEL_S, before the budget is spent, and a later request is
+      served. At the small width in f32 the app's tokens over the handle
+      and over HTTP, through the engine and through the kill switch (an
+      app of its own, `engine_enabled=False`), must equal `generate`.
+      `serve.shutdown()` and `ray_tpu_torch.shutdown()` run however the
+      phase ends.
 
 Prints `{"kernels": [...]}` (with each kernel's launches under each
 remat policy and in the mesh step), then `{"slice": {...}}`, then
 `{"serve": {...}}` (the card, TTFT and inter-token gap p50/p99, decode
 tokens/s and step ms at a full batch beside its bound, prefill
 tokens/s, prefix hits and tokens saved, pool bytes, peak memory of
-phase (e)), then `{"train_sharded": {...}}` (the card; step ms,
+phase (e)), then `{"serve_app": {...}}` ((e4): the card, HTTP TTFT and
+gap p50/p99 beside (e3)'s, the replica's decode step at batch 8, prefix
+hits, the seconds of the controller and proxy, the replica and its
+model build, the replica's peak memory, the consistency counts, the
+dropped stream's time to a free slot, each step's seconds), then
+`{"train_sharded": {...}}` (the card; step ms,
 tokens/s, MFU, peak memory, losses and launches of each (f1) policy
 and of (f2); (f3)'s checkpoints and `ckpt_block_ms`), then
 `{"train_pp": {...}}` (step ms, tokens/s, MFU, peak memory, losses and
@@ -779,9 +805,41 @@ def held_steps(name, got, teacher, truth):
     return to_teacher[0]
 
 
+def greedy_consistency(torch, teacher, requests, outs, delta, dev, label):
+    """Hold each served token of `outs` (one list per prompt of
+    `requests`) within `delta` of its row's maximum in the teacher-forced
+    logits `teacher(seq)`; as a control that must fail, hold each token
+    to the next position's logits. Prints the counts; returns them."""
+    n = exact = consistent = control = 0
+    worst_gap = 0.0
+    for p, out in zip(requests, outs):
+        seq = torch.tensor([p + out[:-1]], device=dev)
+        ref = teacher(seq)[0, len(p) - 1:]  # the logits each token came from
+        toks = torch.tensor(out, device=dev)
+        top = ref.max(dim=-1).values
+        gap = top - ref.gather(1, toks[:, None])[:, 0]
+        shifted = top[1:] - ref[1:].gather(1, toks[:-1, None])[:, 0]
+        n += len(out)
+        exact += int((ref.argmax(-1) == toks).sum())
+        consistent += int((gap <= delta).sum())
+        control += int((shifted <= delta).sum())
+        worst_gap = max(worst_gap, gap.max().item())
+        del seq, ref
+    print(f"serve {label}: greedy consistency, delta {delta:.4g}: {consistent} "
+          f"of {n} tokens within delta of their row's maximum (largest gap "
+          f"{worst_gap:.4g}), exact argmax {exact} of {n} (no bar); control, "
+          f"tokens against the next position's logits: {control} of "
+          f"{n - len(requests)} within delta (must not be all)")
+    assert consistent == n, (label, consistent, n, worst_gap, delta)
+    assert control < n - len(requests), (label, control)
+    return {"tokens": n, "consistent": consistent, "exact_argmax": exact,
+            "control_within_delta": control, "largest_gap": worst_gap,
+            "delta": delta}
+
+
 def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
     """Phase (e), the serving slice (see the module's doc), on device
-    `dev`. Returns the `{"serve": ...}` record."""
+    `dev`. Returns the `{"serve": ...}` record and (e3)'s requests."""
     import threading
 
     from ray_tpu_torch.llm import EngineConfig, InferenceEngine
@@ -923,28 +981,8 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
     # Greedy consistency against teacher-forced logits (these launch the
     # forward kernel: the counters were read above). The control holds
     # each token to the logits one position later, and must fail.
-    n = exact = consistent = control = 0
-    worst_gap = 0.0
-    for p, out in zip(requests, outs):
-        seq = torch.tensor([p + out[:-1]], device=dev)
-        ref = teacher(seq)[0, len(p) - 1:]  # the logits each token came from
-        toks = torch.tensor(out, device=dev)
-        top = ref.max(dim=-1).values
-        gap = top - ref.gather(1, toks[:, None])[:, 0]
-        shifted = top[1:] - ref[1:].gather(1, toks[:-1, None])[:, 0]
-        n += len(out)
-        exact += int((ref.argmax(-1) == toks).sum())
-        consistent += int((gap <= delta).sum())
-        control += int((shifted <= delta).sum())
-        worst_gap = max(worst_gap, gap.max().item())
-        del seq, ref
-    print(f"serve (e3): greedy consistency, delta {delta:.4g}: {consistent} of "
-          f"{n} tokens within delta of their row's maximum (largest gap "
-          f"{worst_gap:.4g}), exact argmax {exact} of {n} (no bar); control, "
-          f"tokens against the next position's logits: {control} of "
-          f"{n - len(requests)} within delta (must not be all)")
-    assert consistent == n, (consistent, n, worst_gap, delta)
-    assert control < n - len(requests), control
+    greedy = greedy_consistency(torch, teacher, requests, outs, delta, dev,
+                                "(e3)")
 
     ttft = [(a[0] - t0) * 1e3 for a in arrivals]  # all submitted at t0
     gaps = [(y - x) * 1e3 for a in arrivals for x, y in zip(a, a[1:])]
@@ -965,6 +1003,7 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
         "requests": len(requests), "prompt_tokens": [len(p) for p in requests],
         "new_tokens": ec.max_new_tokens, "wall_s": wall_s,
         "ttft_ms_p50": percentile(ttft, 50), "ttft_ms_p99": percentile(ttft, 99),
+        "ttft_ms_mean": statistics.fmean(ttft), "ttft_ms_by_request": ttft,
         "itl_ms_p50": percentile(gaps, 50), "itl_ms_p99": percentile(gaps, 99),
         "decode_tokens_per_s": stats["tokens_emitted"] / (decode_ms / 1e3),
         "decode_step_ms_full_batch": step_ms_full,
@@ -979,7 +1018,8 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
         "pool_bytes": stats["kv_bytes"],
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "logits_max_err": {"cached": err_cached, "paged": err_paged},
-        "delta": delta, "exact_argmax_share": exact / n,
+        "delta": delta,
+        "exact_argmax_share": greedy["exact_argmax"] / greedy["tokens"],
         "flash_launches_while_serving": serve_launches,
     }
     print(f"serve (e3): {len(requests)} requests in {wall_s:.2f} s; decode "
@@ -991,7 +1031,345 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
                                            round(mean_live), dev)
     del model
     torch.cuda.empty_cache()
-    return serve
+    return serve, requests
+
+
+#: (e4): the seed of the app's weights (`build_model`'s "init" kind),
+#: the seconds a dropped stream's slot has to come free, and the token
+#: budget of the stream that is dropped.
+APP_SEED = 12
+APP_CANCEL_S = 30.0
+APP_CANCEL_BUDGET = 1024
+#: (e4)'s f32 check: (e1)'s small width (with room for the app's
+#: max_len), its prompts' lengths and tokens each.
+APP_SMALL = {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 4,
+             "n_kv_heads": 2, "intermediate": 512, "max_seq_len": 2048,
+             "dtype": "float32", "remat": False}
+APP_SMALL_PROMPTS = (87, 114, 20, 300)
+APP_SMALL_TOKENS = 24
+
+
+def http_stream(port, path, body, timeout=600.0):
+    """POST `body` as JSON to the proxy on localhost `port` and yield
+    (arrival time, chunk) for each chunk of the chunked response, read
+    off the socket as sent. A body that ends without its last chunk
+    raises; closing the generator closes the connection."""
+    import socket
+
+    data = json.dumps(body).encode()
+    sock = socket.create_connection(("127.0.0.1", port), timeout=timeout)
+    try:
+        sock.sendall(
+            f"POST {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+            "Content-Type: application/json\r\n"
+            f"Content-Length: {len(data)}\r\nConnection: close\r\n\r\n"
+            .encode() + data)
+        reader = sock.makefile("rb")
+        status = reader.readline()
+        assert status.split()[1:2] == [b"200"], status
+        headers = {}
+        for line in iter(reader.readline, b"\r\n"):
+            assert line, "connection closed inside the headers"
+            key, _, value = line.decode().partition(":")
+            headers[key.strip().lower()] = value.strip()
+        assert headers.get("transfer-encoding") == "chunked", headers
+        while True:
+            size = reader.readline().strip()
+            assert size, "chunked body ended without its last chunk"
+            if int(size, 16) == 0:
+                return
+            chunk = reader.read(int(size, 16))
+            assert reader.read(2) == b"\r\n", "malformed chunk"
+            yield time.perf_counter(), chunk
+    finally:
+        sock.close()
+
+
+#: (e4): the request path's spans (serve/observability.py) read back from
+#: the head's metrics: the engine's TTFT (submit to first token), the
+#: replica's queue wait (router send to handler start), the router's pick
+#: and the proxy's whole request.
+APP_SPANS = ("serve_engine_ttft_ms", "serve_queue_wait_ms",
+             "serve_router_routing_ms", "serve_http_request_latency_ms")
+
+
+def app_spans(metrics_summary, app, counts, timeout=30.0):
+    """{series: (count, sum, p50, p99)} of `app`'s APP_SPANS in the head's
+    metrics, once each series holds at least `counts[series]`
+    observations (the processes flush their records every half second);
+    fails after `timeout` s."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        summary = metrics_summary()
+        out = {}
+        for name in APP_SPANS:
+            for flat, series in (summary.get(name, {}).get("by_tags")
+                                 or {}).items():
+                if f"app={app}" in flat.split("|"):
+                    out[name] = (series["count"], series["sum"],
+                                 series.get("p50"), series.get("p99"))
+        if all(out.get(name, (0,))[0] >= n for name, n in counts.items()):
+            return out
+        assert time.perf_counter() < deadline, (counts, out)
+
+
+def token_of(chunk):
+    """One stream chunk -> its token id; each chunk is one decimal id
+    and a space."""
+    text = chunk.decode() if isinstance(chunk, bytes) else str(chunk)
+    assert text.endswith(" ") and text[:-1].isdigit(), text
+    return int(text)
+
+
+def serve_app_phase(torch, llama, card, n_layers, e3, requests, dev):
+    """Phase (e4), `build_llm_app` behind the port's Serve runtime on
+    device `dev` (see the module's doc). `e3` is (e3)'s record and
+    `requests` its prompts. Returns the `{"serve_app": ...}` record."""
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import build_llm_app
+    from ray_tpu_torch.llm.serving import build_model
+    from ray_tpu_torch.models import generate as gen
+    from ray_tpu_torch.util.metrics import metrics_summary
+
+    seconds = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - clock[0]
+        clock[0] = now
+        print(f"serve (e4) {name}: {seconds[name]:.1f} s")
+
+    ec = {"slots": 8, "max_len": 2048, "prefill_chunk": 256,
+          "prefix_cache": True, "max_new_tokens": 64}
+    new_tokens = ec["max_new_tokens"]
+    # (e3)'s model config, Llama-2-7B's widths in bf16, spelled out.
+    cfg7 = llama.LlamaConfig.llama2_7b(n_layers=n_layers, remat=False)
+    spec = {"kind": "init", "seed": APP_SEED, "config": {
+        name: getattr(cfg7, name) for name in (
+            "vocab_size", "dim", "n_layers", "n_heads", "n_kv_heads",
+            "intermediate", "rope_theta", "max_seq_len", "attention",
+            "remat")}}
+    spec["config"]["dtype"] = str(cfg7.dtype).removeprefix("torch.")
+    small = {"kind": "init", "seed": APP_SEED, "config": APP_SMALL}
+    # The burst is (e3)'s: 16 prompts of 512 + 64-1024 tokens at once, far
+    # past the router's default SLO admission threshold (1024 outstanding
+    # tokens a replica), which would shed all but the first; the engine
+    # queues what its slots cannot take, as in (e3).
+    saved_env = os.environ.get("RT_serve_slo_admission_enabled")
+    os.environ["RT_serve_slo_admission_enabled"] = "0"
+    on_card = dev.type == "cuda"
+    rt.init(num_cpus=4, num_gpus=1 if on_card else 0)
+    try:
+        t0 = time.perf_counter()
+        port = serve.start(http_port=0, per_node=False)  # controller, proxy
+        controller_proxy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve.run(build_llm_app({"llama2_7b": spec, "small": small},
+                                engine=ec, device=str(dev)),
+                  name="llm", route_prefix="/llm")
+        replica_start_s = time.perf_counter() - t0
+        handle = serve.get_app_handle("llm")
+        lap("controller, proxy and replica start")
+        # The warm-up pays the replica's model build; it is not timed.
+        warm = [token_of(c) for c in handle.options(stream=True).remote(
+            {"prompt": requests[0][:32], "max_new_tokens": 2})]
+        assert len(warm) == 2, warm
+        lap("warm-up (model build)")
+        spans0 = app_spans(metrics_summary, "llm", {
+            "serve_engine_ttft_ms": 1, "serve_queue_wait_ms": 1})
+
+        # (e3)'s traffic over HTTP, one client thread a request.
+        outs = [[] for _ in requests]
+        arrivals = [[] for _ in requests]
+        sent = [0.0] * len(requests)
+        errors = []
+
+        def client(i):
+            try:
+                sent[i] = time.perf_counter()
+                for at, chunk in http_stream(port, "/llm", {
+                        "prompt": requests[i],
+                        "max_new_tokens": new_tokens}):
+                    arrivals[i].append(at)
+                    outs[i].append(token_of(chunk))
+            except BaseException as e:  # noqa: BLE001 - asserted below
+                errors.append((i, repr(e)))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(requests))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall_s = time.perf_counter() - t0
+        assert not errors, errors
+        assert not any(th.is_alive() for th in threads)
+        assert all(len(o) == new_tokens for o in outs), [len(o) for o in outs]
+        spans1 = app_spans(metrics_summary, "llm", {
+            name: spans0.get(name, (0,))[0] + len(requests)
+            for name in APP_SPANS})
+        # Each span's mean over the burst alone: the warm-up's
+        # observations are taken out by difference.
+        span_means = {
+            name: (spans1[name][1] - spans0.get(name, (0, 0.0))[1])
+            / (spans1[name][0] - spans0.get(name, (0,))[0])
+            for name in APP_SPANS}
+        stats = handle.engine_stats.remote().result(timeout=60)["llama2_7b"]
+        device_stats = handle.device_stats.remote().result(timeout=60)
+        assert stats["prefix_hits"] >= 1, stats
+        lap("traffic")
+
+        # The replica served the weights built here from the same spec:
+        # (e3)'s greedy consistency against this model's logits.
+        model, cfg = build_model(spec, dev)
+        assert cfg == cfg7, cfg
+
+        def teacher(seq):
+            with torch.no_grad():
+                return llama.forward(model, seq)
+
+        greedy = greedy_consistency(torch, teacher, requests, outs,
+                                    e3["delta"], dev, "(e4)")
+        del model
+        torch.cuda.empty_cache()
+        lap("greedy consistency")
+
+        # A client drops its stream mid-decode: the slot comes free.
+        before = handle.engine_stats.remote().result(timeout=60)["llama2_7b"]
+        dropped = http_stream(port, "/llm", {
+            "prompt": requests[1][:100], "max_new_tokens": APP_CANCEL_BUDGET})
+        next(dropped)
+        busy = handle.engine_stats.remote().result(timeout=60)["llama2_7b"]
+        assert busy["slots_used"] == 1, busy
+        t0 = time.perf_counter()
+        dropped.close()
+        after = busy
+        while (after["slots_used"]
+               and time.perf_counter() - t0 < APP_CANCEL_S):
+            after = handle.engine_stats.remote().result(
+                timeout=60)["llama2_7b"]
+        freed_s = time.perf_counter() - t0
+        emitted = after["tokens_emitted"] - before["tokens_emitted"]
+        assert after["slots_used"] == 0, after
+        assert after["requests_done"] == before["requests_done"] + 1, after
+        assert emitted < APP_CANCEL_BUDGET, emitted
+        later = [token_of(c) for _, c in http_stream(port, "/llm", {
+            "prompt": requests[2][:64], "max_new_tokens": 4})]
+        assert len(later) == 4, later
+        print(f"serve (e4): a dropped stream's slot came free in "
+              f"{freed_s * 1e3:.0f} ms, after {emitted} of "
+              f"{APP_CANCEL_BUDGET} tokens; a later request was served")
+        lap("cancellation")
+
+        # f32 at (e1)'s width through the same app, then the kill switch
+        # in an app of its own: equal to `generate`, token for token.
+        g = torch.Generator().manual_seed(APP_SEED)
+        shared = torch.randint(0, 512, (64,), generator=g).tolist()
+        prompts = [shared + torch.randint(0, 512, (n - 64,),
+                                          generator=g).tolist()
+                   if n > 64 else torch.randint(0, 512, (n,),
+                                                generator=g).tolist()
+                   for n in APP_SMALL_PROMPTS]
+        m_small, small_cfg = build_model(small, dev)
+        want = []
+        for p in prompts:
+            out, _ = gen.generate(m_small, torch.tensor([p], device=dev),
+                                  torch.tensor([len(p)], device=dev),
+                                  small_cfg, max_new_tokens=APP_SMALL_TOKENS)
+            want.append(out[0].tolist())
+        del m_small
+
+        def small_paths(app_handle, route):
+            for p, w in zip(prompts, want):
+                body = {"prompt": p, "max_new_tokens": APP_SMALL_TOKENS,
+                        "model": "small"}
+                over_handle = [token_of(c) for c in app_handle.options(
+                    stream=True).remote(body)]
+                over_http = [token_of(c) for _, c in http_stream(
+                    port, route, body)]
+                assert over_handle == w, (route, len(p), over_handle, w)
+                assert over_http == w, (route, len(p), over_http, w)
+
+        small_paths(handle, "/llm")
+        serve.delete("llm")
+        serve.run(build_llm_app({"small": small}, engine=ec,
+                                engine_enabled=False, device=str(dev)),
+                  name="llm-fallback", route_prefix="/fallback")
+        small_paths(serve.get_app_handle("llm-fallback"), "/fallback")
+        print(f"serve (e4), f32 small width: {len(prompts)} requests over "
+              "the handle and over HTTP equal generate token for token, "
+              "through the engine and through the kill switch")
+        lap("f32 exactness")
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            rt.shutdown()
+            if saved_env is None:
+                os.environ.pop("RT_serve_slo_admission_enabled", None)
+            else:
+                os.environ["RT_serve_slo_admission_enabled"] = saved_env
+
+    ttft = [(a[0] - t) * 1e3 for a, t in zip(arrivals, sent)]
+    http_ttft_mean = statistics.fmean(ttft)
+    gaps = [(y - x) * 1e3 for a in arrivals for x, y in zip(a, a[1:])]
+    full = stats["decode_by_batch"].get(ec["slots"], {"steps": 0, "ms": 0.0})
+    record = {
+        "card": card,
+        "config": f"llama2_7b, {n_layers} layers, bf16, random init "
+                  f"(seed {APP_SEED}), build_llm_app, one num_gpus=1 replica",
+        "engine": ec, "requests": len(requests), "clients": len(requests),
+        "new_tokens": new_tokens, "slo_admission": "off",
+        "http": {
+            "wall_s": wall_s,
+            "ttft_ms_p50": percentile(ttft, 50),
+            "ttft_ms_p99": percentile(ttft, 99),
+            "itl_ms_p50": percentile(gaps, 50),
+            "itl_ms_p99": percentile(gaps, 99),
+            "ttft_ms_mean": http_ttft_mean,
+            "ttft_ms_by_request": ttft,
+        },
+        "in_process_e3": {k: e3[k] for k in (
+            "wall_s", "ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50",
+            "itl_ms_p99", "decode_step_ms_full_batch", "ttft_ms_mean",
+            "ttft_ms_by_request")},
+        # The burst's mean of each request-path span beside the clients'
+        # mean TTFT: what the front end adds before the engine's first
+        # token is the HTTP mean less the engine's.
+        "span_means_ms": span_means,
+        "span_p50_p99_ms_with_warmup": {
+            name: spans1[name][2:] for name in APP_SPANS},
+        "decode_step_ms_full_batch": (full["ms"] / full["steps"]
+                                      if full["steps"] else None),
+        "decode_steps_full_batch": full["steps"],
+        "decode_by_batch": stats["decode_by_batch"],
+        "prefix_hits": stats["prefix_hits"],
+        "prefix_tokens_saved": stats["prefix_tokens_saved"],
+        "controller_proxy_start_s": controller_proxy_s,
+        "replica_start_s": replica_start_s,
+        "model_build_s": device_stats["build_s"].get("llama2_7b"),
+        "replica_max_memory_allocated": device_stats.get(
+            "max_memory_allocated"),
+        "greedy": greedy,
+        "cancel": {"freed_ms": freed_s * 1e3, "tokens_emitted": emitted,
+                   "budget": APP_CANCEL_BUDGET},
+        "small_f32_requests": len(prompts),
+        "seconds": seconds,
+    }
+    print(f"serve (e4): {len(requests)} HTTP streams in {wall_s:.2f} s; TTFT "
+          f"p50 {record['http']['ttft_ms_p50']:.1f} ms (in process "
+          f"{e3['ttft_ms_p50']:.1f}), gap p50 "
+          f"{record['http']['itl_ms_p50']:.2f} ms (in process "
+          f"{e3['itl_ms_p50']:.2f}); mean TTFT {http_ttft_mean:.1f} ms, "
+          f"of it the engine's {span_means['serve_engine_ttft_ms']:.1f}; "
+          f"decode step at batch {ec['slots']} "
+          f"{record['decode_step_ms_full_batch']} ms; {card}")
+    return record
 
 
 def remat_runs(torch, llama, attn, cfg, init_state, batch, dev,
@@ -2733,8 +3111,16 @@ def main() -> int:
                   f1_full.get("alive_at_peak"))
 
     # ---- (e) serving ---------------------------------------------------
-    serve = serve_phase(torch, llama, attn, card, args.serve_layers, dev,
-                        args.profile)
+    t0 = time.perf_counter()
+    serve, serve_requests = serve_phase(torch, llama, attn, card,
+                                        args.serve_layers, dev, args.profile)
+    print(f"serve (e1)-(e3): {time.perf_counter() - t0:.1f} s")
+
+    # ---- (e4) the LLM app over HTTP on the card -----------------------
+    t0 = time.perf_counter()
+    serve_app = serve_app_phase(torch, llama, card, args.serve_layers,
+                                serve, serve_requests, dev)
+    print(f"serve (e4): {time.perf_counter() - t0:.1f} s")
     serve_launches = serve["flash_launches_while_serving"]
 
     kernels = [
@@ -2879,6 +3265,7 @@ def main() -> int:
         "card": card,
     }}))
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"serve_app": serve_app}))
     print(json.dumps({"train_sharded": sharded}))
     print(json.dumps({"train_pp": pp}))
     print(json.dumps({"runtime": runtime}))

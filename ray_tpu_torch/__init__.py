@@ -3,7 +3,7 @@
 
 It mirrors `ray_tpu`'s layout: the actor runtime (`init`, `remote`,
 `get`, `put`, `wait`, actors, the object store, the daemon and its
-workers, `dag`), copied, and the compute stack (`ops/`, `models/`,
+workers, `dag`, `serve`), copied, and the compute stack (`ops/`, `models/`,
 `parallel/`, `train/`, `llm/`), ported. It imports `torch` and never
 `jax` or anything under `ray_tpu`; what it needs from a `ray_tpu` module
 it keeps as its own copy. Flash attention runs on CUDA kernels written

@@ -1,8 +1,9 @@
 """LLM inference of the PyTorch/CUDA port (counterpart of `ray_tpu/llm`):
 the continuous-batching engine (engine.py) over a paged KV cache with
 prefix reuse (kv_slots.py), fed by a FIFO slot scheduler gated on block
-availability (scheduler.py). The serve deployment (`ray_tpu/llm/
-serving.py`) is not ported yet: it needs the serve runtime."""
+availability (scheduler.py); serving.py wires it behind
+`ray_tpu_torch.serve` as a multiplexed streaming deployment
+(`build_llm_app`), on the card unless the caller asks for the CPU."""
 
 from .engine import (
     BatchProgram,
@@ -15,6 +16,7 @@ from .engine import (
 )
 from .kv_slots import BlockAllocator, BlocksExhausted, PagedKVCache
 from .scheduler import SlotScheduler
+from .serving import LLMServer, build_llm_app
 
 __all__ = [
     "BatchProgram",
@@ -24,8 +26,10 @@ __all__ = [
     "EngineDead",
     "EngineOverloaded",
     "InferenceEngine",
+    "LLMServer",
     "PagedKVCache",
     "PolicyTicket",
     "SlotScheduler",
     "TokenStream",
+    "build_llm_app",
 ]

@@ -54,10 +54,15 @@ batches from any thread; the loop coalesces everything pending into one
 padded bucket, runs the program's forward ONCE and scatters the rows
 back to their tickets. A policy-only engine passes ``cfg=None``.
 
-Where the JAX engine reports to `serve.observability` and registers its
-programs with the compile watch, this one keeps counters that `stats()`
-returns: decode steps and their time by batch width, prefill chunks,
-tokens and time.
+Observability: as the JAX engine, this one reports every decode step,
+prefill chunk, prefix hit, first token, retirement, occupancy change,
+weight push and policy batch to `serve.observability` (the
+`serve_engine_*` series, tagged with the engine's app, deployment and
+family); the hooks are guarded, so a failure there never fails a
+decode. It also keeps counters that `stats()` returns: decode steps
+and their time by batch width, prefill chunks, tokens and time. The JAX
+engine's registration of its programs with the compile watch has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -138,8 +143,8 @@ class EngineConfig:
 class _Request:
     __slots__ = (
         "request_id", "prompt", "max_new_tokens", "eos_token",
-        "out", "cancelled", "emitted", "slot", "bucket", "offset",
-        "padded",
+        "out", "cancelled", "submitted_ts", "first_token_ts",
+        "emitted", "slot", "bucket", "offset", "padded",
         "prefix_keys", "total_blocks", "block_ids", "n_shared",
         "skip", "gen",
     )
@@ -161,6 +166,8 @@ class _Request:
         #: decode batch); depth is bounded in practice by max_new.
         self.out: "queue.Queue" = queue.Queue()
         self.cancelled = threading.Event()
+        self.submitted_ts = time.perf_counter()
+        self.first_token_ts: Optional[float] = None
         self.emitted = 0
         # prefill progress (engine thread only)
         self.slot: Optional[int] = None
@@ -334,6 +341,8 @@ class InferenceEngine:
         engine_config: Optional[EngineConfig] = None,
         *,
         family: str = "",
+        app: str = "",
+        deployment: str = "",
         program: Optional[BatchProgram] = None,
     ):
         ec = engine_config or EngineConfig()
@@ -346,6 +355,10 @@ class InferenceEngine:
             raise ValueError(
                 "cfg=None (policy-only engine) requires a `program`"
             )
+        self._tags = {
+            "app": app, "deployment": deployment,
+            "family": family or "default",
+        }
         self._device = _module_device(params)
         self._lock = threading.Lock()
         self._wake = threading.Event()
@@ -529,6 +542,7 @@ class InferenceEngine:
             self._weight_version = v
             self.params = params
             self._prune_gens_locked()
+        self._observe_weights()
         self._wake.set()
         return v
 
@@ -700,6 +714,7 @@ class InferenceEngine:
                 rows += req.n
             entry = self._gens[self._gen_latest]
             params, version = entry["params"], entry["version"]
+        t0 = time.perf_counter()
         bucket = self._program.bucket_for(rows)
         sample = batch[0].inputs
         padded = np.zeros(
@@ -740,6 +755,9 @@ class InferenceEngine:
             cursor += req.n
         self._policy_steps += 1
         self._policy_rows_served += rows
+        self._observe_policy(
+            (time.perf_counter() - t0) * 1e3, rows, bucket
+        )
         return True
 
     # -- cancellation / completion ------------------------------------
@@ -796,6 +814,11 @@ class InferenceEngine:
         self._by_id.pop(req.request_id, None)
         self._requests_done += 1
         req.out.put(("end", reason))
+        self._observe_finish(reason)
+        # Push occupancy from the retirement itself: cancellation/
+        # drain may leave no alive rows, so no decode step would ever
+        # publish the freed slots.
+        self._observe_occupancy()
 
     def _fail_all_locked(self, error: BaseException) -> None:
         if self._prefilling is not None:
@@ -825,6 +848,7 @@ class InferenceEngine:
             self._policy_rows_pending -= preq.n
             preq.error = error
             preq.done.set()
+        self._observe_occupancy()
 
     # -- admission / block allocation ---------------------------------
     def _skip_for(self, req: _Request, hit_blocks: int) -> int:
@@ -882,6 +906,7 @@ class InferenceEngine:
             self._prefix_tokens_saved += skip
         else:
             self._prefix_misses += 1
+        self._observe_prefix(skip)
 
     # -- prefill -------------------------------------------------------
     def _advance_prefill(self) -> bool:
@@ -941,9 +966,11 @@ class InferenceEngine:
         # Waits for the chunk, as the JAX engine does, so its time is
         # the device's.
         self._sync()
+        chunk_ms = (time.perf_counter() - t0) * 1e3
         self._prefill_chunks += 1
         self._prefill_tokens += chunk
-        self._prefill_ms += (time.perf_counter() - t0) * 1e3
+        self._prefill_ms += chunk_ms
+        self._observe_prefill(chunk_ms, chunk)
         if last_chunk:
             req.padded = None
             with self._lock:
@@ -1050,6 +1077,7 @@ class InferenceEngine:
             tokens = merged_tokens.cpu().numpy()  # ONE copy for the window
         step_ms = (time.perf_counter() - t0) * 1e3
         self._steps += 1
+        now = time.perf_counter()
         emitted = 0
         with self._lock:
             for slot in alive_idx:
@@ -1057,6 +1085,11 @@ class InferenceEngine:
                 if req is None:  # freed this iteration
                     continue
                 tok = int(tokens[slot])
+                if req.first_token_ts is None:
+                    req.first_token_ts = now
+                    self._observe_ttft(
+                        (now - req.submitted_ts) * 1e3
+                    )
                 req.out.put(("tok", tok))
                 req.emitted += 1
                 emitted += 1
@@ -1069,4 +1102,102 @@ class InferenceEngine:
             row = self._decode_by_batch.setdefault(batch, [0, 0.0])
             row[0] += 1
             row[1] += step_ms
+        self._observe_step(step_ms, batch, emitted)
         return True
+
+    # -- metrics -------------------------------------------------------
+    # All hooks are guarded no-ops on failure: observability must
+    # never fail a decode (serve/observability.py owns the metric
+    # definitions; the engine just reports).
+
+    def _block_stats(self) -> Dict[str, int]:
+        if self._kv is None:
+            return {"kv_used": 0, "kv_total": 0, "kv_cached": 0}
+        alloc = self._kv.alloc
+        return {
+            "kv_used": alloc.used(),
+            "kv_total": alloc.capacity(),
+            "kv_cached": alloc.cached(),
+        }
+
+    def _observe_step(
+        self, step_ms: float, batch: int, tokens: int
+    ) -> None:
+        try:
+            from ..serve.observability import observe_engine_step
+
+            stats = self._sched.stats()
+            observe_engine_step(
+                self._tags, step_ms, batch, tokens,
+                stats["slots_used"], stats["slots_total"],
+                stats["waiting"], **self._block_stats(),
+            )
+        except Exception:
+            pass
+
+    def _observe_prefill(self, chunk_ms: float, tokens: int) -> None:
+        try:
+            from ..serve.observability import observe_engine_prefill
+
+            observe_engine_prefill(self._tags, chunk_ms, tokens)
+        except Exception:
+            pass
+
+    def _observe_prefix(self, skip_tokens: int) -> None:
+        try:
+            from ..serve.observability import observe_engine_prefix
+
+            observe_engine_prefix(self._tags, skip_tokens)
+        except Exception:
+            pass
+
+    def _observe_ttft(self, ttft_ms: float) -> None:
+        try:
+            from ..serve.observability import observe_engine_ttft
+
+            observe_engine_ttft(self._tags, ttft_ms)
+        except Exception:
+            pass
+
+    def _observe_finish(self, reason: str) -> None:
+        try:
+            from ..serve.observability import observe_engine_finish
+
+            observe_engine_finish(self._tags, reason)
+        except Exception:
+            pass
+
+    def _observe_occupancy(self) -> None:
+        try:
+            from ..serve.observability import (
+                observe_engine_occupancy,
+            )
+
+            if self._sched is None:
+                return
+            stats = self._sched.stats()
+            observe_engine_occupancy(
+                self._tags, stats["slots_used"],
+                stats["slots_total"], stats["waiting"],
+                **self._block_stats(),
+            )
+        except Exception:
+            pass
+
+    def _observe_weights(self) -> None:
+        try:
+            from ..serve.observability import observe_engine_weights
+
+            observe_engine_weights(self._tags, self._weight_version)
+        except Exception:
+            pass
+
+    def _observe_policy(
+        self, batch_ms: float, rows: int, bucket: int
+    ) -> None:
+        try:
+            from ..serve.observability import observe_engine_policy
+
+            observe_engine_policy(self._tags, batch_ms, rows, bucket)
+        except Exception:
+            pass

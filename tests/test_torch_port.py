@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from ray_tpu.models import llama as jax_llama
-from ray_tpu_torch.llm import kv_slots
+from ray_tpu_torch.llm import kv_slots, serving
 from ray_tpu_torch.models import generate, hf_convert, llama
 from ray_tpu_torch import graft_entry
 from ray_tpu_torch.ops import init_moe_params
@@ -91,6 +91,64 @@ def test_sharded_training_modules_leave_jax_out(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=100)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "ray_tpu_torch.serve",
+    "ray_tpu_torch.llm.serving",
+    "ray_tpu_torch.cluster_utils",
+])
+def test_serving_modules_leave_jax_out(module):
+    """Each alone, in a fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'ray_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=100)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_served_app_and_its_replica_leave_jax_and_ray_tpu_out():
+    """`serve.run` of `build_llm_app` in a fresh interpreter: neither
+    the driver nor the replica that served a request imports JAX or
+    anything of `ray_tpu`."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch import serve\n"
+        "from ray_tpu_torch.llm import LLMServer, build_llm_app\n"
+        "class Probe(LLMServer):\n"
+        "    def bad(self):\n"
+        "        import sys\n"
+        "        return sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "                      in ('jax', 'jaxlib', 'optax', 'ray_tpu'))\n"
+        "rt.init(num_cpus=3)\n"
+        "app = build_llm_app({'t': {'kind': 'init', 'config': {\n"
+        "    'vocab_size': 32, 'dim': 16, 'n_layers': 1, 'n_heads': 2,\n"
+        "    'n_kv_heads': 1, 'intermediate': 32, 'dtype': 'float32'}}},\n"
+        "    engine={'slots': 1, 'max_len': 16, 'prefill_chunk': 8,\n"
+        "            'max_new_tokens': 2}, device='cpu')\n"
+        "app.deployment._cls = Probe\n"
+        "h = serve.run(app, name='probe', route_prefix=None)\n"
+        "n = len(list(h.options(stream=True).remote({'prompt': [1, 2]})))\n"
+        "out = {'tokens': n, 'replica': h.bad.remote().result(timeout=60)}\n"
+        "serve.shutdown()\n"
+        "rt.shutdown()\n"
+        "out['driver'] = sorted(m for m in sys.modules if m.split('.')[0]\n"
+        "                       in ('jax', 'jaxlib', 'optax', 'ray_tpu'))\n"
+        "print(out)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = eval(proc.stdout.strip().splitlines()[-1])
+    assert out == {"tokens": 2, "replica": [], "driver": []}, out
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -192,7 +250,9 @@ def test_entry_points_default_to_the_card():
     for entry in (generate.init_kv_cache, generate.init_block_pool,
                   hf_convert.load_hf_llama, kv_slots.PagedKVCache,
                   MeshSpec.build, graft_entry.entry, init_torch_distributed,
-                  run_local_gang, pipeline_mesh, init_moe_params):
+                  run_local_gang, pipeline_mesh, init_moe_params,
+                  serving.build_model, serving.LLMServer,
+                  serving.build_llm_app):
         assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
