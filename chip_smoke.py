@@ -116,6 +116,30 @@ Phases, none of whose failures is caught:
       `moe_ffn_dense` at 8192 tokens x 4096, 8 experts of 4096 x 11008,
       top-2, bf16, capacity factor E/k (nothing drops): outputs held at
       REL_TOL, aux within AUX_TOL.
+  (g4) after (g3), the MPMD pipeline (`MPMDPipeline`, device "cuda"):
+      `ray_tpu_torch.init(num_cpus=4, num_gpus=1)`, and 2 stage actors
+      that share the card (num_gpus 0.5 each, fresh GPU workers). (g4a)
+      at (e1)'s small width in f32, batch 4 x 64 in 2 microbatches, one
+      SGD step at lr 0.1: the loss within MPMD_LOSS_ABS of one card's
+      `loss_fn` on the same weights and batch, and `collect_params()`
+      within MPMD_PARAM_RTOL / MPMD_PARAM_ATOL of params - 0.1 * grad
+      from one card's autograd; held to the same computed on targets
+      shifted by one position, they must fail. (g4b) the Llama-2-7B width
+      at MPMD_LAYERS layers, bf16, remat "full", weights and a batch of
+      MPMD_MICROBATCHES x 4096 from phase (c)'s seed; one card's loss
+      under `torch.no_grad()` and (c)'s step at the same batch (the
+      yardstick), freed before the stages start; then MPMD_STEPS steps
+      of `default_optimizer` in microbatches of 1 under each schedule:
+      1F1B (2 stages of one chunk) and interleaved (2 stages of 2
+      chunks). Step 1's loss must lie within MESH_LOSS_REL of one
+      card's, the loss must be finite and fall, the stash peaks within
+      `stash_bound`, and the flash launch counts read in each stage's
+      process (zeroed just before the steps) must equal
+      `mpmd_expected_launches`: per microbatch, a layer of a chunk
+      other than the last runs the forward kernel in its F op and, under
+      remat "full", twice in its B op (the chunk's recompute and the
+      layer's own), a layer of the last chunk twice in its B op, and
+      every layer one backward op.
   (e) serving, after (c) has freed its model and optimizer: (e1) at a
       small width in f32 (vocab 512, dim 256, 2 layers, 4 heads on 2 KV
       heads), 6 greedy requests through the engine (slots 4, max_len
@@ -179,6 +203,10 @@ tokens/s, MFU, peak memory, losses and launches of each (f1) policy
 and of (f2); (f3)'s checkpoints and `ckpt_block_ms`), then
 `{"train_pp": {...}}` (step ms, tokens/s, MFU, peak memory, losses and
 launches per step of (g1) and (g2); (g3)'s errors and times), then
+`{"train_mpmd": {...}}` ((g4): per schedule the losses, step ms,
+tokens/s, each stage's busy, wall and optimizer ms, edge waits and
+bytes and peak memory, the bubble bound, the build's ms, the launches;
+(c)'s step at the same batch; (g4a)'s errors and its control), then
 `{"runtime": {...}}` ((h1)), `{"gemma": {...}}` ((h2)), `{"wide":
 {...}}` ((h3), the f32 run under "f32") and `{"f32_any": {...}}` ((h4)),
 then the card's name and power limit, and as the last
@@ -194,11 +222,17 @@ run first; every mesh spans its gang's whole group):
 ep 2 with 8 experts; `make_train_step` under "dots_flash" over
 `MeshSpec(fsdp=4)` and `MeshSpec(fsdp=2, tp=2)`; then
 `TorchTrainer(num_workers=4)` on a gang of the runtime's `num_gpus=1`
-actors (NCCL, `MeshSpec(fsdp=4)`), held to the local gang's fsdp4 run.
-Each run's loss must fall and its step 1 lie within CARDS4_LOSS_REL of
-one card's; it prints
+actors (NCCL, `MeshSpec(fsdp=4)`), held to the local gang's fsdp4 run;
+then `MPMDPipeline` in 4 stages, one per card, at CARDS4_MPMD_LAYERS
+layers and CARDS4_MPMD_MICROBATCHES x 4096 in microbatches of 1, held
+to one card's loss on the same weights and batch (and (g4b)'s other
+bars). Each run's loss must fall and its step 1 lie within
+CARDS4_LOSS_REL of one card's; it prints
 `{"four_cards": {...}}` (step ms, tokens/s, peak per card). It fails on
 a machine with fewer than 4 cards.
+
+`--only-mpmd` builds the kernels and runs only phase (g4) (with
+`--cards 4`, only the four-card MPMD run), then the last two lines.
 
 `--profile` traces one more step with torch.profiler after the slice
 and prints `{"profile": ...}`: device time by kernel, and idle share.
@@ -328,6 +362,30 @@ AUX_TOL = 1e-3
 CARDS4_LOSS_REL = 1e-2
 #: `--cards 4`: rows of the batch (ep 2 x 2 microbatches).
 CARDS4_BATCH = 4
+#: Phase (g4), the MPMD pipeline. (g4a) at (e1)'s small width in f32,
+#: one SGD step, 2 stages of one chunk, 2 microbatches, held to one
+#: card's autograd at the bars of the reference's own parity test
+#: (`tests/test_pipeline_mpmd.py`): the loss absolutely, the parameters
+#: after the step relatively.
+MPMD_SMALL = {"vocab_size": 512, "dim": 256, "n_layers": 2, "n_heads": 4,
+              "n_kv_heads": 2, "intermediate": 512, "max_seq_len": 256}
+MPMD_SMALL_BATCH, MPMD_SMALL_SEQ, MPMD_SMALL_LR = 4, 64, 0.1
+MPMD_LOSS_ABS = 2e-5
+MPMD_PARAM_RTOL, MPMD_PARAM_ATOL = 2e-4, 2e-5
+#: (g4b) the Llama-2-7B width at MPMD_LAYERS, bf16, remat "full", phase
+#: (c)'s seed, MPMD_STEPS steps of `default_optimizer` on a batch of
+#: MPMD_MICROBATCHES x SEQ in microbatches of 1, under each schedule:
+#: (label, chunks per stage) over 2 stages that share the card.
+MPMD_SEED = 0
+MPMD_LAYERS = 4
+MPMD_STEPS = 3
+MPMD_MICROBATCHES = 4
+MPMD_SCHEDULES = (("1f1b", 1), ("interleaved", 2))
+#: `--cards 4`: 4 stages, one per card, at the 7B width on
+#: CARDS4_MPMD_LAYERS layers, CARDS4_MPMD_MICROBATCHES x SEQ in
+#: microbatches of 1, against one card's loss (CARDS4_LOSS_REL).
+CARDS4_MPMD_LAYERS = 8
+CARDS4_MPMD_MICROBATCHES = 8
 #: Dense f32 peak of an H100 SXM outside the tensor cores, and its dense
 #: TF32 tensor-core peak (NVIDIA data sheet). An f32 kernel's operations
 #: bound is the lesser of its products at 67 TFLOP/s and the same
@@ -1872,6 +1930,314 @@ def pp_phase(torch, llama, attn, card, n_layers, dev, f1_full_loss,
     }
 
 
+def mpmd_expected_launches(cfg, pipe, steps):
+    """The flash launches each stage of `pipe` must count in `steps`
+    steps. Per microbatch a layer of a chunk other than the last runs
+    its forward in the F op and again in the B op's recompute; the last
+    chunk's F op runs nothing. Inside the B op `cfg.remat` applies per
+    layer as in the plain step: "full" and "dots" rerun each layer's
+    forward in the backward, "dots_flash" keeps the flash outputs. Each
+    layer runs one backward op (3 launches) per microbatch."""
+    in_b = 2 if cfg.remat and cfg.remat_policy != "dots_flash" else 1
+    out = []
+    for s in range(pipe.n):
+        fwd = bwd = 0
+        for c in range(s, pipe.V, pipe.n):
+            lo, hi = pipe.bounds[c]
+            fwd += (hi - lo) * (in_b + (c != pipe.V - 1))
+            bwd += hi - lo
+        runs = steps * pipe.m
+        out.append({"flash_fwd": runs * fwd,
+                    **{name: runs * bwd for name in BWD_LAUNCHES}})
+    return out
+
+
+def mpmd_steps(torch, rt, pipe, tokens, targets, steps):
+    """`steps` steps of `pipe`, timed by the host clock, with every
+    stage's flash launch counts and peak memory zeroed just before them
+    and read just after. Returns the record of the run."""
+    rt.get([a.take_launch_counts.remote() for a in pipe.stages], timeout=60)
+    rt.get([a.peak_memory.remote() for a in pipe.stages], timeout=60)
+    losses, step_s, outs = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = pipe.step(tokens, targets)
+        step_s.append(time.perf_counter() - t0)
+        losses.append(out["loss"])
+        outs.append(out["stages"])
+    launches = rt.get([a.take_launch_counts.remote() for a in pipe.stages],
+                      timeout=60)
+    memory = rt.get([a.peak_memory.remote() for a in pipe.stages],
+                    timeout=60)
+    steady = statistics.median(step_s[1:]) if steps > 1 else step_s[0]
+    last = outs[-1]
+    # Step 1 pays each stage process's first launches: kept apart.
+    first = [{k: st[k] for k in ("busy_ms", "wall_ms", "opt_ms", "op_ms")}
+             for st in outs[0]]
+    return {
+        "first_step_stages": first,
+        "losses": losses, "step_ms": [x * 1e3 for x in step_s],
+        "steady_step_ms": steady * 1e3,
+        "tokens_per_s": tokens.shape[0] * tokens.shape[1] / steady,
+        "bounds": pipe.bounds, "stash_bound": pipe.stash_bound,
+        "stash_peaks": [[st["stash_peak"] for st in o] for o in outs],
+        "theoretical_efficiency": pipe.theoretical_efficiency(),
+        "build_ms": pipe.build_ms,
+        "launches": launches,
+        "expected_launches": mpmd_expected_launches(pipe.cfg, pipe, steps),
+        "stages": [{
+            "device": mem["device"],
+            "max_memory_allocated": mem["max_memory_allocated"],
+            "busy_ms": st["busy_ms"], "wall_ms": st["wall_ms"],
+            "opt_ms": st["opt_ms"], "op_ms": st["op_ms"],
+            "send_wait_ms": sum(e["send_wait_ms"] for e in st["edges"]),
+            "recv_wait_ms": sum(e["recv_wait_ms"] for e in st["edges"]),
+            "bytes_out": sum(e["bytes_out"] for e in st["edges"]),
+            "bytes_in": sum(e["bytes_in"] for e in st["edges"]),
+        } for st, mem in zip(last, memory)],
+    }
+
+
+def mpmd_print(label, r, ref_loss):
+    print(f"{label}: losses {[round(x, 5) for x in r['losses']]} (step 1 "
+          f"relative to one card's {ref_loss:.5f}: "
+          f"{rel(r['losses'][0], ref_loss):.2e}), step "
+          f"{r['steady_step_ms']:.2f} ms, {r['tokens_per_s']:.0f} tokens/s, "
+          f"bubble bound {r['theoretical_efficiency']:.3f}, bounds "
+          f"{r['bounds']}, stash peaks {r['stash_peaks']} (bound "
+          f"{r['stash_bound']}), build ms "
+          f"{ {k: round(v, 1) for k, v in r['build_ms'].items()} }")
+    print(f"  step 1 ({r['step_ms'][0]:.1f} ms), busy / wall ms by stage: "
+          f"{[(st['busy_ms'], st['wall_ms']) for st in r['first_step_stages']]}"
+          f", ops {[st['op_ms'] for st in r['first_step_stages']]}")
+    for s, st in enumerate(r["stages"]):
+        print(f"  stage {s} on {st['device']}: busy {st['busy_ms']} ms, "
+              f"wall {st['wall_ms']} ms, opt {st['opt_ms']} ms, "
+              f"send wait {st['send_wait_ms']:.3f} ms, recv wait "
+              f"{st['recv_wait_ms']:.3f} ms, ops {st['op_ms']}, bytes out "
+              f"{st['bytes_out']} in "
+              f"{st['bytes_in']}, peak {st['max_memory_allocated']} B, "
+              f"launches {r['launches'][s]}")
+
+
+def mpmd_held(r, ref_loss):
+    """(g4b)'s and `--cards 4`'s bars on one run's record."""
+    losses = r["losses"]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], losses
+    assert max(max(p) for p in r["stash_peaks"]) <= r["stash_bound"], r
+    # The other pairs' counters must read 0.
+    expected = [{**dict.fromkeys(got, 0), **want} for got, want in
+                zip(r["launches"], r["expected_launches"])]
+    assert r["launches"] == expected, (r["launches"], expected)
+
+
+def flagship_weights(torch, llama, cfg, rows, dev):
+    """Weights (a state dict on the CPU) and a batch [rows, SEQ + 1] on
+    `dev` drawn from MPMD_SEED (phase (c)'s), and one card's loss on
+    them under `torch.no_grad()`; the model is freed."""
+    g = torch.Generator(device=dev).manual_seed(MPMD_SEED)
+    model = llama.init_params(cfg, g, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (rows, SEQ + 1), generator=g,
+                          device=dev)
+    with torch.no_grad():
+        ref_loss = llama.loss_fn(model, batch[:, :-1], batch[:, 1:]).item()
+    state = {k: v.detach().to("cpu", copy=True)
+             for k, v in model.state_dict().items()}
+    return model, state, batch, ref_loss
+
+
+def mpmd_exactness(torch, llama, dev):
+    """(g4a): one SGD step of the MPMD pipeline at the small width in f32
+    against one card's autograd on the same weights and batch, and the
+    control: the same results against targets shifted by one position
+    must fail the bars."""
+    import functools
+
+    from ray_tpu_torch.train import SGD, MPMDPipeline
+
+    cfg = llama.LlamaConfig(**MPMD_SMALL, dtype=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(MPMD_SEED)
+    state = {k: v.detach().to("cpu", copy=True) for k, v in
+             llama.init_params(cfg, g, device=dev).state_dict().items()}
+    batch = torch.randint(0, cfg.vocab_size,
+                          (MPMD_SMALL_BATCH, MPMD_SMALL_SEQ + 1), generator=g,
+                          device=dev)
+    tokens, targets = batch[:, :-1], batch[:, 1:]
+
+    def one_card(tgt):
+        model = llama.Llama(cfg, device=dev)
+        model.load_state_dict(state)
+        loss = llama.loss_fn(model, tokens, tgt)
+        loss.backward()
+        return loss.item(), {
+            n: (p.detach() - MPMD_SMALL_LR * p.grad).cpu()
+            for n, p in model.named_parameters()}
+
+    want = one_card(targets)
+    control = one_card(targets.roll(1, dims=1))
+    pipe = MPMDPipeline(
+        cfg, 2, num_microbatches=2,
+        microbatch_size=MPMD_SMALL_BATCH // 2, seq_len=MPMD_SMALL_SEQ,
+        optimizer_factory=functools.partial(SGD, MPMD_SMALL_LR),
+        params=state, device="cuda")
+    try:
+        loss = pipe.step(tokens.cpu(), targets.cpu())["loss"]
+        got = pipe.collect_params()
+    finally:
+        pipe.shutdown()
+
+    def errors(ref):
+        ref_loss, ref_params = ref
+        excess = max(((got[n] - w).abs() - MPMD_PARAM_ATOL
+                      - MPMD_PARAM_RTOL * w.abs()).max().item()
+                     for n, w in ref_params.items())
+        worst = max((got[n] - w).abs().max().item()
+                    for n, w in ref_params.items())
+        return {"loss_err": abs(loss - ref_loss), "param_max_abs_err": worst,
+                "param_excess": excess,
+                "held": abs(loss - ref_loss) <= MPMD_LOSS_ABS
+                and excess <= 0.0}
+
+    rec = {"config": {**MPMD_SMALL, "dtype": "float32"},
+           "batch": MPMD_SMALL_BATCH, "seq": MPMD_SMALL_SEQ,
+           "microbatches": 2, "lr": MPMD_SMALL_LR, "loss": loss,
+           "one_card_loss": want[0], **errors(want),
+           "control": errors(control),
+           "bars": {"loss_abs": MPMD_LOSS_ABS, "param_rtol": MPMD_PARAM_RTOL,
+                    "param_atol": MPMD_PARAM_ATOL}}
+    print(f"(g4a) MPMD 2 stages x 2 microbatches, f32 small width, one SGD "
+          f"step: loss {loss:.7f} against one card's {want[0]:.7f} (err "
+          f"{rec['loss_err']:.2e}, bar {MPMD_LOSS_ABS}), parameters max abs "
+          f"err {rec['param_max_abs_err']:.2e} (excess over rtol "
+          f"{MPMD_PARAM_RTOL} / atol {MPMD_PARAM_ATOL}: "
+          f"{rec['param_excess']:.2e}); control, targets shifted one "
+          f"position (must fail): {rec['control']}")
+    assert rec["held"], rec
+    assert not rec["control"]["held"], rec["control"]
+    return rec
+
+
+def mpmd_phase(torch, llama, attn, card, dev):
+    """Phase (g4), after (g3) has freed its memory: the MPMD pipeline's
+    stage actors on the card ((g4a), then (g4b) under each of
+    MPMD_SCHEDULES, with (c)'s single-card step at the same batch beside
+    them). Returns the `{"train_mpmd": ...}` record."""
+    import functools
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import (
+        MPMDPipeline,
+        default_optimizer,
+        make_train_step,
+    )
+
+    rt.init(num_cpus=4, num_gpus=1)
+    try:
+        g4a = mpmd_exactness(torch, llama, dev)
+        cfg = llama.LlamaConfig.llama2_7b(n_layers=MPMD_LAYERS,
+                                          max_seq_len=SEQ)
+        model, state, batch, ref_loss = flagship_weights(
+            torch, llama, cfg, MPMD_MICROBATCHES, dev)
+        # (c)'s single-card step at the same batch, weights and
+        # optimizer: the yardstick the stages are read beside.
+        init_fn, step_fn = make_train_step(
+            llama.loss_fn,
+            default_optimizer(learning_rate=3e-4, total_steps=20),
+            device=dev)
+        single = train_steps(torch, llama, attn, cfg, init_fn(model),
+                             step_fn, batch[:, :-1], batch[:, 1:],
+                             steps=MPMD_STEPS)
+        del model, init_fn, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        tokens, targets = batch[:, :-1].cpu(), batch[:, 1:].cpu()
+        del batch
+        print(f"(g4b) one card, make_train_step at {MPMD_MICROBATCHES} x "
+              f"{SEQ}: losses {[round(x, 5) for x in single['losses']]} "
+              f"(no_grad loss {ref_loss:.5f}), step "
+              f"{single['steady_step_ms']:.2f} ms, "
+              f"{single['tokens_per_s']:.0f} tokens/s, peak "
+              f"{single['max_memory_allocated']} B")
+        runs = {}
+        for label, v in MPMD_SCHEDULES:
+            pipe = MPMDPipeline(
+                cfg, 2, num_microbatches=MPMD_MICROBATCHES,
+                microbatch_size=1, seq_len=SEQ, chunks_per_stage=v,
+                optimizer_factory=functools.partial(
+                    default_optimizer, learning_rate=3e-4, total_steps=20),
+                params=state, device="cuda")
+            try:
+                r = mpmd_steps(torch, rt, pipe, tokens, targets, MPMD_STEPS)
+            finally:
+                pipe.shutdown()
+            r["loss_rel_to_one_card"] = rel(r["losses"][0], ref_loss)
+            runs[label] = r
+            mpmd_print(f"(g4b) MPMD {label}, 2 stages x {v} chunks on one "
+                       "card", r, ref_loss)
+            mpmd_held(r, ref_loss)
+            assert r["loss_rel_to_one_card"] <= MESH_LOSS_REL, r
+    finally:
+        rt.shutdown()
+    return {"card": card,
+            "config": f"llama2_7b width, {MPMD_LAYERS} layers, bf16, flash, "
+                      "remat full",
+            "batch": MPMD_MICROBATCHES, "seq": SEQ,
+            "microbatches": MPMD_MICROBATCHES, "steps": MPMD_STEPS,
+            "one_card_no_grad_loss": ref_loss, "one_card_step": single,
+            "bars": {"loss_rel_to_one_card": MESH_LOSS_REL},
+            "g4a": g4a, "g4b": runs}
+
+
+def cards4_mpmd_run(torch, card):
+    """`--cards 4`: the MPMD pipeline in 4 stages, one per card, at the
+    7B width on CARDS4_MPMD_LAYERS layers, against one card's loss on
+    the same weights and batch. Returns its record."""
+    import functools
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train import MPMDPipeline, default_optimizer
+
+    if torch.cuda.device_count() < 4:
+        raise RuntimeError(f"--cards 4 needs 4 cards, this machine has "
+                           f"{torch.cuda.device_count()}")
+    dev = torch.device("cuda", 0)
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=CARDS4_MPMD_LAYERS,
+                                      max_seq_len=SEQ)
+    model, state, batch, ref_loss = flagship_weights(
+        torch, llama, cfg, CARDS4_MPMD_MICROBATCHES, dev)
+    del model
+    tokens, targets = batch[:, :-1].cpu(), batch[:, 1:].cpu()
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt.init(num_cpus=8, num_gpus=4)
+    try:
+        pipe = MPMDPipeline(
+            cfg, 4, num_microbatches=CARDS4_MPMD_MICROBATCHES,
+            microbatch_size=1, seq_len=SEQ,
+            optimizer_factory=functools.partial(
+                default_optimizer, learning_rate=3e-4, total_steps=20),
+            params=state, device="cuda")
+        try:
+            r = mpmd_steps(torch, rt, pipe, tokens, targets, MPMD_STEPS)
+        finally:
+            pipe.shutdown()
+    finally:
+        rt.shutdown()
+    r["loss_rel_to_one_card"] = rel(r["losses"][0], ref_loss)
+    mpmd_print(f"--cards 4, MPMD 4 stages x 1 chunk, {CARDS4_MPMD_LAYERS} "
+               f"layers, {CARDS4_MPMD_MICROBATCHES} x {SEQ}", r, ref_loss)
+    mpmd_held(r, ref_loss)
+    assert sorted(st["device"] for st in r["stages"]) == [
+        f"cuda:{i}" for i in range(4)], r["stages"]
+    assert r["loss_rel_to_one_card"] <= CARDS4_LOSS_REL, r
+    return {"card": card, "layers": CARDS4_MPMD_LAYERS,
+            "batch": CARDS4_MPMD_MICROBATCHES, "seq": SEQ,
+            "one_card_no_grad_loss": ref_loss, **r}
+
+
 def cards_rank(rank, n_layers, world):
     """One rank of `--cards 4`'s gangs (NCCL, one card a rank): with
     world 1 the references on one card, with world 4 the four-card runs,
@@ -1990,6 +2356,7 @@ def four_card_phase(torch, card, n_layers):
         n_layers, runs["fsdp4"]["losses"])
     return {"card": card, "cards": 4, "batch": CARDS4_BATCH, "seq": SEQ,
             "layers": n_layers, "runs": runs,
+            "mpmd": cards4_mpmd_run(torch, card),
             "peak_per_card": {name: [rk[name]["max_memory_allocated"]
                                      for rk in ranks] for name in runs
                               if all(name in rk for rk in ranks)},
@@ -2796,6 +3163,10 @@ def main() -> int:
         help="4: build the kernels, then run only the four-card phase "
              "(pipeline, ring, expert and mesh steps on four cards against "
              "one); it fails on a machine with fewer cards")
+    parser.add_argument(
+        "--only-mpmd", action="store_true",
+        help="build the kernels, then run only the MPMD pipeline's phase "
+             "((g4) on one card; with --cards 4, the four-card MPMD run)")
     args = parser.parse_args()
     n_layers = args.layers
 
@@ -2824,9 +3195,15 @@ def main() -> int:
           f"({', '.join(reports) or 'cached'})")
     print_ptxas(reports)
 
-    if args.cards == 4:
-        print(json.dumps({"four_cards": four_card_phase(torch, card,
-                                                        n_layers)}))
+    if args.cards == 4 or args.only_mpmd:
+        if args.cards == 4 and args.only_mpmd:
+            record = {"four_cards": {"mpmd": cards4_mpmd_run(torch, card)}}
+        elif args.cards == 4:
+            record = {"four_cards": four_card_phase(torch, card, n_layers)}
+        else:
+            record = {"train_mpmd": mpmd_phase(
+                torch, llama, attn, card, torch.device("cuda"))}
+        print(json.dumps(record))
         print(f"card: {card}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
@@ -3110,6 +3487,11 @@ def main() -> int:
                   f1_full["losses"][0], args.profile,
                   f1_full.get("alive_at_peak"))
 
+    # ---- (g4) the MPMD pipeline's stage actors on the card -------------
+    t0 = time.perf_counter()
+    mpmd = mpmd_phase(torch, llama, attn, card, dev)
+    print(f"(g4): {time.perf_counter() - t0:.1f} s")
+
     # ---- (e) serving ---------------------------------------------------
     t0 = time.perf_counter()
     serve, serve_requests = serve_phase(torch, llama, attn, card,
@@ -3141,6 +3523,9 @@ def main() -> int:
             "launches_per_step_pp": {
                 g: pp[g]["launches_per_step"]["flash_fwd"]
                 for g in ("g1", "g2")},
+            "launches_mpmd": {
+                label: [n["flash_fwd"] for n in r["launches"]]
+                for label, r in mpmd["g4b"].items()},
             "bound_share": fwd_bound / fwd_ms,
             "vs_library": fwd_ms / sdpa_fwd_ms,
             "shape": [bh, t, d], "causal": True,
@@ -3168,6 +3553,9 @@ def main() -> int:
             "launches_per_step_pp": {
                 g: pp[g]["launches_per_step"]["flash_bwd"]
                 for g in ("g1", "g2")},
+            "launches_mpmd": {
+                label: [n["flash_bwd"] for n in r["launches"]]
+                for label, r in mpmd["g4b"].items()},
             "bound_share": bwd_bound / bwd_ms,
             "vs_library": bwd_ms / sdpa_bwd_ms,
             "shape": [bh, t, d], "causal": True,
@@ -3268,6 +3656,7 @@ def main() -> int:
     print(json.dumps({"serve_app": serve_app}))
     print(json.dumps({"train_sharded": sharded}))
     print(json.dumps({"train_pp": pp}))
+    print(json.dumps({"train_mpmd": mpmd}))
     print(json.dumps({"runtime": runtime}))
     print(json.dumps({"gemma": gemma}))
     print(json.dumps({"wide": wide}))

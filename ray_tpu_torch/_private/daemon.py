@@ -3320,6 +3320,10 @@ class NodeDaemon:
         if host is not None:
             creation_task = TaskID(host.creation_spec["task_id"])
             self.scheduler.release(creation_task)
+            # The freed share may fit a queued task or actor creation
+            # (a pipeline's next stages, built right after the last
+            # ones were killed): dispatch now, not at the next event.
+            self._schedule()
         if not self.is_head:
             try:
                 self.head.call(

@@ -1,12 +1,11 @@
 """Parallelism layer of the PyTorch/CUDA port (counterpart of
 `ray_tpu/parallel`): named device meshes, logical sharding rules, the
-explicit collectives over a mesh dimension's process group, and the
-SPMD GPipe pipeline.
+explicit collectives over a mesh dimension's process group, the SPMD
+GPipe pipeline, and the MPMD pipeline's schedules (`schedule`: 1F1B,
+interleaved 1F1B, their validation and the layer partitioner; a copy of
+the JAX package's pure-Python module)."""
 
-The JAX package's pipeline schedules (`schedule`: 1F1B, interleaved)
-are not ported yet: they go with the MPMD pipeline (ROADMAP queue 1,
-item 4), which the copied actor runtime now carries."""
-
+from . import schedule
 from .collective import (
     all_to_all,
     allgather,
@@ -61,6 +60,7 @@ __all__ = [
     "broadcast_from_last_stage",
     "spmd_pipeline",
     "stack_stage_params",
+    "schedule",
     "single_host_mesh",
     "batch_size_per_host",
     "data_axes",

@@ -2,13 +2,15 @@
 TorchTrainer, the sharded train step, sessions, backends and
 checkpointing.
 
-`make_pp_train_step` is the pipeline-parallel step (pp x sp x ep).
+`make_pp_train_step` is the pipeline-parallel step (pp x sp x ep);
+`MPMDPipeline` the multi-program pipeline (1F1B stage actors of the
+runtime over channel edges, `mpmd_pipeline.py`).
 
 `TorchTrainer(num_workers > 1)` runs on a `WorkerGroup` of the port's
 runtime actors (`worker_group.py`, copied), joined by `TorchBackend`.
 
-Not ported yet: the MPMD pipeline (`MPMDPipeline`), datasets (ROADMAP
-queue 1), and the head-side step telemetry re-exports (`telemetry`)."""
+Not ported yet: datasets (ROADMAP queue 1, item 2) and the head-side
+step telemetry re-exports (`telemetry`, item 7)."""
 
 from .backend import Backend, TorchBackend, init_torch_distributed, run_local_gang
 from .checkpoint import (
@@ -26,6 +28,7 @@ from .config import (
     RunConfig,
     ScalingConfig,
 )
+from .mpmd_pipeline import MPMDPipeline, MPMDPipelineError
 from .pipeline_step import make_pp_train_step, stage_module, to_pipeline_params
 from .session import (
     get_checkpoint,
@@ -35,6 +38,7 @@ from .session import (
     report,
 )
 from .train_step import (
+    SGD,
     TrainState,
     default_optimizer,
     make_train_step,
@@ -57,9 +61,12 @@ __all__ = [
     "TrainState",
     "make_train_step",
     "make_pp_train_step",
+    "MPMDPipeline",
+    "MPMDPipelineError",
     "stage_module",
     "to_pipeline_params",
     "default_optimizer",
+    "SGD",
     "shard_batch",
     "prefetch_to_device",
     "report",

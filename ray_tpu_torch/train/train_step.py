@@ -156,6 +156,25 @@ class AdamW:
         state["count"] = count
 
 
+class SGD:
+    """Plain SGD (optax `sgd` without momentum) with `AdamW`'s interface:
+    each parameter moves by -learning_rate * its gradient; no clip, so
+    `grad_norm` is not read."""
+
+    def __init__(self, learning_rate: float):
+        self.learning_rate = learning_rate
+
+    def init(self, params: List[torch.Tensor]) -> Dict[str, Any]:
+        return {"count": 0}
+
+    @torch.no_grad()
+    def apply(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+              state: Dict[str, Any], grad_norm=None) -> None:
+        for p, g in zip(params, grads):
+            local_shard(p).add_(local_shard(g), alpha=-self.learning_rate)
+        state["count"] += 1
+
+
 def default_optimizer(
     learning_rate: float = 3e-4,
     weight_decay: float = 0.1,

@@ -20,7 +20,8 @@ def test_the_runtime_copies_are_found():
     for copy in ("ray_tpu_torch/_private/daemon.py",
                  "ray_tpu_torch/_private/worker.py",
                  "ray_tpu_torch/api.py", "ray_tpu_torch/dag/compiled.py",
-                 "ray_tpu_torch/train/worker_group.py"):
+                 "ray_tpu_torch/train/worker_group.py",
+                 "ray_tpu_torch/parallel/schedule.py"):
         assert copy in COPIES
 
 

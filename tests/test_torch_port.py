@@ -21,6 +21,7 @@ from ray_tpu_torch import graft_entry
 from ray_tpu_torch.ops import init_moe_params
 from ray_tpu_torch.parallel import MeshSpec, pipeline_mesh
 from ray_tpu_torch.train import (
+    MPMDPipeline,
     init_torch_distributed,
     make_train_step,
     run_local_gang,
@@ -77,6 +78,8 @@ def test_imports_leave_jax_and_ray_tpu_out():
     "ray_tpu_torch.ops.moe",
     "ray_tpu_torch.ops.ring_attention",
     "ray_tpu_torch.train.pipeline_step",
+    "ray_tpu_torch.parallel.schedule",
+    "ray_tpu_torch.train.mpmd_pipeline",
 ])
 def test_sharded_training_modules_leave_jax_out(module):
     """Each alone, in a fresh interpreter."""
@@ -252,7 +255,7 @@ def test_entry_points_default_to_the_card():
                   MeshSpec.build, graft_entry.entry, init_torch_distributed,
                   run_local_gang, pipeline_mesh, init_moe_params,
                   serving.build_model, serving.LLMServer,
-                  serving.build_llm_app):
+                  serving.build_llm_app, MPMDPipeline):
         assert inspect.signature(entry).parameters["device"].default == "cuda"
 
 
