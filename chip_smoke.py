@@ -12,7 +12,9 @@ Phases, none of whose failures is caught:
   (b) hold each kernel against its plain PyTorch version on the card
       (bf16, q/k/v = randn * 0.5), at the slice's shape and at shapes
       that hit the edges of the kernels' 128-row tiles (t 192, t 64,
-      tq 128 / tk 384, kv_len 200 inside a tile, bh 1), and the public
+      tq 128 / tk 384, kv_len 200 inside a tile, bh 1), at the shape
+      sp4_long of `--cards 4` gives each rank (bh 8 x t 16384, causal,
+      the plain version a head at a time), and the public
       `flash_attention` against `mha_reference` computed in f32 on the
       same inputs. The backward op is its three launches (delta and
       dq's accumulator zeroed, the fused kernel, dq's scale and cast)
@@ -220,16 +222,24 @@ each run against the same weights and batch on one card (a gang of one
 run first; every mesh spans its gang's whole group):
 `make_pp_train_step` at pp 2 x sp 2 with ring attention, and at pp 2 x
 ep 2 with 8 experts; `make_train_step` under "dots_flash" over
-`MeshSpec(fsdp=4)` and `MeshSpec(fsdp=2, tp=2)`; then
+`MeshSpec(fsdp=4)`, `MeshSpec(fsdp=2, tp=2)`, `MeshSpec(fsdp=2, sp=2)`
+and `MeshSpec(sp=2, tp=2)` (Ulysses over the flash kernels), over
+`MeshSpec(sp=4)` at 1 x CARDS4_LONG_SEQ (against one card at that
+length), and the 2-layer 8-expert MoE over `MeshSpec(fsdp=2, tp=2)`
+(the experts' products split on their mlp dim; against one card's
+`make_train_step`); then
 `TorchTrainer(num_workers=4)` on a gang of the runtime's `num_gpus=1`
 actors (NCCL, `MeshSpec(fsdp=4)`), held to the local gang's fsdp4 run;
 then `MPMDPipeline` in 4 stages, one per card, at CARDS4_MPMD_LAYERS
 layers and CARDS4_MPMD_MICROBATCHES x 4096 in microbatches of 1, held
 to one card's loss on the same weights and batch (and (g4b)'s other
 bars). Each run's loss must fall and its step 1 lie within
-CARDS4_LOSS_REL of one card's; it prints
-`{"four_cards": {...}}` (step ms, tokens/s, peak per card). It fails on
-a machine with fewer than 4 cards.
+CARDS4_LOSS_REL of one card's, and each `make_train_step` run's flash
+launches on every rank equal one per layer and step, forward and each
+backward launch (the ring run's none); it prints `{"four_cards": {...}}`
+(step ms, tokens/s, peak per card). With `--profile` it traces one more
+step of each `make_train_step` run (device time by group, NCCL's
+apart). It fails on a machine with fewer than 4 cards.
 
 `--only-mpmd` builds the kernels and runs only phase (g4) (with
 `--cards 4`, only the four-card MPMD run), then the last two lines.
@@ -362,6 +372,10 @@ AUX_TOL = 1e-3
 CARDS4_LOSS_REL = 1e-2
 #: `--cards 4`: rows of the batch (ep 2 x 2 microbatches).
 CARDS4_BATCH = 4
+#: `--cards 4`: sp4_long's batch, 1 x CARDS4_LONG_SEQ, the length
+#: sequence parallelism exists for: over sp 4 each rank runs the flash
+#: kernels on 8 of the 32 heads over all 16384 positions.
+CARDS4_LONG_SEQ = 16384
 #: Phase (g4), the MPMD pipeline. (g4a) at (e1)'s small width in f32,
 #: one SGD step, 2 stages of one chunk, 2 microbatches, held to one
 #: card's autograd at the bars of the reference's own parity test
@@ -2238,15 +2252,18 @@ def cards4_mpmd_run(torch, card):
             "one_card_no_grad_loss": ref_loss, **r}
 
 
-def cards_rank(rank, n_layers, world):
+def cards_rank(rank, n_layers, world, profile=False):
     """One rank of `--cards 4`'s gangs (NCCL, one card a rank): with
     world 1 the references on one card, with world 4 the four-card runs,
     on the Llama-2-7B width at `n_layers`, from the same weights and
     batch: `make_pp_train_step` dense (pp 2 x sp 2 with ring attention on
     four cards) and MoE with 8 experts at capacity factor E/k, so that
     nothing drops (pp 2 x ep 2); `make_train_step` under "dots_flash"
-    (over `MeshSpec(fsdp=4)` and `MeshSpec(fsdp=2, tp=2)`). Every mesh
-    spans the gang's whole world. Returns {run: record}."""
+    (over `MeshSpec(fsdp=4)`, `(fsdp=2, tp=2)`, `(fsdp=2, sp=2)` and
+    `(sp=2, tp=2)`; over `(sp=4)` at 1 x CARDS4_LONG_SEQ; the MoE over
+    `(fsdp=2, tp=2)`). Every mesh spans the gang's whole world. With
+    `profile`, one more step of each `make_train_step` run is traced.
+    Returns {run: record}."""
     import torch
 
     from ray_tpu_torch.models import llama
@@ -2271,6 +2288,10 @@ def cards_rank(rank, n_layers, world):
         model.load_state_dict(state)
         return model
 
+    def moe_model(c):
+        return llama.init_params(
+            c, torch.Generator(device=dev).manual_seed(4), device=dev)
+
     def done(name):
         print(f"--cards 4, rank {rank} of {world}: {name} "
               f"{out[name]['steady_step_ms']:.2f} ms", flush=True)
@@ -2290,37 +2311,63 @@ def cards_rank(rank, n_layers, world):
     moe, mesh = (("moe_one_card", pipeline_mesh(1, 1, 1, "cuda"))
                  if world == 1 else
                  ("moe_pp2_ep2", pipeline_mesh(2, 1, 2, "cuda")))
-    out[moe] = pp_run(torch, llama, attn, moe_cfg, [llama.init_params(
-        moe_cfg, torch.Generator(device=dev).manual_seed(4), device=dev)],
-        mesh, batch, PP_MOE_STEPS, False)
+    out[moe] = pp_run(torch, llama, attn, moe_cfg, [moe_model(moe_cfg)],
+                      mesh, batch, PP_MOE_STEPS, False)
     done(moe)
 
     flash = dataclasses.replace(cfg, remat_policy="dots_flash")
+    long = dataclasses.replace(flash, max_seq_len=CARDS4_LONG_SEQ)
+    long_batch = torch.randint(
+        0, cfg.vocab_size, (1, CARDS4_LONG_SEQ + 1),
+        generator=torch.Generator(device=dev).manual_seed(8), device=dev)
+    moe_flash = dataclasses.replace(moe_cfg, n_layers=PP_MOE_LAYERS,
+                                    remat_policy="dots_flash")
     optimizer = default_optimizer(learning_rate=3e-4, total_steps=20)
-    if world == 1:
-        init_fn, step_fn = make_train_step(llama.loss_fn, optimizer,
-                                           device=dev)
-        out["mesh_one_card"] = train_steps(
-            torch, llama, attn, flash, init_fn(whole(flash, init_state)),
-            step_fn, batch[:, :-1], batch[:, 1:])
-        done("mesh_one_card")
-        return out
-    for name, spec in (("fsdp4", MeshSpec(fsdp=4)),
-                       ("fsdp2_tp2", MeshSpec(fsdp=2, tp=2))):
-        mesh = spec.build("cuda")
-        init_fn, step_fn = make_train_step(
-            llama.loss_fn, optimizer, mesh, llama.param_annotations(flash))
-        state = init_fn(whole(flash, init_state))
-        out[name] = train_steps(torch, llama, attn, flash, state, step_fn,
-                                shard_batch(batch[:, :-1], mesh),
-                                shard_batch(batch[:, 1:], mesh))
+    # name -> (mesh spec, config, the whole model, batch); None: one card.
+    runs = {
+        "mesh_one_card": (None, flash, lambda: whole(flash, init_state),
+                          batch),
+        "long_one_card": (None, long, lambda: whole(long, init_state),
+                          long_batch),
+        "moe_mesh_one_card": (None, moe_flash,
+                              lambda: moe_model(moe_flash), batch),
+    } if world == 1 else {
+        "fsdp4": (MeshSpec(fsdp=4), flash, lambda: whole(flash, init_state),
+                  batch),
+        "fsdp2_tp2": (MeshSpec(fsdp=2, tp=2), flash,
+                      lambda: whole(flash, init_state), batch),
+        "fsdp2_sp2": (MeshSpec(fsdp=2, sp=2), flash,
+                      lambda: whole(flash, init_state), batch),
+        "sp2_tp2": (MeshSpec(sp=2, tp=2), flash,
+                    lambda: whole(flash, init_state), batch),
+        "sp4_long": (MeshSpec(sp=4), long, lambda: whole(long, init_state),
+                     long_batch),
+        "moe_fsdp2_tp2": (MeshSpec(fsdp=2, tp=2), moe_flash,
+                          lambda: moe_model(moe_flash), batch),
+    }
+    for name, (spec, c, model, b) in runs.items():
+        if spec is None:
+            init_fn, step_fn = make_train_step(llama.loss_fn, optimizer,
+                                               device=dev)
+            tokens, targets = b[:, :-1], b[:, 1:]
+        else:
+            mesh = spec.build("cuda")
+            init_fn, step_fn = make_train_step(
+                llama.loss_fn, optimizer, mesh, llama.param_annotations(c))
+            tokens = shard_batch(b[:, :-1], mesh)
+            targets = shard_batch(b[:, 1:], mesh)
+        state = init_fn(model())
+        out[name] = train_steps(torch, llama, attn, c, state, step_fn,
+                                tokens, targets, profile)
+        out[name]["n_layers"] = c.n_layers
         done(name)
-        del state, init_fn, step_fn
+        del state, init_fn, step_fn, tokens, targets
+        gc.collect()
         torch.cuda.empty_cache()
     return out
 
 
-def four_card_phase(torch, card, n_layers):
+def four_card_phase(torch, card, n_layers, profile=False):
     """`--cards 4`: `cards_rank` in a gang of one (the references on card
     0), then in a gang of 4. Returns the `{"four_cards": ...}` record."""
     from ray_tpu_torch.train import run_local_gang
@@ -2328,15 +2375,25 @@ def four_card_phase(torch, card, n_layers):
     if torch.cuda.device_count() < 4:
         raise RuntimeError(f"--cards 4 needs 4 cards, this machine has "
                            f"{torch.cuda.device_count()}")
-    one = run_local_gang(cards_rank, 1, (n_layers, 1), device="cuda",
-                         timeout=240)[0]
-    ranks = run_local_gang(cards_rank, 4, (n_layers, 4), device="cuda",
-                           timeout=300)
+    one = run_local_gang(cards_rank, 1, (n_layers, 1, profile),
+                         device="cuda", timeout=300)[0]
+    ranks = run_local_gang(cards_rank, 4, (n_layers, 4, profile),
+                           device="cuda", timeout=360)
     runs = {**one, **ranks[0]}
     for ref, names in (("dense_one_card", ("dense_pp2_sp2_ring",)),
                        ("moe_one_card", ("moe_pp2_ep2",)),
-                       ("mesh_one_card", ("fsdp4", "fsdp2_tp2"))):
+                       ("mesh_one_card", ("fsdp4", "fsdp2_tp2", "fsdp2_sp2",
+                                          "sp2_tp2")),
+                       ("long_one_card", ("sp4_long",)),
+                       ("moe_mesh_one_card", ("moe_fsdp2_tp2",))):
         base = runs[ref]
+        for name in (ref, *names):
+            if "profile" in runs[name]:
+                prof = runs[name]["profile"]
+                print(f"--cards 4, {name}, traced step on rank 0: device "
+                      f"busy {prof['device_busy_ms']:.2f} ms of "
+                      f"{prof['wall_ms']:.2f}, by group {prof['groups_ms']}, "
+                      f"top {prof['top'][:6]}")
         for name in names:
             r = runs[name]
             r["loss_rel_to_one_card"] = [rel(a, b) for a, b in
@@ -2347,15 +2404,32 @@ def four_card_phase(torch, card, n_layers):
                   f"{r['loss_rel_to_one_card'][0]:.2e}), step "
                   f"{r['steady_step_ms']:.2f} ms against "
                   f"{base['steady_step_ms']:.2f} ms on one card, "
-                  f"{r['tokens_per_s']:.0f} tokens/s, peak per card "
-                  f"{[rk[name]['max_memory_allocated'] for rk in ranks]} B")
+                  f"{r['tokens_per_s']:.0f} tokens/s (one card "
+                  f"{base['tokens_per_s']:.0f}), peak per card "
+                  f"{[rk[name]['max_memory_allocated'] for rk in ranks]} B "
+                  f"(one card {base['max_memory_allocated']} B), launches "
+                  f"{r['launches']}")
             assert all(math.isfinite(x) for x in r["losses"])
             assert r["losses"][-1] < r["losses"][0], (name, r["losses"])
             assert r["loss_rel_to_one_card"][0] <= CARDS4_LOSS_REL, (name, r)
+    # The flash kernels' launches on every rank: the mesh steps (under
+    # sp through Ulysses) once a layer and step under "dots_flash", the
+    # ring pp run none.
+    for rk in [one] + ranks:
+        for name, r in rk.items():
+            if "n_layers" in r:
+                each = REMAT_STEPS * r["n_layers"]
+                want = {"flash_fwd": each, **dict.fromkeys(BWD_LAUNCHES, each)}
+            elif name == "dense_pp2_sp2_ring":
+                want = {"flash_fwd": 0, **dict.fromkeys(BWD_LAUNCHES, 0)}
+            else:
+                continue
+            got = {k: r["launches"][k] for k in want}
+            assert got == want, (name, got, want)
     runs["trainer_gang_fsdp4"] = trainer_gang_run(
         n_layers, runs["fsdp4"]["losses"])
     return {"card": card, "cards": 4, "batch": CARDS4_BATCH, "seq": SEQ,
-            "layers": n_layers, "runs": runs,
+            "long_seq": CARDS4_LONG_SEQ, "layers": n_layers, "runs": runs,
             "mpmd": cards4_mpmd_run(torch, card),
             "peak_per_card": {name: [rk[name]["max_memory_allocated"]
                                      for rk in ranks] for name in runs
@@ -3106,8 +3180,10 @@ def profile_serving(torch, gen, model, cfg, ec, live, dev):
 
 def profile_step(torch, run_step):
     """Device time by kernel over one traced step, grouped into the
-    flash kernels, matrix products and the rest; and the device's idle
-    share of the step's wall time (the profiler's own cost included)."""
+    flash kernels, matrix products, NCCL's collectives and the rest; and
+    the device's idle share of the step's wall time (the profiler's own
+    cost included), of the compute kernels (the collectives overlap
+    them on their own streams)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3116,20 +3192,27 @@ def profile_step(torch, run_step):
         run_step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # c10d marks each NCCL kernel's span again on the device as
+    # "nccl:<op>": count the kernel once.
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith("nccl:")]
     kernels.sort(key=lambda row: -row[1])
-    groups = {"flash": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"flash": 0.0, "matmul": 0.0, "nccl": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         low = name.lower()
         if any(k in low for k in FLASH_KERNELS):
             groups["flash"] += ms
+        elif "nccl" in low:
+            groups["nccl"] += ms
         elif any(w in low for w in ("gemm", "xmma", "cutlass", "nvjet")):
             groups["matmul"] += ms
         else:
             groups["other"] += ms
-    busy_ms = sum(groups.values())
+    # NCCL's kernels run on their own streams, beside the compute.
+    busy_ms = sum(ms for group, ms in groups.items() if group != "nccl")
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms, "groups_ms": groups,
@@ -3199,7 +3282,8 @@ def main() -> int:
         if args.cards == 4 and args.only_mpmd:
             record = {"four_cards": {"mpmd": cards4_mpmd_run(torch, card)}}
         elif args.cards == 4:
-            record = {"four_cards": four_card_phase(torch, card, n_layers)}
+            record = {"four_cards": four_card_phase(torch, card, n_layers,
+                                                    args.profile)}
         else:
             record = {"train_mpmd": mpmd_phase(
                 torch, llama, attn, card, torch.device("cuda"))}
@@ -3306,6 +3390,39 @@ def main() -> int:
         ok, errs = grads_held(got, ref, q_len, kv_len, GRAD_TOL)
         assert ok, (label, "recipe do", errs)
         del out, lse, do, got, ref
+    torch.cuda.empty_cache()
+
+    # sp4_long's shape under `--cards 4`: Ulysses gives each of the 4
+    # ranks 8 of the 32 heads over all CARDS4_LONG_SEQ positions. The
+    # plain version runs a head at a time (its f32 scores are 1 GiB a
+    # head).
+    bh, t, d = 8, CARDS4_LONG_SEQ, 128
+    q2, k, v, _ = inputs(bh, t, t, d, t, t)
+    out, lse = attn.flash_forward(q2, k, v, True, t)
+    do = randn(bh, t, d)
+    got = attn.flash_backward(q2, k, v, out, do, lse, 1.0 / math.sqrt(d),
+                              True, t, t)
+    torch.cuda.synchronize()
+    heads = [slice(i, i + 1) for i in range(bh)]
+    p_out, p_lse = (torch.cat(parts) for parts in zip(*(
+        attn.flash_forward_plain(q2[i], k[i], v[i], True, t)
+        for i in heads)))
+    print(f"fwd sp4_long {(bh, t, t, d)} causal=True:")
+    ok, e_out = held("out", out, p_out, OUT_TOL)
+    e_lse = max_err(lse, p_lse)
+    print(f"  lse: max err {e_lse:.3g} (bar {LSE_TOL})")
+    assert ok and e_lse <= LSE_TOL, ("sp4_long", e_out, e_lse)
+    results[("fwd", "sp4_long")] = (e_out, e_lse)
+    del p_out, p_lse
+    ref = [torch.cat(parts) for parts in zip(*(
+        attn.flash_backward_plain(q2[i], k[i], v[i], out[i], do[i], lse[i],
+                                  1.0 / math.sqrt(d), True, t, t)
+        for i in heads))]
+    print(f"bwd sp4_long {(bh, t, t, d)} causal=True, random do:")
+    ok, errs = grads_held(got, ref, t, t)
+    assert ok, ("sp4_long", "random do", errs)
+    results[("bwd", "sp4_long")] = max(errs)
+    del q2, k, v, out, lse, do, got, ref
     torch.cuda.empty_cache()
 
     # The public op (padding, reshapes, autograd) against mha_reference
@@ -3513,6 +3630,7 @@ def main() -> int:
             "launches": launches["flash_fwd"],
             "max_abs_err": results[("fwd", "main")][0],
             "lse_max_abs_err": results[("fwd", "main")][1],
+            "sp4_long_max_abs_err": results[("fwd", "sp4_long")][0],
             "ms": fwd_ms, "plain_ms": fwd_plain_ms,
             "bound_ms": fwd_bound, "bound_by": fwd_by,
             "library_ms": sdpa_fwd_ms,
@@ -3539,6 +3657,7 @@ def main() -> int:
             "launches": launches["flash_bwd"],
             "launches_by_kernel": {n: launches[n] for n in BWD_LAUNCHES},
             "max_abs_err": results[("bwd", "main")],
+            "sp4_long_max_abs_err": results[("bwd", "sp4_long")],
             "ms": bwd_ms, "launch_ms": bwd_launch_ms,
             "kernel_ms": bwd_launch_ms["flash_bwd"],
             "plain_ms": bwd_plain_ms,

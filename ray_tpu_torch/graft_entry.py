@@ -74,7 +74,9 @@ def train_on_meshes(rank: int, cfg: llama.LlamaConfig, runs: Sequence[Run],
                     total_steps: int = 10) -> List[Dict[str, Any]]:
     """One rank of a local gang (`run_local_gang`): for each run, the
     whole model from `state` (a state dict of arrays; None: random init
-    from seed 0) laid out on the run's mesh by `make_train_step`,
+    from seed 0) laid out on the run's mesh (any `MeshSpec` but pp: the
+    sequence over sp, a MoE config's experts over tp) by
+    `make_train_step`,
     trained on the batch, every rank passing the same whole batch. Per
     run: the losses and grad norms, this rank's parameter bytes, and on
     rank 0 the final state, whole, as arrays."""

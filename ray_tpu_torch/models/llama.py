@@ -18,9 +18,15 @@ runs unchanged.
 A MoE layer (`moe_experts` > 0) keeps the JAX package's expert weights
 as they are (router [dim, E], w_in [E, dim, f], w_out [E, f, dim]) in
 place of w1/w3/w2, and runs `moe_ffn_ep` over an `ep` process group
-when one is given, else `moe_ffn_dense`. Attention "ring" runs
+when one is given, else `moe_ffn_dense` (over the tp group when
+`shard_module` has sharded the experts' `mlp` dim over tp). Attention "ring" runs
 `ring_attention` over an `sp` process group when one is given, else the
 reference attention, as in the JAX package.
+
+Under `make_train_step` on a mesh with sp > 1 the model holds a sequence
+shard (`Llama.seq_group`): its positions are offset by the shard's start
+and its attention spans the whole sequence over the group, as GSPMD's
+sequence sharding computes it (`_sequence_attention`).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor
@@ -44,7 +51,7 @@ from torch.utils.checkpoint import (
 from ..ops.attention import FLASH_FWD, flash_attention, mha_reference, repeat_kv
 from ..ops.moe import moe_ffn_dense, moe_ffn_ep
 from ..ops.norms import apply_rotary, rms_norm, rotary_embedding, swiglu
-from ..ops.ring_attention import ring_attention
+from ..ops.ring_attention import ring_attention, ulysses_attention
 from ..parallel.sharding import Annotated, annotate
 
 
@@ -239,18 +246,49 @@ def project_qkv(cfg: LlamaConfig, h, layer: "LlamaLayer"):
     return q, k, v
 
 
-def _attention(cfg: LlamaConfig, q, k, v, sp_group=None):
+def _sequence_attention(cfg: LlamaConfig, q, k, v, group):
+    """Causal attention over the whole sequence from this rank's shard
+    of it [b, heads, t/sp, d], over the sp process group `group`: the
+    counterpart of JAX's attention on a sequence GSPMD shards over sp.
+
+    "flash" and "reference" run Ulysses (`ulysses_attention`): an
+    all_to_all to a head shard, the flash op (its kernels on the card)
+    or `mha_reference` over the whole sequence on heads/sp heads, an
+    all_to_all back. The kernels' causal mask is top-left, so each rank
+    must hold whole sequences (t_q = t_k), not its queries against every
+    key. "ring" runs `ring_attention`, exact as well. Ulysses needs
+    whole heads on each rank: where sp does not divide the local heads
+    (heads / tp), "reference" runs the ring, and so does "flash" on CPU
+    tensors, where the flash op is its plain version; "flash" on the
+    card raises there, the ring's blocks being plain products."""
+    sp, heads = dist.get_world_size(group), q.shape[1]
+    if cfg.attention == "ring" or heads % sp:
+        if cfg.attention == "flash" and q.device.type != "cpu":
+            raise ValueError(
+                f"sp={sp} does not divide the {heads} local heads: Ulysses "
+                "needs whole heads on each rank to run the flash kernels; "
+                "choose an sp that divides n_heads / tp, or "
+                "attention='ring'")
+        return ring_attention(q, k, v, group, causal=True)
+    fn = (functools.partial(flash_attention, causal=True)
+          if cfg.attention == "flash" else None)
+    return ulysses_attention(q, k, v, group, causal=True, attention_fn=fn)
+
+
+def _attention(cfg: LlamaConfig, q, k, v, sp_group=None, seq_group=None):
     k = repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
     v = repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
-    if cfg.attention == "ring" and sp_group is not None:
-        return ring_attention(q, k, v, sp_group, causal=True)
+    if seq_group is None and cfg.attention == "ring":
+        seq_group = sp_group  # make_pp_train_step's ring over sp
+    if seq_group is not None:
+        return _sequence_attention(cfg, q, k, v, seq_group)
     if cfg.attention == "flash":
         return flash_attention(q, k, v, causal=True)
     return mha_reference(q, k, v, causal=True)
 
 
 def _layer(cfg: LlamaConfig, x, layer: "LlamaLayer", cos, sin,
-           sp_group=None, ep_group=None, batch_groups=()):
+           sp_group=None, ep_group=None, batch_groups=(), seq_group=None):
     """One decoder block. x: [batch, seq, dim]. Returns (x, aux), aux
     being the MoE load-balancing loss (0 for dense layers)."""
     b, t, _ = x.shape
@@ -258,7 +296,7 @@ def _layer(cfg: LlamaConfig, x, layer: "LlamaLayer", cos, sin,
     q, k, v = project_qkv(cfg, h, layer)
     q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
-    attn = _attention(cfg, q, k, v, sp_group)
+    attn = _attention(cfg, q, k, v, sp_group, seq_group)
     attn = attn.transpose(1, 2).reshape(b, t, -1)
     x = x + layer.wo(attn)
     h = model_norm(cfg, x, layer.mlp_norm)
@@ -272,8 +310,14 @@ def _layer(cfg: LlamaConfig, x, layer: "LlamaLayer", cos, sin,
         out, aux = moe_ffn_ep(moe_params, flat, ep_group, k=cfg.moe_top_k,
                               capacity_factor=cfg.moe_capacity_factor)
     else:
+        tp_group = None
+        if isinstance(layer.w_in, DTensor):
+            # Sharded on mlp over the tp mesh (`shard_module`).
+            tp_group = layer.w_in.device_mesh.get_group("tp")
+            moe_params.update(w_in=layer.w_in.to_local(),
+                              w_out=layer.w_out.to_local())
         out, aux = moe_ffn_dense(moe_params, flat, k=cfg.moe_top_k,
-                                 batch_groups=batch_groups)
+                                 batch_groups=batch_groups, tp_group=tp_group)
     return x + out.reshape(b, t, -1), aux
 
 
@@ -303,12 +347,14 @@ class LlamaLayer(nn.Module):
             self.w2 = nn.Linear(cfg.intermediate, cfg.dim, bias=False, **kw)
 
     def forward(self, x, cos, sin, sp_group=None, ep_group=None,
-                batch_groups=()):
+                batch_groups=(), seq_group=None):
         """(x, aux) of `_layer`; `sp_group` and `ep_group` are the
         process groups of ring attention and of the experts, if any,
-        `batch_groups` those the batch is split over (`Llama`)."""
+        `batch_groups` those the batch's tokens are split over, and
+        `seq_group` the group the sequence is split over (`Llama`)."""
         cfg = self.cfg
-        args = (cfg, x, self, cos, sin, sp_group, ep_group, batch_groups)
+        args = (cfg, x, self, cos, sin, sp_group, ep_group, batch_groups,
+                seq_group)
         if not cfg.remat:
             return _layer(*args)
         # Inside the module's forward, so that a sharded layer's gather
@@ -324,15 +370,22 @@ class Llama(nn.Module):
     """The decoder; `forward(tokens)` returns f32 logits.
 
     `batch_groups`: the process groups over which the batch is split
-    into equal data shards (set by `make_train_step` on a mesh). A MoE
-    router takes its load-balancing statistics over them, so that the
-    aux loss is the whole batch's, as JAX computes it."""
+    into equal data shards (set by `make_train_step` on a mesh).
+    `seq_group`: the sp process group over which each sequence is split
+    into equal shards (set by `make_train_step` on a mesh with sp > 1;
+    not the ring's `sp_group` of `make_pp_train_step`, which runs only
+    "ring" attention over it): the model offsets its positions by its
+    shard's start and runs its attention over the whole sequence
+    (`_sequence_attention`). A MoE router takes its load-balancing
+    statistics over both, so that the aux loss is the whole batch's, as
+    JAX computes it."""
 
     def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
         _check_config(cfg)
         self.cfg = cfg
         self.batch_groups = ()
+        self.seq_group = None
         kw = dict(device=device, dtype=cfg.dtype)
         self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, **kw)
         self.layers = nn.ModuleList(
@@ -389,16 +442,20 @@ def _forward_and_aux(model: Llama, tokens, positions, sp_group=None,
                      ep_group=None) -> tuple:
     cfg = model.cfg
     b, t = tokens.shape
+    seq_group, groups = model.seq_group, model.batch_groups
+    if seq_group is not None:
+        groups = groups + (seq_group,)
     if positions is None:
-        positions = torch.arange(t, device=tokens.device).expand(b, t)
+        start = dist.get_rank(seq_group) * t if seq_group is not None else 0
+        positions = (start + torch.arange(t, device=tokens.device)).expand(b, t)
     x = embed_tokens(cfg, model, tokens)
     cos, sin = rotary_embedding(
         positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling
     )
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in model.layers:
-        x, layer_aux = layer(x, cos, sin, sp_group, ep_group,
-                             model.batch_groups)
+        x, layer_aux = layer(x, cos, sin, sp_group, ep_group, groups,
+                             seq_group)
         aux = aux + layer_aux
     x = model_norm(cfg, x, model.final_norm)
     return model.lm_head(x).float(), aux

@@ -5,7 +5,10 @@ Top-k routing with the Switch/GShard load-balancing loss; capacity-based
 dispatch, where the (token, choice) pairs past an expert's capacity drop
 to the residual path; a dense reference in which every expert runs on
 every token; and the expert-parallel FFN, whose experts are sharded over
-an `ep` process group and reached by two all_to_alls.
+an `ep` process group and reached by two all_to_alls. The dense FFN
+also runs with its experts sharded on their `mlp` dim over a `tp`
+process group, as GSPMD shards them under the JAX package's
+`make_train_step`.
 
 Where the JAX package builds one-hot dispatch and combine tensors
 [tokens, experts, capacity] and contracts them, the port scatters and
@@ -24,6 +27,7 @@ import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..parallel.collective import Group, all_to_all, allreduce, axis_size
@@ -91,18 +95,67 @@ def _expert_ffn(h: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor):
     return F.gelu(torch.bmm(h, w_in), approximate="tanh").bmm(w_out)
 
 
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward, gradient summed over the group backward:
+    Megatron's f. Every rank of a tensor-parallel group holds the same
+    loss, so an input they share gets its gradient summed over the
+    ranks' partial products, not counted once per rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Sum over the group forward, identity backward: Megatron's g, for
+    an output of partial sums that every rank then holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def moe_ffn_dense(params: Dict[str, torch.Tensor], x: torch.Tensor,
-                  k: int = 2, batch_groups: Sequence[Group] = ()):
+                  k: int = 2, batch_groups: Sequence[Group] = (),
+                  tp_group: Group = None):
     """Single-device reference, every expert local and run on every
     token. x: [tokens, d] -> (out [tokens, d], aux); `batch_groups` as
-    `top_k_router`'s."""
+    `top_k_router`'s.
+
+    With `tp_group` the experts are tensor-parallel over it, as GSPMD
+    shards them on `mlp` under the JAX package's `make_train_step`:
+    `w_in` [E, d, f/tp] and `w_out` [E, f/tp, d] are this rank's shards,
+    the router and x whole and the same on every rank. Each rank runs
+    the expert products on its `mlp` shard (the tanh-GELU is elementwise
+    there), and the w_out products' partial sums of the top-k picks are
+    summed over the group before the gates weigh them (the pick of the
+    sum is the sum of the picks, element for element, at k/E of the
+    bytes). Every tp rank holds the same loss, so the sum's backward is
+    the identity and x's gradient through the experts is summed over the
+    group (Megatron's g and f)."""
     logits = x @ params["router"]
     gates, indices, aux = top_k_router(logits, k, batch_groups)
     num_experts = params["w_in"].shape[0]
-    outs = _expert_ffn(x.expand(num_experts, *x.shape), params["w_in"],
+    shared = x if tp_group is None else _CopyToGroup.apply(x, tp_group)
+    outs = _expert_ffn(shared.expand(num_experts, *x.shape), params["w_in"],
                        params["w_out"])  # [E, t, d]
     rows = torch.arange(x.shape[0], device=x.device)[:, None]
     picked = outs[indices, rows]  # [t, k, d]
+    if tp_group is not None:
+        picked = _SumOverGroup.apply(picked, tp_group)
     return torch.sum(picked * gates[:, :, None].to(x.dtype), dim=1), aux
 
 

@@ -2,6 +2,8 @@
 TorchTrainer, the sharded train step, sessions, backends and
 checkpointing.
 
+`make_train_step` lays a model out on every `MeshSpec` axis but pp
+(dcn_dp, dp, fsdp, sp, tp; MoE models included);
 `make_pp_train_step` is the pipeline-parallel step (pp x sp x ep);
 `MPMDPipeline` the multi-program pipeline (1F1B stage actors of the
 runtime over channel edges, `mpmd_pipeline.py`).

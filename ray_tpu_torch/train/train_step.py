@@ -14,9 +14,11 @@ GSPMD (`shard_module`): tensor parallelism over `tp` through
 `parallelize_module`, with the logits left sharded over the vocabulary
 through the loss (`loss_parallel`), and FSDP2 (`fully_shard`) over the
 data axes, sharding each parameter's embed dim where the rules put it on
-`fsdp` and leaving whole the parameters they replicate (the norms). With
-`mesh=None` it is the single-device step. Pipeline parallelism is
-`make_pp_train_step` (`pipeline_step.py`).
+`fsdp` and leaving whole the parameters they replicate (the norms), with
+the sequence sharded over `sp` (the model's attention runs over the sp
+group, and the gradients are summed over it). With `mesh=None` it is the
+single-device step. Pipeline parallelism is `make_pp_train_step`
+(`pipeline_step.py`).
 """
 
 from __future__ import annotations
@@ -226,26 +228,35 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def _check_mesh(mesh, param_annotations) -> Dict[str, int]:
+def _check_mesh(mesh) -> Dict[str, int]:
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    if sizes.get("tp", 1) > 1 and any("expert" in a.logical_axes
-                                      for a in param_annotations.values()):
-        raise NotImplementedError(
-            "MoE under tp > 1: the expert products would need DTensor "
-            "rules for the batched expert matmuls and the token dispatch "
-            "(ROADMAP queue 1, item 5); run MoE on dp/fsdp meshes, or "
-            "over ep with make_pp_train_step")
     if sizes.get("pp", 1) > 1:
         raise NotImplementedError(
             f"pp={sizes['pp']}: pipeline parallelism is make_pp_train_step "
             "(ray_tpu_torch.train.pipeline_step), on a (pp, sp, ep) mesh")
-    if sizes.get("sp", 1) > 1:
-        raise NotImplementedError(
-            f"sp={sizes['sp']}: make_train_step shards no activation over "
-            "the sequence (JAX's GSPMD sequence sharding is not ported: "
-            "ROADMAP queue 1, item 5); make_pp_train_step runs ring "
-            "attention over sp")
     return sizes
+
+
+def _to_mesh(x, mesh, placements):
+    """`x` (a tensor or array, or a DTensor) as a DTensor of `placements`
+    on `mesh`. Every sharded dim must split evenly over its mesh axes,
+    as JAX's `device_put` requires: a sequence that `sp` does not divide
+    raises, where DTensor would cut uneven shards."""
+    if not isinstance(x, DTensor):
+        x = torch.as_tensor(x)
+    splits = {}
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            splits.setdefault(p.dim, []).append(i)
+    for dim, axes in splits.items():
+        n = math.prod(mesh.size(i) for i in axes)
+        if x.shape[dim] % n:
+            names = [mesh.mesh_dim_names[i] for i in axes]
+            raise ValueError(f"dim {dim} of the batch {tuple(x.shape)} does "
+                             f"not split over the {n} ranks of {names}")
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh, placements)
+    return distribute(x, mesh, placements)
 
 
 def _tp_style(module: nn.Module, dim: int, axis_name: str):
@@ -280,16 +291,27 @@ def shard_module(model: nn.Module, mesh, param_annotations: Dict[str, Any],
 
     - `tp`: every nn.Linear / nn.Embedding whose weight has a dim on tp
       goes through `parallelize_module` (colwise for an output dim,
-      rowwise for an input dim).
+      rowwise for an input dim). A bare parameter with a dim on tp (a
+      MoE layer's `w_in` [E, embed, mlp] and `w_out` [E, mlp, embed])
+      becomes a DTensor sharded on that dim over the tp mesh; the layer
+      runs its expert products on the local `mlp` shard
+      (`ops.moe.moe_ffn_dense` over the tp group).
     - `fsdp`: FSDP2's `fully_shard` on each child of every ModuleList
       (the layers) and on the root, over the data axes as HSDP: `dcn_dp`
       and `dp` replicate (flattened into one dim when both are > 1),
       `fsdp` shards. `shard_placement_fn` shards each parameter on the
-      dim the rules put on `fsdp`. A parameter with no dim on `fsdp`
-      (the norms, the biases) is left out of FSDP2 (`ignored_params`),
-      whole on every data shard as the rules have it; its gradients are
-      averaged over the data shards by `reduce_ignored_grads`. A model
-      with `batch_groups` (`Llama`) gets the data mesh's groups.
+      dim the rules put on `fsdp` (two-dimensionally with tp: the
+      experts' embed dim on fsdp, their mlp dim on tp). A parameter with
+      no dim on `fsdp` (the norms, the biases) is left out of FSDP2
+      (`ignored_params`), whole on every data shard as the rules have
+      it; its gradients are averaged over the data shards by
+      `reduce_data_grads`. A model with `batch_groups` (`Llama`)
+      gets the data mesh's groups.
+    - `sp`: no parameter rule names it, so the parameters are whole over
+      it; a model with `seq_group` (`Llama`) gets the sp group, over
+      which it runs its attention and takes the positions and the MoE
+      router's statistics of its sequence shard. The step sums the
+      gradients over it (`reduce_data_grads`).
 
     The model must be whole on every rank, on the mesh's device type or
     the CPU, with the same values.
@@ -303,7 +325,7 @@ def shard_module(model: nn.Module, mesh, param_annotations: Dict[str, Any],
     cyclic collector first, so the old one's memory is free before the
     new one takes its own."""
     gc.collect()
-    sizes = _check_mesh(mesh, param_annotations)
+    sizes = _check_mesh(mesh)
     model.to(mesh.device_type)
     if sizes["tp"] > 1:
         from torch.distributed.tensor.parallel import parallelize_module
@@ -317,6 +339,7 @@ def shard_module(model: nn.Module, mesh, param_annotations: Dict[str, Any],
             if dim is not None:
                 plan[name] = _tp_style(module, dim, ann.logical_axes[dim])
         parallelize_module(model, mesh["tp"], plan)
+        _shard_bare_params(model, mesh["tp"], param_annotations, rules)
 
     from torch.distributed.fsdp import fully_shard
 
@@ -336,6 +359,8 @@ def shard_module(model: nn.Module, mesh, param_annotations: Dict[str, Any],
     if hasattr(model, "batch_groups") and dp_mesh.size() > 1:
         model.batch_groups = tuple(dp_mesh.get_group(i)
                                    for i in range(dp_mesh.ndim))
+    if hasattr(model, "seq_group") and sizes["sp"] > 1:
+        model.seq_group = mesh.get_group("sp")
     kw = dict(mesh=dp_mesh, shard_placement_fn=placement,
               ignored_params=ignored)
     for module in model.modules():
@@ -344,6 +369,24 @@ def shard_module(model: nn.Module, mesh, param_annotations: Dict[str, Any],
                 fully_shard(child, **kw)
     fully_shard(model, **kw)
     return model
+
+
+def _shard_bare_params(model: nn.Module, tp_mesh, param_annotations,
+                       rules: Rules) -> None:
+    """Shard over `tp_mesh` each parameter that is not an nn.Linear's or
+    nn.Embedding's (those go through `parallelize_module`) and has a dim
+    on tp: its local chunk of that dim, as a DTensor."""
+    for module_name, module in model.named_modules():
+        if isinstance(module, (nn.Linear, nn.Embedding)):
+            continue
+        for name, p in list(module.named_parameters(recurse=False)):
+            full = f"{module_name}.{name}" if module_name else name
+            ann = param_annotations.get(full)
+            dim = tensor_dim_on(ann.logical_axes, rules, "tp") if ann else None
+            if dim is not None:
+                setattr(module, name, nn.Parameter(
+                    distribute(p.data, tp_mesh, [Shard(dim)]),
+                    requires_grad=p.requires_grad))
 
 
 def data_mesh(mesh):
@@ -364,18 +407,29 @@ def _fsdp_managed(p: torch.Tensor) -> bool:
     return isinstance(p, DTensor) and "fsdp" in p.device_mesh.mesh_dim_names
 
 
-def reduce_ignored_grads(model: nn.Module, dp_mesh) -> None:
-    """Average over the data shards of `dp_mesh` the gradients of the
-    parameters FSDP2 leaves alone (`shard_module`), as FSDP2 averages
-    those of the others."""
-    grads = [local_shard(p.grad) for p in model.parameters()
-             if p.grad is not None and not _fsdp_managed(p)]
-    if not grads or dp_mesh.size() == 1:
-        return
-    for dim in range(dp_mesh.ndim):
-        all_reduce_(grads, dp_mesh.get_group(dim))
-    for g in grads:
-        g.div_(dp_mesh.size())
+def reduce_data_grads(model: nn.Module, dp_mesh, sp_group=None) -> None:
+    """Average the gradients over the data shards that FSDP2 does not
+    average them over: those of the parameters FSDP2 leaves alone
+    (`shard_module`) over the data mesh `dp_mesh` and the sp group, the
+    others over the sp group alone. The parameters are whole over sp, so
+    its ranks hold the same shards and each has the gradient of its own
+    tokens' objective; `data_shards` counts sp in."""
+    sp = [sp_group] if sp_group is not None else []
+    data = ([dp_mesh.get_group(i) for i in range(dp_mesh.ndim)]
+            if dp_mesh.size() > 1 else [])
+    ignored, managed = [], []
+    for p in model.parameters():
+        if p.grad is not None:
+            (managed if _fsdp_managed(p) else ignored).append(
+                local_shard(p.grad))
+    for grads, groups in ((ignored, data + sp), (managed, sp)):
+        if not grads or not groups:
+            continue
+        for group in groups:
+            all_reduce_(grads, group)
+        n = math.prod(dist.get_world_size(group) for group in groups)
+        for g in grads:
+            g.div_(n)
 
 
 def _data_sum(x: torch.Tensor, data_shards: int) -> torch.Tensor:
@@ -410,11 +464,15 @@ def make_train_step(
     metrics {"loss", "grad_norm"}
     stay on the device (grad_norm of the gradients before clipping, over
     every shard). On a mesh, tokens and targets are `shard_batch`'s
-    DTensors or whole host batches (sharded here). Each data shard
-    computes `loss_fn` on its own rows; weighted by its share of the
-    batch's unmasked targets, the shards' losses and gradients add up to
-    the mean over the whole batch, as the JAX step computes it, however
-    unevenly the targets are masked.
+    DTensors or whole host batches (sharded here, or resharded): rows
+    over the data axes, the sequence over `sp`, whose size must divide
+    it. Each data shard computes `loss_fn` on its own rows and sequence
+    shard; weighted by its share of the batch's unmasked targets, the
+    shards' losses and gradients add up to the mean over the whole
+    batch, as the JAX step computes it, however unevenly the targets are
+    masked. The step takes every mesh JAX's does but `pp`
+    (`make_pp_train_step`): dcn_dp, dp, fsdp, sp and tp, MoE models
+    included (`shard_module`).
 
     With `donate` (the default) the step updates the state passed in,
     in place, as the JAX step donates its buffers; with donate=False it
@@ -424,7 +482,7 @@ def make_train_step(
     if mesh is not None:
         if param_annotations is None:
             raise ValueError("a mesh needs param_annotations")
-        _check_mesh(mesh, param_annotations)
+        _check_mesh(mesh)
         if mesh.size() != dist.get_world_size():
             raise ValueError(f"the mesh spans {mesh.size()} ranks of a "
                              f"world of {dist.get_world_size()}: a train "
@@ -436,6 +494,7 @@ def make_train_step(
                                 if p.is_shard())
         dp_mesh = data_mesh(mesh)
         tp = axis_size(mesh, "tp")
+        sp_group = mesh.get_group("sp") if axis_size(mesh, "sp") > 1 else None
     device = torch.device(device)
 
     blank = []  # donate=False on a mesh: the model's unsharded skeleton
@@ -469,9 +528,7 @@ def make_train_step(
     def local_batch(x):
         if mesh is None:
             return torch.as_tensor(x, device=device)
-        if not isinstance(x, DTensor):
-            x = distribute(torch.as_tensor(x), mesh, batch_placements)
-        return x.to_local()
+        return _to_mesh(x, mesh, batch_placements).to_local()
 
     def step_fn(state: TrainState, tokens, targets):
         if not donate:
@@ -493,7 +550,7 @@ def make_train_step(
             with loss_parallel() if tp > 1 else contextlib.nullcontext():
                 loss = loss_fn(model, tokens, targets)
                 (loss * (share * data_shards)).backward()
-            reduce_ignored_grads(model, dp_mesh)
+            reduce_data_grads(model, dp_mesh, sp_group)
             loss = _data_sum(loss.detach() * share, data_shards)
         grads = [p.grad for p in params]
         gnorm = global_norm(grads)
@@ -512,8 +569,7 @@ def shard_batch(batch, mesh, logical_axes=("batch", "seq"),
     the mesh's data axes. Every rank passes the same whole batch, as
     every process passes the same global array to JAX's device_put."""
     placements = placements_for(mesh, logical_axes, rules)
-    return tree_map(
-        lambda x: distribute(torch.as_tensor(x), mesh, placements), batch)
+    return tree_map(lambda x: _to_mesh(x, mesh, placements), batch)
 
 
 def prefetch_to_device(
@@ -545,10 +601,10 @@ def prefetch_to_device(
     def put_leaf(x):
         x = torch.as_tensor(x)
         if not cuda:
-            return distribute(x, mesh, placements)
+            return _to_mesh(x, mesh, placements)
         with torch.cuda.stream(stream):
             x = x.pin_memory().to("cuda", non_blocking=True)
-            return distribute(x, mesh, placements)
+            return _to_mesh(x, mesh, placements)
 
     def put(batch):
         t0 = time.monotonic()

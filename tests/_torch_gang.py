@@ -1,8 +1,11 @@
 """What the ranks of a spawned gang run in the port's multi-rank tests
 (`test_torch_sharded.py`, `test_torch_ring.py`, `test_torch_moe.py`,
-`test_torch_pipeline.py`). The ranks import this module and the port,
-never JAX: it imports neither JAX nor anything of `ray_tpu`."""
+`test_torch_pipeline.py`, `test_torch_seq_moe_tp.py`). The ranks import
+this module and the port, never JAX: it imports neither JAX nor anything
+of `ray_tpu`."""
 
+import dataclasses
+import functools
 import os
 import sys
 import time
@@ -10,6 +13,7 @@ import time
 import numpy as np
 import torch
 
+from ray_tpu_torch import graft_entry
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.parallel import MeshSpec
 from ray_tpu_torch.train import (
@@ -33,13 +37,15 @@ def _step(cfg, mesh, model, tokens):
                                     shard_batch(batch[:, 1:], mesh))
 
 
-def checkpoint_round_trip(rank, path, tokens):
-    """Two steps on an fsdp=2 mesh, an async save of the whole state by
-    both ranks, then a fresh state (other weights) restored from it: its
-    local shards must equal the saved ones bit for bit, and a third step
-    from each must give the same loss."""
-    cfg = llama.LlamaConfig.tiny()
-    mesh = MeshSpec(fsdp=2).build("cpu")
+def checkpoint_round_trip(rank, path, tokens, spec=MeshSpec(fsdp=2),
+                          config=None):
+    """Two steps of `LlamaConfig.tiny(**config)` on the mesh of `spec`
+    (default fsdp=2), an async save of the whole state by every rank,
+    then a fresh state (other weights) restored from it: its local
+    shards must equal the saved ones bit for bit, and a third step from
+    each must give the same loss."""
+    cfg = llama.LlamaConfig.tiny(**(config or {}))
+    mesh = spec.build("cpu")
     state, step = _step(cfg, mesh, llama.init_params(
         cfg, torch.Generator().manual_seed(0), device="cpu"), tokens)
     for _ in range(2):
@@ -325,3 +331,83 @@ def step_contracts(rank, tokens):
             "unchanged": all(torch.equal(before[k], after[k]) for k in before),
             "new_state": state is not first}
     return {"tp": tp, "donate": runs}
+
+
+def sequence_and_expert_meshes(rank, jobs, path, tokens):
+    """In a gang of 8: for each job (config keywords, runs, start state),
+    `graft_entry.train_on_meshes` at lr 1e-2 over 20 total steps, with
+    the model's two sequence-attention routes counted; then
+    `checkpoint_round_trip` of the 4-expert MoE on fsdp 2 x sp 2 x tp 2.
+    Returns ([per job: (results, routes)], checkpoint result)."""
+    out = []
+    for config, runs, start in jobs:
+        routes = {"ulysses_attention": 0, "ring_attention": 0}
+        originals = {name: getattr(llama, name) for name in routes}
+
+        def counted(name, *args, **kwargs):
+            routes[name] += 1
+            return originals[name](*args, **kwargs)
+
+        for name in routes:
+            setattr(llama, name, functools.partial(counted, name))
+        try:
+            results = graft_entry.train_on_meshes(
+                rank, llama.LlamaConfig.tiny(**config), runs, start,
+                1e-2, 20)
+        finally:
+            for name, fn in originals.items():
+                setattr(llama, name, fn)
+        out.append((results, routes))
+    ckpt = checkpoint_round_trip(rank, path, tokens,
+                                 MeshSpec(fsdp=2, sp=2, tp=2),
+                                 {"moe_experts": 4})
+    return out, ckpt
+
+
+def ulysses_flash_and_tp_experts(rank, qkv, do, params, x, g, aux_weight):
+    """In a gang of 2 (one group of the whole world): Ulysses attention
+    with the flash op (its plain version on the CPU) on this rank's
+    sequence shard of q, k, v [b, h, t, d], under the upstream gradient's
+    shard; and `moe_ffn_dense` over the group as its tp group, on this
+    rank's `mlp` shards of w_in / w_out with the router and x whole,
+    every rank holding the same objective
+    sum(out * g) + aux_weight * aux, as tensor-parallel ranks do.
+    Also the error of the model's sequence attention under "flash" when
+    sp does not divide the heads and the tensors are off the CPU (meta
+    tensors stand in for the card's).
+    Returns (attention output shard, its q/k/v gradients), (MoE output,
+    aux, gradients of router, w_in shard, w_out shard and x), the
+    error's text or None."""
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.ops.moe import moe_ffn_dense
+    from ray_tpu_torch.ops.ring_attention import ulysses_attention
+
+    n = torch.distributed.get_world_size()
+    q, k, v = (torch.tensor(a).chunk(n, dim=2)[rank].requires_grad_()
+               for a in qkv)
+    y = ulysses_attention(q, k, v, None, attention_fn=functools.partial(
+        flash_attention, causal=True))
+    y.backward(torch.tensor(do).chunk(n, dim=2)[rank])
+    attention = (y.detach().numpy(), [a.grad.numpy() for a in (q, k, v)])
+
+    p = {"router": torch.tensor(params["router"]).requires_grad_(),
+         "w_in": torch.tensor(params["w_in"]).chunk(n, dim=2)[rank]
+         .requires_grad_(),
+         "w_out": torch.tensor(params["w_out"]).chunk(n, dim=1)[rank]
+         .requires_grad_()}
+    xt = torch.tensor(x).requires_grad_()
+    out, aux = moe_ffn_dense(p, xt, k=2,
+                             tp_group=torch.distributed.group.WORLD)
+    ((out * torch.tensor(g)).sum() + aux_weight * aux).backward()
+    experts = (out.detach().numpy(), aux.item(),
+               [p[name].grad.numpy() for name in ("router", "w_in", "w_out")]
+               + [xt.grad.numpy()])
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), attention="flash")
+    odd = torch.empty(1, 3, 8, 16, device="meta")
+    try:
+        llama._sequence_attention(cfg, odd, odd, odd, None)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return attention, experts, refused

@@ -139,14 +139,14 @@ def world2():
 
 
 @pytest.mark.parametrize("kw,spec,error,match", [
-    # MoE and ring attention run (test_torch_moe.py, test_torch_ring.py,
-    # test_torch_pipeline.py); what stays refused is MoE under tensor
-    # parallelism, and make_train_step's sequence sharding, which ring
-    # attention gets from make_pp_train_step.
-    pytest.param({"moe_experts": 4}, {"tp": 2}, NotImplementedError, "MoE",
+    # MoE under tensor parallelism and make_train_step's sequence
+    # sharding run (test_torch_seq_moe_tp.py), MoE and ring attention
+    # over sp among them; what raises there is a batch whose sequence sp
+    # does not split evenly, as JAX's shard_batch raises.
+    pytest.param({"moe_experts": 4}, {"sp": 2}, ValueError, "split",
                  id="kw0-MoE"),
-    pytest.param({"attention": "ring"}, {"sp": 2}, NotImplementedError,
-                 "ring", id="kw1-ring"),
+    pytest.param({"attention": "ring"}, {"sp": 2}, ValueError, "split",
+                 id="kw1-ring"),
     # "dots" and "dots_flash" run (tests/test_torch_remat.py); a policy
     # the JAX package does not name is refused.
     pytest.param({"remat_policy": "offload"}, None, ValueError, "remat",
@@ -162,6 +162,10 @@ def test_unported_paths_raise(request, kw, spec, error, match):
     with pytest.raises(error, match=match):
         llama.Llama(cfg, device="meta")
         request.getfixturevalue("world2")
-        make_train_step(llama.loss_fn, default_optimizer(),
-                        MeshSpec(**spec).build("cpu"),
-                        llama.param_annotations(cfg))
+        init_fn, step_fn = make_train_step(
+            llama.loss_fn, default_optimizer(), MeshSpec(**spec).build("cpu"),
+            llama.param_annotations(cfg))
+        state = init_fn(llama.init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu"))
+        tokens = torch.zeros((2, 31), dtype=torch.long)  # 31 over sp=2
+        step_fn(state, tokens, tokens)

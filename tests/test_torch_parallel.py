@@ -297,8 +297,37 @@ def test_train_step_layout_on_dp_fsdp_tp(world8):
             assert mu.shape == p.shape == nu.shape
 
 
+def test_train_step_layout_of_moe_on_fsdp_sp_tp(world8):
+    """MoE under tp and sp (`shard_module`): the experts' w_in [E, embed,
+    mlp] and w_out [E, mlp, embed] split over fsdp on embed and over tp
+    on mlp, the router [embed, E] over fsdp only; the model gets its
+    data shards' groups and the sp group of its sequence shard (rank 5
+    is fsdp 1, sp 0, tp 1 of fsdp 2 x sp 2 x tp 2)."""
+    cfg = llama.LlamaConfig.tiny(moe_experts=4)
+    mesh = MeshSpec(fsdp=2, sp=2, tp=2).build("cpu")
+    init_fn, _ = make_train_step(llama.loss_fn, default_optimizer(), mesh,
+                                 llama.param_annotations(cfg))
+    state = init_fn(llama.init_params(cfg, torch.Generator().manual_seed(0),
+                                      device="cpu"))
+    params = dict(state.params.named_parameters())
+    want = {
+        "layers.0.w_in": ((Shard(1), Shard(2)), (4, 32, 64)),
+        "layers.1.w_out": ((Shard(2), Shard(1)), (4, 64, 32)),
+        "layers.0.router": ((Shard(0),), (32, 4)),
+        "layers.0.wq.weight": ((Shard(1), Shard(0)), (32, 32)),
+    }
+    for name, (placements, local) in want.items():
+        p = params[name]
+        assert isinstance(p, DTensor), name
+        assert tuple(p.placements) == placements, name
+        assert tuple(p.to_local().shape) == local, name
+    model = state.params
+    assert dist.get_process_group_ranks(model.seq_group) == [5, 7]
+    assert [dist.get_process_group_ranks(g) for g in model.batch_groups] \
+        == [[1, 5]]
+
+
 @pytest.mark.parametrize("spec,error", [
-    (MeshSpec(fsdp=4, sp=2), NotImplementedError),
     (MeshSpec(fsdp=4, pp=2), NotImplementedError),
     (MeshSpec(fsdp=4), ValueError),  # a mesh of 4 in a world of 8
 ])
