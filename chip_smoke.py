@@ -189,6 +189,42 @@ Phases, none of whose failures is caught:
       app of its own, `engine_enabled=False`), must equal `generate`.
       `serve.shutdown()` and `ray_tpu_torch.shutdown()` run however the
       phase ends.
+  (i) the RL slice (`ray_tpu_torch.rl`), after (e4). No kernel of the
+      port runs on its path but (i4)'s teacher (the policy is an MLP in
+      plain torch, as the JAX package's is plain `jnp`). (i1)
+      `TorchLearner` on the card and on the CPU from the same seeded
+      weights takes one PPO update of a seeded CartPole-shaped batch
+      (RL_ROWS rows, obs 4, 2 actions, hidden 64 x 64, minibatch
+      RL_MINIBATCH, RL_EPOCHS epochs, lr RL_LR): the parameters must
+      agree to RL_PARAM_TOL (rtol and atol); `DQNLearner` the same over
+      RL_DQN_UPDATES TD updates of a seeded replay ring; each control,
+      the CPU learner one optimizer step short, must fall outside. A
+      second update of each is timed. (i2) `ray_tpu_torch.init(
+      num_cpus=6, num_gpus=1)`; synchronous PPO at `PPOConfig()`'s
+      defaults (2 runners x 16 envs x 128 steps, the runners actors on
+      the host, the learner on the card) must reach a mean return of
+      RL_RETURN_BAR within RL_MAX_ITERATIONS iterations (the
+      reference's bar); the learner's update is timed. (i3) decoupled
+      PPO in engine mode (`PolicyEngineActor` in a GPU worker, the
+      learner on the card, RL_ENGINE_RUNNERS runners): RL_ENGINE_UPDATES
+      updates, each weight version pushed to the engine; fragments must
+      flow, some engine forward must serve more than one runner's rows,
+      and the return must rise; then one runner is killed and
+      RL_UPDATES_AFTER_KILL more updates must land, the slot respawned.
+      (i4) the RLHF push at the Llama-2-7B width (RL_PUSH_LAYERS layers,
+      bf16): `ray_tpu_torch.init` with an object store of
+      RL_PUSH_STORE_BYTES; an `InferenceEngine` in a `num_gpus=1` actor
+      (`EngineHost`) over weights A drawn from a seed (equal to the
+      driver's A by a weighted byte sum) decodes RL_PUSH_STREAMS greedy
+      streams of RL_PUSH_PROMPT-token prompts; once each has given
+      RL_PUSH_TAKE tokens, `push_weights` sends weights B's state dict
+      through the store; at its install A must still be pinned
+      (weight_gens 2, no stream ended); RL_PUSH_STREAMS streams admitted
+      after it decode RL_PUSH_NEW tokens each, then the old streams are
+      cancelled and weight_gens must fall back to 1. Each old stream's
+      tokens must lie within (e3)'s delta of their row's maximum in A's
+      teacher-forced logits, each new one's in B's; the new streams held
+      to A's (the control) must not.
 
 Prints `{"kernels": [...]}` (with each kernel's launches under each
 remat policy and in the mesh step), then `{"slice": {...}}`, then
@@ -210,8 +246,13 @@ tokens/s, each stage's busy, wall and optimizer ms, edge waits and
 bytes and peak memory, the bubble bound, the build's ms, the launches;
 (c)'s step at the same batch; (g4a)'s errors and its control), then
 `{"runtime": {...}}` ((h1)), `{"gemma": {...}}` ((h2)), `{"wide":
-{...}}` ((h3), the f32 run under "f32") and `{"f32_any": {...}}` ((h4)),
-then the card's name and power limit, and as the last
+{...}}` ((h3), the f32 run under "f32"), `{"f32_any": {...}}` ((h4)) and
+`{"rl": {...}}` ((i): the card; (i1)'s errors, controls and update
+ms; (i2)'s iterations, returns and update ms; (i3)'s returns, versions,
+engine forwards and requests per forward, the counts before and after
+the kill; (i4)'s push bytes and ms, the store's size, the state at the
+push, the streams' lengths and the consistency counts), then the
+card's name and power limit, and as the last
 line `{"ok": true, "device": {...}}`. Exits non-zero with no
 result line when there is no CUDA card or the port is not beside it.
 
@@ -243,6 +284,10 @@ apart). It fails on a machine with fewer than 4 cards.
 
 `--only-mpmd` builds the kernels and runs only phase (g4) (with
 `--cards 4`, only the four-card MPMD run), then the last two lines.
+`--only-rl` builds the kernels and runs only phase (i), with (i4)'s
+delta measured as (e2) measures it on (i4)'s weights A (paged logits
+against the teacher-forced bf16 forward, x 3), then the last two
+lines.
 
 `--profile` traces one more step with torch.profiler after the slice
 and prints `{"profile": ...}`: device time by kernel, and idle share.
@@ -877,11 +922,11 @@ def held_steps(name, got, teacher, truth):
     return to_teacher[0]
 
 
-def greedy_consistency(torch, teacher, requests, outs, delta, dev, label):
-    """Hold each served token of `outs` (one list per prompt of
-    `requests`) within `delta` of its row's maximum in the teacher-forced
-    logits `teacher(seq)`; as a control that must fail, hold each token
-    to the next position's logits. Prints the counts; returns them."""
+def greedy_counts(torch, teacher, requests, outs, delta, dev):
+    """Count the served tokens of `outs` (one list per prompt of
+    `requests`) that lie within `delta` of their row's maximum in the
+    teacher-forced logits `teacher(seq)`, and (the control) those within
+    delta of the next position's row."""
     n = exact = consistent = control = 0
     worst_gap = 0.0
     for p, out in zip(requests, outs):
@@ -897,16 +942,50 @@ def greedy_consistency(torch, teacher, requests, outs, delta, dev, label):
         control += int((shifted <= delta).sum())
         worst_gap = max(worst_gap, gap.max().item())
         del seq, ref
-    print(f"serve {label}: greedy consistency, delta {delta:.4g}: {consistent} "
-          f"of {n} tokens within delta of their row's maximum (largest gap "
-          f"{worst_gap:.4g}), exact argmax {exact} of {n} (no bar); control, "
-          f"tokens against the next position's logits: {control} of "
-          f"{n - len(requests)} within delta (must not be all)")
-    assert consistent == n, (label, consistent, n, worst_gap, delta)
-    assert control < n - len(requests), (label, control)
     return {"tokens": n, "consistent": consistent, "exact_argmax": exact,
             "control_within_delta": control, "largest_gap": worst_gap,
             "delta": delta}
+
+
+def greedy_consistency(torch, teacher, requests, outs, delta, dev, label):
+    """Hold each served token of `outs` within `delta` of its row's
+    maximum in the teacher-forced logits (`greedy_counts`); as a control
+    that must fail, hold each token to the next position's logits.
+    Prints the counts; returns them."""
+    counts = greedy_counts(torch, teacher, requests, outs, delta, dev)
+    n, consistent = counts["tokens"], counts["consistent"]
+    control, worst_gap = counts["control_within_delta"], counts["largest_gap"]
+    print(f"{label}: greedy consistency, delta {delta:.4g}: {consistent} "
+          f"of {n} tokens within delta of their row's maximum (largest gap "
+          f"{worst_gap:.4g}), exact argmax {counts['exact_argmax']} of {n} (no "
+          f"bar); control, tokens against the next position's logits: "
+          f"{control} of {n - len(requests)} within delta (must not be all)")
+    assert consistent == n, (label, consistent, n, worst_gap, delta)
+    assert control < n - len(requests), (label, control)
+    return counts
+
+
+def paged_run(torch, model, cfg, tokens, steps, chunk, tables, bl, dev):
+    """`paged_prefill` of `tokens` [b, t] in `chunk`-token chunks, then
+    `steps` greedy `paged_decode_step`s, on a pool of `bl`-token pages
+    laid out by `tables`: (each step's logits [b, steps + 1, vocab], the
+    sequence with its decoded tokens)."""
+    from ray_tpu_torch.models import generate as gen
+
+    b, t = tokens.shape
+    pool = gen.init_block_pool(cfg, tables.numel() + 1, bl, device=dev)
+    for off in range(0, t, chunk):
+        logits, pool = gen.paged_prefill(model, cfg, tokens[:, off:off + chunk],
+                                         pool, tables, off, off + chunk)
+    got, seq = [logits[:, -1]], tokens
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    for i in range(steps):
+        tok, pool, last = gen.paged_decode_step(
+            model, cfg, pool, tables, got[-1],
+            torch.full((b,), t + i, device=dev), alive)
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+        got.append(last)
+    return torch.stack(got, 1), seq
 
 
 def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
@@ -991,21 +1070,11 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
                             *forced(seq))
     nb = (t + steps) // bl
     order = torch.randperm(b * nb, generator=g, device=dev) + 1
-    tables = order.view(b, nb)
-    pool = gen.init_block_pool(cfg, b * nb + 1, bl, device=dev)
-    for off in range(0, t, chunk):
-        logits, pool = gen.paged_prefill(model, cfg, tokens[:, off:off + chunk],
-                                         pool, tables, off, off + chunk)
-    got, seq = [logits[:, -1]], tokens
-    for i in range(steps):
-        tok, pool, last = gen.paged_decode_step(
-            model, cfg, pool, tables, got[-1],
-            torch.full((b,), t + i, device=dev), alive)
-        seq = torch.cat([seq, tok[:, None]], dim=1)
-        got.append(last)
-    err_paged = held_steps("paged_prefill + paged_decode_step",
-                           torch.stack(got, 1), *forced(seq))
-    del pool, logits, got, seq, tokens, m32
+    got, seq = paged_run(torch, model, cfg, tokens, steps, chunk,
+                         order.view(b, nb), bl, dev)
+    err_paged = held_steps("paged_prefill + paged_decode_step", got,
+                           *forced(seq))
+    del got, seq, tokens, m32
     torch.cuda.empty_cache()
     # A served token's teacher-forced logit is at most 2 x this error
     # below its row's maximum (each of the two logits moves by at most
@@ -1054,7 +1123,7 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
     # forward kernel: the counters were read above). The control holds
     # each token to the logits one position later, and must fail.
     greedy = greedy_consistency(torch, teacher, requests, outs, delta, dev,
-                                "(e3)")
+                                "serve (e3)")
 
     ttft = [(a[0] - t0) * 1e3 for a in arrivals]  # all submitted at t0
     gaps = [(y - x) * 1e3 for a in arrivals for x, y in zip(a, a[1:])]
@@ -1306,7 +1375,7 @@ def serve_app_phase(torch, llama, card, n_layers, e3, requests, dev):
                 return llama.forward(model, seq)
 
         greedy = greedy_consistency(torch, teacher, requests, outs,
-                                    e3["delta"], dev, "(e4)")
+                                    e3["delta"], dev, "serve (e4)")
         del model
         torch.cuda.empty_cache()
         lap("greedy consistency")
@@ -3221,6 +3290,512 @@ def profile_step(torch, run_step):
     }
 
 
+# ---- (i) the RL slice ------------------------------------------------
+
+#: (i): the seed of every batch, init and run; (i1)'s bar (parameters of
+#: the card's learner against the CPU's after one update, as ROADMAP
+#: queue 3 holds Adam trajectories); (i2)'s return bar within the
+#: reference's 25 iterations (`tests/test_rl.py:56-75`); (i3)'s updates
+#: before and after a runner is killed.
+RL_SEED = 0
+RL_PARAM_TOL = 1e-4
+RL_ROWS = 4096
+RL_MINIBATCH = 128
+RL_EPOCHS = 4
+RL_LR = 1e-3
+RL_DQN_UPDATES = 8
+RL_RETURN_BAR = 100.0
+RL_MAX_ITERATIONS = 25
+RL_ENGINE_RUNNERS = 4
+RL_ENGINE_UPDATES = 8
+RL_UPDATES_AFTER_KILL = 3
+#: (i4): the RLHF push at the Llama-2-7B width. Streams of RL_PUSH_PROMPT
+#: tokens; the old ones (weights A) get a budget they do not reach before
+#: they are cancelled, once the new ones (weights B) have decoded
+#: RL_PUSH_NEW tokens each; the object store is sized for B.
+RL_PUSH_LAYERS = N_LAYERS
+RL_PUSH_STREAMS = 8
+RL_PUSH_PROMPT = 128
+RL_PUSH_NEW = 64
+RL_PUSH_OLD_BUDGET = 3840
+RL_PUSH_TAKE = 2
+RL_PUSH_STORE_BYTES = 8 << 30
+RL_PUSH_SEEDS = (21, 22)
+
+
+def rl_batch(n, seed):
+    """A CartPole-shaped PPO batch (obs 4, 2 actions) of `n` rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {
+        "obs": (rng.normal(size=(n, 4)) * [1.0, 0.5, 0.1, 0.5]).astype(
+            np.float32),
+        "actions": rng.integers(0, 2, size=n).astype(np.int32),
+        "logp": (np.log(0.5) + 0.1 * rng.normal(size=n)).astype(np.float32),
+        "advantages": rng.normal(size=n).astype(np.float32),
+        "value_targets": (10 * rng.random(n)).astype(np.float32),
+    }
+
+
+def tree_err(a, b):
+    """Max abs difference of two policy trees, and whether every leaf is
+    within RL_PARAM_TOL (rtol and atol)."""
+    import numpy as np
+
+    from ray_tpu_torch.rl.models import policy_state
+
+    sa, sb = policy_state(a), policy_state(b)
+    err = max(float(np.abs(sa[k] - sb[k]).max()) for k in sa)
+    ok = all(np.allclose(sa[k], sb[k], rtol=RL_PARAM_TOL, atol=RL_PARAM_TOL)
+             for k in sa)
+    return err, ok
+
+
+def rl_learners(torch, dev):
+    """(i1): `TorchLearner` on `dev` and on the CPU from the same seeded
+    weights take one update over RL_ROWS rows; `DQNLearner` takes
+    RL_DQN_UPDATES TD updates. Each control is the CPU learner one step
+    short, which must fall outside the bar."""
+    import numpy as np
+
+    from ray_tpu_torch.rl import DQNLearner, TorchLearner
+
+    def short_by_one(learner, total):
+        """Skip `learner`'s last optimizer step of `total`."""
+        step, count = learner._step, [0]
+
+        def skip_last(grads):
+            count[0] += 1
+            if count[0] < total:
+                step(grads)
+
+        learner._step = skip_last
+
+    kw = dict(minibatch_size=RL_MINIBATCH, num_epochs=RL_EPOCHS, lr=RL_LR,
+              hidden=(64, 64), seed=RL_SEED)
+    card = TorchLearner(4, 2, device=dev, **kw)
+    host = TorchLearner(4, 2, device="cpu", **kw)
+    short = TorchLearner(4, 2, device="cpu", **kw)
+    short_by_one(short, RL_EPOCHS * (RL_ROWS // RL_MINIBATCH))
+    assert tree_err(card.get_weights(), host.get_weights())[0] == 0.0
+    batch = rl_batch(RL_ROWS, RL_SEED)
+    metrics = card.update(batch)
+    host_metrics = host.update(batch)
+    short.update(batch)
+    err, ok = tree_err(card.get_weights(), host.get_weights())
+    control_err, control_ok = tree_err(card.get_weights(),
+                                       short.get_weights())
+    # One more update of each, timed (the metrics' float() waits).
+    times = {}
+    for name, learner in (("card", card), ("host", host)):
+        t0 = time.perf_counter()
+        learner.update(batch)
+        times[name] = (time.perf_counter() - t0) * 1e3
+    card_ms, host_ms = times["card"], times["host"]
+    print(f"(i1) TorchLearner, one update of {RL_ROWS} rows (minibatch "
+          f"{RL_MINIBATCH}, {RL_EPOCHS} epochs) on {dev} against the CPU: "
+          f"params max err {err:.3g} (bar {RL_PARAM_TOL} rtol/atol); one "
+          f"step short (control, must fail): {control_err:.3g}; a second "
+          f"update {card_ms:.1f} ms on {dev}, {host_ms:.1f} ms on the CPU")
+    assert ok, err
+    assert not control_ok, control_err
+    for k, v in metrics.items():
+        assert np.isclose(v, host_metrics[k], rtol=RL_PARAM_TOL,
+                          atol=RL_PARAM_TOL), (k, v, host_metrics[k])
+
+    rng = np.random.default_rng(RL_SEED + 1)
+    n = RL_ROWS
+    transitions = {
+        "obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, size=n).astype(np.int32),
+        "rewards": np.ones(n, np.float32),
+        "next_obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "dones": (rng.random(n) < 0.05).astype(np.float32),
+    }
+    dqn_kw = dict(learning_starts=0, train_batch_size=64,
+                  target_update_freq=4, seed=RL_SEED)
+    learners = {}
+    for name, device, steps in (("card", dev, RL_DQN_UPDATES),
+                                ("host", "cpu", RL_DQN_UPDATES),
+                                ("short", "cpu", RL_DQN_UPDATES - 1)):
+        learner = DQNLearner(4, 2, device=device, **dqn_kw)
+        learner.ingest(transitions)
+        t0 = time.perf_counter()
+        loss = learner.td_steps(steps)
+        learners[name] = (learner, loss, (time.perf_counter() - t0) * 1e3)
+    dqn_err, dqn_ok = tree_err(learners["card"][0].get_weights(),
+                               learners["host"][0].get_weights())
+    dqn_control, dqn_control_ok = tree_err(
+        learners["card"][0].get_weights(), learners["short"][0].get_weights())
+    print(f"(i1) DQNLearner, {RL_DQN_UPDATES} TD updates on {dev} against "
+          f"the CPU: params max err {dqn_err:.3g}; one update short "
+          f"(control): {dqn_control:.3g}; {learners['card'][2]:.1f} ms on "
+          f"{dev} (first calls included)")
+    assert dqn_ok, dqn_err
+    assert not dqn_control_ok, dqn_control
+    return {"ppo": {"max_abs_err": err, "control_max_abs_err": control_err,
+                    "update_ms": card_ms, "cpu_update_ms": host_ms,
+                    "metrics": metrics, "rows": RL_ROWS,
+                    "minibatch": RL_MINIBATCH, "epochs": RL_EPOCHS},
+            "dqn": {"max_abs_err": dqn_err, "control_max_abs_err": dqn_control,
+                    "td_ms": learners["card"][2],
+                    "td_loss": learners["card"][1],
+                    "cpu_td_loss": learners["host"][1]},
+            "bar": RL_PARAM_TOL}
+
+
+def rl_sync_ppo(dev):
+    """(i2): synchronous PPO at `PPOConfig()`'s defaults, the learner on
+    `dev`, the runners actors on the host, until the mean return reaches
+    RL_RETURN_BAR within RL_MAX_ITERATIONS iterations."""
+    from ray_tpu_torch.rl import PPOConfig
+
+    algo = (PPOConfig().environment("CartPole-v1")
+            .learners(device=dev.type).debugging(seed=RL_SEED).build())
+    update, update_ms = algo.learner.update, []
+
+    def timed_update(batch):
+        t0 = time.perf_counter()
+        out = update(batch)  # the metrics' float() waits for the card
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    algo.learner.update = timed_update
+    returns, iter_s = [], []
+    try:
+        for _ in range(RL_MAX_ITERATIONS):
+            t0 = time.perf_counter()
+            result = algo.train()
+            iter_s.append(time.perf_counter() - t0)
+            returns.append(result["episode_return_mean"])
+            if returns[-1] >= RL_RETURN_BAR:
+                break
+    finally:
+        algo.stop()
+    cfg = algo.config
+    print(f"(i2) synchronous PPO, learner on {dev}, {cfg.num_env_runners} "
+          f"runners x {cfg.num_envs_per_runner} envs x "
+          f"{cfg.rollout_length} steps: {len(returns)} iterations, returns "
+          f"{[round(r, 1) for r in returns]}, learner update "
+          f"{statistics.median(update_ms):.1f} ms (median; first "
+          f"{update_ms[0]:.1f}), iteration {statistics.median(iter_s):.2f} s")
+    assert max(returns) >= RL_RETURN_BAR, returns
+    return {"iterations": len(returns), "returns": returns,
+            "update_ms": update_ms, "iteration_s": iter_s,
+            "rows_per_iteration": cfg.num_env_runners
+            * cfg.num_envs_per_runner * cfg.rollout_length,
+            "bar": RL_RETURN_BAR, "max_iterations": RL_MAX_ITERATIONS}
+
+
+def rl_engine_ppo(rt, dev):
+    """(i3): decoupled PPO with the policy served by `PolicyEngineActor`
+    on `dev`, RL_ENGINE_RUNNERS runners: RL_ENGINE_UPDATES updates, then
+    one runner killed and RL_UPDATES_AFTER_KILL more."""
+    from ray_tpu_torch.rl import PPOConfig
+
+    algo = (PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=RL_ENGINE_RUNNERS)
+            .dataflow(policy="engine").learners(device=dev.type)
+            .debugging(seed=RL_SEED).build())
+    cfg = algo.config
+    results = []
+    try:
+        t0 = time.perf_counter()
+        for _ in range(RL_ENGINE_UPDATES):
+            results.append(algo.train())
+        wall_s = time.perf_counter() - t0
+        before = algo.flow.stats()
+        engine = algo.flow.engine_stats()
+        rt.kill(algo.flow.runner_handle(0))
+        for _ in range(RL_UPDATES_AFTER_KILL):
+            results.append(algo.train())
+        after = algo.flow.stats()
+        engine_after = algo.flow.engine_stats()
+    finally:
+        algo.stop()
+    returns = [r["episode_return_mean"] for r in results]
+    per_step = {int(k): v for k, v in
+                engine["policy_requests_per_step"].items()}
+    batched = sum(v for k, v in per_step.items() if k > 1)
+    rows_per_forward = engine["policy_rows_served"] / engine["policy_steps"]
+    print(f"(i3) decoupled PPO, policy engine on {dev}, "
+          f"{RL_ENGINE_RUNNERS} runners x {cfg.num_envs_per_runner} envs: "
+          f"{RL_ENGINE_UPDATES} updates in {wall_s:.1f} s, returns "
+          f"{[round(r, 1) for r in returns]}, weight versions "
+          f"{[r['weight_version'] for r in results]}, fragments "
+          f"{before['fragments_ok']} ok; engine forwards "
+          f"{engine['policy_steps']}, {rows_per_forward:.1f} rows each on "
+          f"average, {batched} serving 2 or more runners' requests "
+          f"(requests per forward: {per_step}); after the kill: "
+          f"{after['runner_failures']} runner failure(s), fragments "
+          f"{after['fragments_ok']} ok, {after['fragments_dropped']} dropped")
+    n = RL_ENGINE_UPDATES + RL_UPDATES_AFTER_KILL
+    assert [r["weight_version"] for r in results] == list(range(1, n + 1))
+    assert engine["weight_version"] == RL_ENGINE_UPDATES, engine
+    assert engine_after["weight_version"] == n and not engine_after["dead"]
+    assert before["fragments_ok"] >= RL_ENGINE_UPDATES, before
+    assert batched > 0 and max(per_step) > 1, per_step
+    assert returns[RL_ENGINE_UPDATES - 1] > returns[0], returns
+    assert after["runner_failures"] >= 1, after
+    assert after["fragments_ok"] > before["fragments_ok"], (before, after)
+    return {"runners": RL_ENGINE_RUNNERS, "updates": RL_ENGINE_UPDATES,
+            "updates_after_kill": RL_UPDATES_AFTER_KILL, "wall_s": wall_s,
+            "returns": returns,
+            "update_ms": [r["update_ms"] for r in results],
+            "weight_sync_ms": [r["weight_sync_ms"] for r in results],
+            "weight_versions": [r["weight_version"] for r in results],
+            "engine_steps": engine["policy_steps"],
+            "engine_rows": engine["policy_rows_served"],
+            "rows_per_forward": rows_per_forward,
+            "requests_per_forward": per_step,
+            "forwards_serving_several_runners": batched,
+            "before_kill": before, "after_kill": after}
+
+
+class EngineHost:
+    """(i4)'s actor: an `InferenceEngine` over weights drawn from a seed
+    on its own device, streams consumed as they are asked for, and
+    `update_weights` taking a state dict as `push_weights` sends it."""
+
+    def __init__(self, cfg, seed, engine_kw, device):
+        import torch
+
+        from ray_tpu_torch.llm import EngineConfig, InferenceEngine
+        from ray_tpu_torch.models import llama
+
+        self.cfg, self.device = cfg, torch.device(device)
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        self.model = llama.init_params(cfg, g, device=self.device)
+        self.engine = InferenceEngine(self.model, cfg,
+                                      EngineConfig(**engine_kw),
+                                      family="rlhf")
+        self.streams, self.outs, self.at_push = [], [], None
+
+    def digest(self):
+        import torch
+
+        return weights_digest(torch, self.model.state_dict())
+
+    def submit(self, prompts, max_new):
+        first = len(self.streams)
+        for p in prompts:
+            self.streams.append(self.engine.submit(p, max_new_tokens=max_new))
+            self.outs.append([])
+        return list(range(first, len(self.streams)))
+
+    def take(self, ids, n):
+        """Read `n` more tokens of each stream of `ids`."""
+        for i in ids:
+            for _ in range(n):
+                self.outs[i].append(next(self.streams[i]))
+        return [len(self.outs[i]) for i in ids]
+
+    def update_weights(self, state, *, version):
+        from ray_tpu_torch.models import llama
+
+        t0 = time.perf_counter()
+        model = llama.Llama(self.cfg, device=self.device)
+        model.load_state_dict(state)
+        del state
+        v = self.engine.update_weights(model, version=version)
+        self.at_push = dict(self.engine.stats(),
+                            install_ms=(time.perf_counter() - t0) * 1e3,
+                            tokens_read=[len(o) for o in self.outs])
+        return v
+
+    def push_stats(self):
+        return self.at_push
+
+    def cancel(self, ids):
+        for i in ids:
+            self.streams[i].cancel()
+        return True
+
+    def finish(self, ids):
+        """Drain each stream of `ids`: (tokens, finish reasons)."""
+        for i in ids:
+            self.outs[i].extend(self.streams[i])
+        return ([self.outs[i] for i in ids],
+                [self.streams[i].finish_reason for i in ids])
+
+    def stats(self):
+        return self.engine.stats()
+
+
+def rl_push_run(torch, llama, cfg, dev, prompts, new_prompts, old_budget,
+                new_budget, take=RL_PUSH_TAKE, seeds=RL_PUSH_SEEDS,
+                store_bytes=RL_PUSH_STORE_BYTES):
+    """The RLHF push: an `InferenceEngine` in an actor (a `num_gpus=1`
+    worker on "cuda") serves `prompts` from weights A (`seeds[0]`); once
+    each stream has given `take` tokens, `push_weights` sends weights B
+    (`seeds[1]`, built here) through the object store; `new_prompts`
+    are admitted after it; when they end, the old streams are cancelled.
+    Returns (A, B, old tokens, new tokens, record); the caller holds the
+    tokens to A's and B's logits."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl import push_weights
+
+    on_card = dev.type == "cuda"
+    rt.init(num_cpus=2, num_gpus=1 if on_card else 0,
+            _system_config={"object_store_memory": store_bytes})
+    try:
+        host_cls = rt.remote(num_gpus=1 if on_card else 0,
+                             num_cpus=0 if on_card else 1)(EngineHost)
+        ec = dict(slots=len(prompts) + len(new_prompts),
+                  max_len=max(len(p) for p in prompts + new_prompts)
+                  + max(old_budget, new_budget),
+                  prefill_chunk=min(256, cfg.max_seq_len),
+                  prefix_cache=False)
+        ec["max_len"] = -(-ec["max_len"] // ec["prefill_chunk"]) * ec[
+            "prefill_chunk"]
+        t0 = time.perf_counter()
+        host = host_cls.remote(cfg, seeds[0], ec, dev.type)
+        a = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seeds[0]), device=dev)
+        assert rt.get(host.digest.remote(), timeout=600) == weights_digest(
+            torch, a.state_dict()), "the actor's weights A differ"
+        start_s = time.perf_counter() - t0
+        old = rt.get(host.submit.remote(prompts, old_budget), timeout=60)
+        rt.get(host.take.remote(old, take), timeout=600)
+        b = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(seeds[1]), device=dev)
+        state = b.state_dict()
+        push_bytes = sum(t.numel() * t.element_size() for t in state.values())
+        push_ms = push_weights(state, 1, engines=[host], timeout=600)
+        del state
+        at_push = rt.get(host.push_stats.remote(), timeout=60)
+        new = rt.get(host.submit.remote(new_prompts, new_budget), timeout=60)
+        outs_new, reasons_new = rt.get(host.finish.remote(new), timeout=600)
+        rt.get(host.cancel.remote(old), timeout=60)
+        outs_old, reasons_old = rt.get(host.finish.remote(old), timeout=600)
+        stats = rt.get(host.stats.remote(), timeout=60)
+        rt.kill(host)
+    finally:
+        rt.shutdown()
+    record = {"push_bytes": push_bytes, "push_ms": push_ms,
+              "install_ms": at_push["install_ms"],
+              "object_store_memory": store_bytes, "actor_start_s": start_s,
+              "engine": ec,
+              "at_push": {k: at_push[k] for k in (
+                  "weight_gens", "weight_version", "requests_done",
+                  "slots_used", "tokens_read")},
+              "old_tokens": [len(o) for o in outs_old],
+              "new_tokens": [len(o) for o in outs_new],
+              "old_finish": reasons_old, "new_finish": reasons_new,
+              "weight_gens_after": stats["weight_gens"],
+              "weight_version_after": stats["weight_version"]}
+    # The push landed mid-decode: every old stream was running, pinning
+    # generation A beside B, when B was installed; none had ended.
+    assert at_push["weight_gens"] == 2, at_push
+    assert at_push["requests_done"] == 0, at_push
+    assert at_push["slots_used"] == len(prompts), at_push
+    assert reasons_new == ["length"] * len(new_prompts), reasons_new
+    assert all(len(o) == new_budget for o in outs_new)
+    assert all(r in ("cancelled", "length") for r in reasons_old)
+    assert all(len(o) > take for o in outs_old), record["old_tokens"]
+    assert stats["weight_gens"] == 1 and stats["weight_version"] == 1, stats
+    return a, b, outs_old, outs_new, record
+
+
+def rl_push_phase(torch, llama, dev, delta):
+    """(i4): `rl_push_run` at the Llama-2-7B width (RL_PUSH_LAYERS
+    layers, bf16); each old stream's tokens held to A's teacher-forced
+    logits, each new one's to B's, within `delta` of their row's maximum
+    ((e3)'s greedy-consistency delta); the new streams held to A's must
+    fail."""
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=RL_PUSH_LAYERS, remat=False)
+    g = torch.Generator(device=dev).manual_seed(RL_SEED + 3)
+
+    def prompt():
+        return torch.randint(0, cfg.vocab_size, (RL_PUSH_PROMPT,), generator=g,
+                             device=dev).tolist()
+
+    prompts = [prompt() for _ in range(RL_PUSH_STREAMS)]
+    new_prompts = [prompt() for _ in range(RL_PUSH_STREAMS)]
+    t0 = time.perf_counter()
+    a, b, outs_old, outs_new, record = rl_push_run(
+        torch, llama, cfg, dev, prompts, new_prompts, RL_PUSH_OLD_BUDGET,
+        RL_PUSH_NEW)
+    record["wall_s"] = time.perf_counter() - t0
+
+    def teacher(model):
+        def forced(seq):
+            with torch.no_grad():
+                return llama.forward(model, seq)
+        return forced
+
+    record["old_on_a"] = greedy_consistency(
+        torch, teacher(a), prompts, outs_old, delta, dev, "(i4) old on A")
+    record["new_on_b"] = greedy_consistency(
+        torch, teacher(b), new_prompts, outs_new, delta, dev, "(i4) new on B")
+    control = greedy_counts(torch, teacher(a), new_prompts, outs_new, delta,
+                            dev)
+    record["control_new_on_a"] = control
+    print(f"(i4) push of {record['push_bytes']} B (weights B) in "
+          f"{record['push_ms']:.1f} ms through an object store of "
+          f"{record['object_store_memory']} B (install in the actor "
+          f"{record['install_ms']:.1f} ms); at the push the old streams had "
+          f"read {record['at_push']['tokens_read'][:RL_PUSH_STREAMS]} tokens, "
+          f"weight_gens {record['at_push']['weight_gens']}; old streams "
+          f"{record['old_tokens']} tokens, new {record['new_tokens']}; "
+          f"control, the new streams on A: {control['consistent']} of "
+          f"{control['tokens']} within delta (must not be all); weight_gens "
+          f"after {record['weight_gens_after']}")
+    assert control["consistent"] < control["tokens"], control
+    record.update(config=f"llama2_7b width, {cfg.n_layers} layers, bf16, "
+                         "random init", delta=delta, streams=RL_PUSH_STREAMS,
+                  prompt_tokens=RL_PUSH_PROMPT)
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record
+
+
+def rl_decode_delta(torch, llama, dev):
+    """`--only-rl`'s stand-in for (e3)'s delta, measured as (e2) measures
+    it, on (i4)'s model (weights A): 3 x the max abs error of the paged
+    path's logits (`paged_prefill` in 256-token chunks and 16
+    `paged_decode_step`s, 2 x 1024 tokens) against the teacher-forced
+    bf16 `llama.forward`."""
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=RL_PUSH_LAYERS, remat=False)
+    g = torch.Generator(device=dev).manual_seed(RL_PUSH_SEEDS[0])
+    model = llama.init_params(cfg, g, device=dev)
+    b, t, steps, chunk, bl = 2, 1024, 16, 256, 16
+    tokens = torch.randint(0, cfg.vocab_size, (b, t), generator=g, device=dev)
+    nb = (t + steps) // bl
+    tables = (torch.arange(b * nb, device=dev) + 1).view(b, nb)
+    got, seq = paged_run(torch, model, cfg, tokens, steps, chunk, tables, bl,
+                         dev)
+    with torch.no_grad():
+        teacher = llama.forward(model, seq)[:, t - 1:]
+    err = rel_errors(got, teacher)[0]
+    del model, got, seq, teacher
+    torch.cuda.empty_cache()
+    print(f"(i4) delta for --only-rl: 3 x {err:.4g} (paged logits against "
+          "the teacher-forced bf16 forward)")
+    return 3.0 * err
+
+
+def rl_phase(torch, llama, card, dev, delta):
+    """Phase (i), the RL slice: (i1)-(i4) (see the module's doc). Returns
+    the `{"rl": ...}` record."""
+    import ray_tpu_torch as rt
+
+    record = {"card": card}
+    t0 = time.perf_counter()
+    record["i1"] = rl_learners(torch, dev)
+    rt.init(num_cpus=6, num_gpus=1 if dev.type == "cuda" else 0)
+    try:
+        record["i2"] = rl_sync_ppo(dev)
+        record["i3"] = rl_engine_ppo(rt, dev)
+    finally:
+        rt.shutdown()
+    record["i4"] = rl_push_phase(torch, llama, dev, delta)
+    record["wall_s"] = time.perf_counter() - t0
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -3250,6 +3825,10 @@ def main() -> int:
         "--only-mpmd", action="store_true",
         help="build the kernels, then run only the MPMD pipeline's phase "
              "((g4) on one card; with --cards 4, the four-card MPMD run)")
+    parser.add_argument(
+        "--only-rl", action="store_true",
+        help="build the kernels, then run only the RL phase ((i1)-(i4) on "
+             "one card)")
     args = parser.parse_args()
     n_layers = args.layers
 
@@ -3277,6 +3856,19 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(reports) or 'cached'})")
     print_ptxas(reports)
+
+    if args.only_rl:
+        dev = torch.device("cuda")
+        record = {"rl": rl_phase(torch, llama, card, dev,
+                                 rl_decode_delta(torch, llama, dev))}
+        print(json.dumps(record))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
 
     if args.cards == 4 or args.only_mpmd:
         if args.cards == 4 and args.only_mpmd:
@@ -3622,6 +4214,11 @@ def main() -> int:
     print(f"serve (e4): {time.perf_counter() - t0:.1f} s")
     serve_launches = serve["flash_launches_while_serving"]
 
+    # ---- (i) the RL slice ---------------------------------------------
+    t0 = time.perf_counter()
+    rl = rl_phase(torch, llama, card, dev, serve["delta"])
+    print(f"(i): {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {
             "name": "flash_fwd", "route": "cuda",
@@ -3780,6 +4377,7 @@ def main() -> int:
     print(json.dumps({"gemma": gemma}))
     print(json.dumps({"wide": wide}))
     print(json.dumps({"f32_any": f32_any}))
+    print(json.dumps({"rl": rl}))
     if args.against:
         print(json.dumps({"against": against(
             torch, attn, args.against, randn, n_layers)}))

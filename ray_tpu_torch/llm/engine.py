@@ -60,7 +60,8 @@ weight push and policy batch to `serve.observability` (the
 `serve_engine_*` series, tagged with the engine's app, deployment and
 family); the hooks are guarded, so a failure there never fails a
 decode. It also keeps counters that `stats()` returns: decode steps
-and their time by batch width, prefill chunks, tokens and time. The JAX
+and their time by batch width, prefill chunks, tokens and time, and
+the requests each policy forward served. The JAX
 engine's registration of its programs with the compile watch has no
 counterpart here.
 """
@@ -405,6 +406,8 @@ class InferenceEngine:
         self._policy_pending: "deque[_PolicyRequest]" = deque()
         self._policy_rows_pending = 0
         self._policy_steps = 0
+        #: Requests served by one policy forward -> forwards.
+        self._policy_batches: Dict[int, int] = {}
         self._policy_rows_served = 0
         self._steps = 0
         self._tokens_emitted = 0
@@ -616,6 +619,8 @@ class InferenceEngine:
                 weight_gens=len(self._gens),
                 policy_pending_rows=self._policy_rows_pending,
                 policy_steps=self._policy_steps,
+                policy_requests_per_step=dict(
+                    sorted(self._policy_batches.items())),
                 policy_rows_served=self._policy_rows_served,
                 dead=self._dead is not None,
             )
@@ -754,6 +759,8 @@ class InferenceEngine:
             req.done.set()
             cursor += req.n
         self._policy_steps += 1
+        self._policy_batches[len(batch)] = (
+            self._policy_batches.get(len(batch), 0) + 1)
         self._policy_rows_served += rows
         self._observe_policy(
             (time.perf_counter() - t0) * 1e3, rows, bucket

@@ -268,28 +268,32 @@ def test_engine_eos_stops_row(tiny, engine):
 
 def test_slot_reuse_and_fifo_admission(engine):
     """Both slots busy; a long-prompt request queued ahead of short ones
-    gets its first token first, and it reuses a vacated slot."""
+    gets its first token first, and it reuses a vacated slot. The order
+    is read from the engine's own record of each request's first token
+    (stamped by its step thread as it emits the token), not from the
+    consumers' clocks: a consumer thread can be scheduled late."""
     busy = [engine.submit([1 + i, 2, 3, 4], max_new_tokens=12)
             for i in range(2)]
     long_req = engine.submit(list(range(1, 21)), max_new_tokens=4)
     shorts = [engine.submit([40 + i, 41, 42, 43], max_new_tokens=4)
               for i in range(2)]
-    first_token_at = {}
+    streams = {"b0": busy[0], "b1": busy[1], "long": long_req,
+               "s0": shorts[0], "s1": shorts[1]}
+    got = {}
 
     def consume(tag, stream):
-        for i, _tok in enumerate(stream):
-            if i == 0:
-                first_token_at[tag] = time.perf_counter()
+        got[tag] = list(stream)
 
-    threads = [threading.Thread(target=consume, args=(tag, s), daemon=True)
-               for tag, s in [("b0", busy[0]), ("b1", busy[1]),
-                              ("long", long_req), ("s0", shorts[0]),
-                              ("s1", shorts[1])]]
+    threads = [threading.Thread(target=consume, args=item, daemon=True)
+               for item in streams.items()]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=60)
-    assert set(first_token_at) == {"b0", "b1", "long", "s0", "s1"}
+    assert not any(t.is_alive() for t in threads)
+    assert {tag for tag, out in got.items() if out} == set(streams)
+    first_token_at = {tag: s._req.first_token_ts
+                      for tag, s in streams.items()}
     assert first_token_at["long"] < min(first_token_at["s0"],
                                         first_token_at["s1"])
     assert long_req._req.slot in (busy[0]._req.slot, busy[1]._req.slot)
@@ -306,13 +310,43 @@ def _wait_for(predicate, timeout=10):
     return predicate()
 
 
-def test_cancel_during_decode_during_prefill_and_while_waiting(engine):
+def _gate_decode(monkeypatch, eng):
+    """Meter the engine's decode steps: `steps["left"]` None runs them
+    freely, a count lets that many more run, 0 holds every decode
+    (admission and prefill go on). A stream then stays running, or
+    queued, for as long as the test needs it to, however the threads
+    are scheduled."""
+    steps = {"left": None}
+    decode = eng._decode
+
+    def gated():
+        if steps["left"] is None:
+            return decode()
+        if steps["left"] <= 0:
+            return False
+        steps["left"] -= 1
+        return decode()
+
+    monkeypatch.setattr(eng, "_decode", gated)
+    return steps
+
+
+def test_cancel_during_decode_during_prefill_and_while_waiting(
+        engine, monkeypatch):
+    # Under load the test thread can lose the CPU between a stream's
+    # first token and its cancel, or before it sees both busy streams
+    # admitted, for as long as the tiny model takes to decode them all:
+    # the engine then finished a stream the test meant to cancel
+    # running or waiting. The decode is metered where that matters.
+    steps = _gate_decode(monkeypatch, engine)
+    steps["left"] = 1  # the first token, then hold
     stream = engine.submit([7, 7, 7, 7], max_new_tokens=32)
     assert isinstance(next(stream), int)
     stream.cancel()
     rest = list(stream)
     assert stream.finish_reason == "cancelled" and 1 + len(rest) < 32
     assert _wait_for(lambda: engine.stats()["slots_used"] == 0)
+    steps["left"] = None
     # Cancels landing in the prefill window free the slot exactly once.
     for attempt in range(5):
         stream = engine.submit(list(range(1, 21)), max_new_tokens=4)
@@ -320,6 +354,7 @@ def test_cancel_during_decode_during_prefill_and_while_waiting(engine):
         stream.cancel()
         list(stream)
         assert stream.finish_reason in ("cancelled", "length")
+    steps["left"] = 0  # the busy streams hold both slots
     busy = [engine.submit([1, 2, 3, 4], max_new_tokens=24) for _ in range(2)]
     queued = engine.submit([9, 9, 9, 9], max_new_tokens=4)
     assert _wait_for(lambda: engine.stats()["slots_used"] == 2)
@@ -328,6 +363,7 @@ def test_cancel_during_decode_during_prefill_and_while_waiting(engine):
     for s in busy:
         s.cancel()
         list(s)
+    steps["left"] = None
     assert len(list(engine.submit([2, 4, 6, 8], max_new_tokens=4))) == 4
     assert engine.stats()["dead"] is False
 
@@ -441,20 +477,28 @@ def test_policy_requests_batch_into_one_forward(monkeypatch):
                         lambda: release.is_set() and serve())
     try:
         results = {}
+        # Each worker reports its submit done; the wait below is for all
+        # 12, however slowly the threads are scheduled (no clock bound
+        # but a generous guard against a hang).
+        submitted = [threading.Event() for _ in range(12)]
 
         def worker(i, rows):
             obs = np.full((rows, 4), float(i), np.float32)
-            results[i] = (obs, eng.submit_policy(obs).result(timeout=30))
+            ticket = eng.submit_policy(obs)
+            submitted[i].set()
+            results[i] = (obs, ticket.result(timeout=60))
 
         threads = [threading.Thread(target=worker, args=(i, 1 + i % 3))
                    for i in range(12)]
         for t in threads:
             t.start()
         rows = sum(1 + i % 3 for i in range(12))
-        assert _wait_for(lambda: eng.stats()["policy_pending_rows"] == rows)
+        assert all(e.wait(timeout=120) for e in submitted)
+        assert eng.stats()["policy_pending_rows"] == rows
         release.set()
         for t in threads:
             t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
         assert len(results) == 12
         with torch.no_grad():
             for obs, out in results.values():

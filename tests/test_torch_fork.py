@@ -21,7 +21,11 @@ def test_the_runtime_copies_are_found():
                  "ray_tpu_torch/_private/worker.py",
                  "ray_tpu_torch/api.py", "ray_tpu_torch/dag/compiled.py",
                  "ray_tpu_torch/train/worker_group.py",
-                 "ray_tpu_torch/parallel/schedule.py"):
+                 "ray_tpu_torch/parallel/schedule.py",
+                 "ray_tpu_torch/rl/env.py",
+                 "ray_tpu_torch/rl/actor_manager.py",
+                 "ray_tpu_torch/rl/rollout_queue.py",
+                 "ray_tpu_torch/rl/weight_sync.py"):
         assert copy in COPIES
 
 

@@ -20,6 +20,15 @@ from ray_tpu_torch.models import generate, hf_convert, llama
 from ray_tpu_torch import graft_entry
 from ray_tpu_torch.ops import init_moe_params
 from ray_tpu_torch.parallel import MeshSpec, pipeline_mesh
+from ray_tpu_torch.rl import (
+    DQNConfig,
+    DQNLearner,
+    LearnerGroup,
+    PolicyEngineActor,
+    PPOConfig,
+    SingleAgentEnvRunner,
+    TorchLearner,
+)
 from ray_tpu_torch.train import (
     MPMDPipeline,
     init_torch_distributed,
@@ -114,6 +123,95 @@ def test_serving_modules_leave_jax_out(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=100)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "ray_tpu_torch.rl",
+    "ray_tpu_torch.rl.env",
+    "ray_tpu_torch.rl.actor_manager",
+    "ray_tpu_torch.rl.rollout_queue",
+    "ray_tpu_torch.rl.weight_sync",
+    "ray_tpu_torch.rl.models",
+    "ray_tpu_torch.rl.learner",
+    "ray_tpu_torch.rl.env_runner",
+    "ray_tpu_torch.rl.learner_group",
+    "ray_tpu_torch.rl.ppo",
+    "ray_tpu_torch.rl.dqn",
+    "ray_tpu_torch.rl.dataflow",
+])
+def test_rl_modules_leave_jax_out(module):
+    """Each alone, in a fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'ray_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=100)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_rl_runner_and_learner_actors_leave_jax_and_ray_tpu_out():
+    """An env runner that sampled and a learner actor that stepped, both
+    spawned by the port's runtime in a fresh interpreter: neither they
+    nor the driver import JAX or anything of `ray_tpu`."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "import ray_tpu_torch as rt\n"
+        "from ray_tpu_torch.rl.env_runner import SingleAgentEnvRunner\n"
+        "from ray_tpu_torch.rl.learner_group import _LearnerActor\n"
+        "from ray_tpu_torch.rl.models import init_policy_params, \\\n"
+        "    to_jax_policy_params\n"
+        "def bad():\n"
+        "    import sys\n"
+        "    return sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "                  ('jax', 'jaxlib', 'optax', 'ray_tpu'))\n"
+        "class Runner(SingleAgentEnvRunner):\n"
+        "    def bad(self):\n"
+        "        return bad()\n"
+        "class Learner(_LearnerActor):\n"
+        "    def bad(self):\n"
+        "        return bad()\n"
+        "rt.init(num_cpus=3)\n"
+        "w = to_jax_policy_params(init_policy_params(\n"
+        "    torch.Generator().manual_seed(0), 4, 2, device='cpu'))\n"
+        "runner = rt.remote(num_cpus=1)(Runner).remote('CartPole-v1', 2, 4)\n"
+        "rt.get(runner.set_weights.remote(w), timeout=60)\n"
+        "rows = len(rt.get(runner.sample.remote(), timeout=60)['obs'])\n"
+        "learner = rt.remote(num_cpus=1)(Learner).remote(\n"
+        "    {'obs_size': 4, 'num_actions': 2, 'device': 'cpu'}, 0)\n"
+        "rng = np.random.default_rng(0)\n"
+        "shard = {'obs': rng.normal(size=(8, 4)).astype(np.float32),\n"
+        "         'actions': np.zeros(8, np.int32),\n"
+        "         'logp': np.full(8, -0.7, np.float32),\n"
+        "         'advantages': rng.normal(size=8).astype(np.float32),\n"
+        "         'value_targets': np.ones(8, np.float32)}\n"
+        "rt.get(learner.set_batch.remote(shard), timeout=60)\n"
+        "rt.get(learner.start_epoch.remote(0), timeout=60)\n"
+        "grads, _ = rt.get(learner.grad_step.remote(0, 8), timeout=60)\n"
+        "rt.get(learner.apply_grads.remote(grads), timeout=60)\n"
+        "out = {'rows': rows, 'grads': sorted(grads),\n"
+        "       'runner': rt.get(runner.bad.remote(), timeout=60),\n"
+        "       'learner': rt.get(learner.bad.remote(), timeout=60)}\n"
+        "rt.shutdown()\n"
+        "out['driver'] = bad()\n"
+        "print(out)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = eval(proc.stdout.strip().splitlines()[-1])
+    assert out.pop("rows") == 8
+    assert out.pop("grads") == sorted(
+        f"{p}.{leaf}" for p in ("layers.0", "layers.1", "pi", "vf")
+        for leaf in "wb")
+    assert out == {"runner": [], "learner": [], "driver": []}, out
 
 
 def test_served_app_and_its_replica_leave_jax_and_ray_tpu_out():
@@ -255,8 +353,13 @@ def test_entry_points_default_to_the_card():
                   MeshSpec.build, graft_entry.entry, init_torch_distributed,
                   run_local_gang, pipeline_mesh, init_moe_params,
                   serving.build_model, serving.LLMServer,
-                  serving.build_llm_app, MPMDPipeline):
+                  serving.build_llm_app, MPMDPipeline, TorchLearner,
+                  DQNLearner, LearnerGroup, PolicyEngineActor):
         assert inspect.signature(entry).parameters["device"].default == "cuda"
+    # RL: the learners and the policy engine on the card; the runners
+    # sample on the host, as the reference's do.
+    assert PPOConfig().device == DQNConfig().device == "cuda"
+    assert SingleAgentEnvRunner.device == "cpu"
 
 
 def test_load_jax_params_round_trips_tiny():
