@@ -225,6 +225,34 @@ Phases, none of whose failures is caught:
       tokens must lie within (e3)'s delta of their row's maximum in A's
       teacher-forced logits, each new one's in B's; the new streams held
       to A's (the control) must not.
+  (j) the compile watch (`_private/compile_watch.py`) on the card, after
+      (i). (j1) flash_fwd built anew (a fresh build directory under
+      `build/`, the loaded library set aside and restored after) inside
+      an instrumented call: exactly one `kernel.flash_fwd` record with
+      nvcc's wall time, the call's program billed the build's time as
+      `compile_ms` once, the build's time less nvcc's under 100 ms.
+      (j2) the registry is reset before (c)'s steps, (e3)'s engine,
+      (i2) and (i3), and read after them; each program must hold one
+      record per distinct signature: `train.step` [1, 1] after step 1
+      and after step 8, (e3)'s `stats()["compiles"]` prefill and decode
+      {1, 1}, (i3)'s policy engine's policy program compiles equal to
+      its distinct shapes; each (g4b) stage program's counts, read in
+      its stage's process, must equal the signatures it has seen (one,
+      or one per chunk for `acc`); every other training run of the
+      script (`train_steps`: (f), (g1), (g2), (h), and each run of
+      `--cards 4` on every rank) must record its step program
+      (`train.step` or `train.pp_step`) [1, 1]. (j3) a prefill loop whose length
+      drifts (WATCH_DRIFT_CALLS lengths from WATCH_DRIFT_FROM by
+      WATCH_DRIFT_STEP) through `generate.prefill` at (e1)'s width in
+      f32 must be the one storm `detect_storms` names, with "dim 1
+      drifting"; the same calls at one length no storm; `static_hint`
+      names the wrap site. (j4) the watch's hot path (digest and
+      seen-set lookup on a hit; an instrumented no-op less the no-op,
+      best of 3 x WATCH_REPS calls) on the real arguments of (c)'s
+      `train.step`, (e3)'s paged decode step and (i2)'s PPO minibatch
+      update must be under WATCH_SHARE of each one's step ((c)'s
+      steady step, (e3)'s decode step at batch 8, the minibatch update
+      timed 20 times after (i2)).
 
 Prints `{"kernels": [...]}` (with each kernel's launches under each
 remat policy and in the mesh step), then `{"slice": {...}}`, then
@@ -251,7 +279,11 @@ bytes and peak memory, the bubble bound, the build's ms, the launches;
 ms; (i2)'s iterations, returns and update ms; (i3)'s returns, versions,
 engine forwards and requests per forward, the counts before and after
 the kill; (i4)'s push bytes and ms, the store's size, the state at the
-push, the streams' lengths and the consistency counts), then the
+push, the streams' lengths and the consistency counts), then
+`{"compile_watch": {...}}` ((j): each window's counts, the hot path's
+us and share of each step, (j1)'s nvcc and billed ms, (j3)'s storm and
+hint; each kernel's entry in the kernels line carries its library's
+nvcc ms from (a), None when cached), then the
 card's name and power limit, and as the last
 line `{"ok": true, "device": {...}}`. Exits non-zero with no
 result line when there is no CUDA card or the port is not beside it.
@@ -1089,6 +1121,9 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
     tails = torch.randint(64, 1025, (16,), generator=g, device=dev).tolist()
     requests = [system + torch.randint(0, cfg.vocab_size, (n,), generator=g,
                                        device=dev).tolist() for n in tails]
+    from ray_tpu_torch._private import compile_watch
+
+    compile_watch.reset()  # (j2)'s window: (e3)'s engine
     eng = InferenceEngine(model, cfg, ec, family="llama2_7b")
     outs = [[] for _ in requests]
     arrivals = [[] for _ in requests]
@@ -1113,6 +1148,8 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
         stats = eng.stats()
     finally:
         eng.close()
+    watch = {"engine_compiles": stats["compiles"],
+             "counts": watch_counts(["engine.", "generate."])}
     reasons = [s.finish_reason for s in streams]
     assert reasons == ["length"] * len(streams), reasons
     assert all(len(o) == ec.max_new_tokens for o in outs)
@@ -1166,7 +1203,18 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
     print(f"serve (e3): {len(requests)} requests in {wall_s:.2f} s; decode "
           f"step at batch {ec.slots} {step_ms_full} ms (bound "
           f"{bound * 1e3:.3f} ms); TTFT p50 {serve['ttft_ms_p50']:.1f} ms")
-    del eng
+    # (j4): the watch's hot path on a decode step's arguments, as the
+    # engine passes them (its pool, tables, logits, positions, mask).
+    decode_args = (model, cfg, eng._kv.pool,
+                   torch.tensor(eng._tables, device=dev), eng._last_logits,
+                   torch.tensor(eng._positions, device=dev),
+                   torch.tensor(eng._alive, device=dev),
+                   eng._seeded(eng._steps))
+    watch.update(hot_path_us=hot_path_us(
+        decode_args, {"temperature": ec.temperature, "top_k": ec.top_k}),
+        step_ms=step_ms_full)
+    serve["compile_watch"] = watch
+    del eng, decode_args
     if profile:
         serve["profile"] = profile_serving(torch, gen, model, cfg, ec,
                                            round(mean_live), dev)
@@ -1542,10 +1590,14 @@ def train_steps(torch, llama, attn, cfg, state, step_fn, tokens, targets,
     and the peak memory of the steps; with `profile`, the allocations
     alive at the steps' peak (from the allocator's history, recorded
     beside the timed steps) and one more step traced by
-    `profile_step`."""
+    `profile_step`. The run's step program (`train.step` or
+    `train.pp_step`) must record its one signature once."""
+    from ray_tpu_torch._private import compile_watch
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, step_s = [], [], []
+    compile_watch.reset()
     if profile:
         torch.cuda.memory._record_memory_history(max_entries=2_000_000,
                                                  stacks="python")
@@ -1559,6 +1611,8 @@ def train_steps(torch, llama, attn, cfg, state, step_fn, tokens, targets,
         norms.append(metrics["grad_norm"].item())
     launches = dict(attn.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    compiles = watch_counts(["train.step", "train.pp_step"])
+    assert list(compiles.values()) == [[1, 1]], compiles
     steady = statistics.median(step_s[1:])
     n_tokens = tokens.shape[0] * tokens.shape[1]
     tokens_per_s = n_tokens / steady
@@ -1579,6 +1633,7 @@ def train_steps(torch, llama, attn, cfg, state, step_fn, tokens, targets,
         / PEAK_BF16_FLOPS,
         "max_memory_allocated": peak,
         "launches": launches,
+        "compiles": compiles,
     }
 
 
@@ -2052,6 +2107,9 @@ def mpmd_steps(torch, rt, pipe, tokens, targets, steps):
                       timeout=60)
     memory = rt.get([a.peak_memory.remote() for a in pipe.stages],
                     timeout=60)
+    # (j2): each stage program's compile-watch counts in its process.
+    compiles = rt.get([a.compile_counts.remote() for a in pipe.stages],
+                      timeout=60)
     steady = statistics.median(step_s[1:]) if steps > 1 else step_s[0]
     last = outs[-1]
     # Step 1 pays each stage process's first launches: kept apart.
@@ -2068,6 +2126,7 @@ def mpmd_steps(torch, rt, pipe, tokens, targets, steps):
         "build_ms": pipe.build_ms,
         "launches": launches,
         "expected_launches": mpmd_expected_launches(pipe.cfg, pipe, steps),
+        "compiles": compiles,
         "stages": [{
             "device": mem["device"],
             "max_memory_allocated": mem["max_memory_allocated"],
@@ -2100,7 +2159,8 @@ def mpmd_print(label, r, ref_loss):
               f"{st['recv_wait_ms']:.3f} ms, ops {st['op_ms']}, bytes out "
               f"{st['bytes_out']} in "
               f"{st['bytes_in']}, peak {st['max_memory_allocated']} B, "
-              f"launches {r['launches'][s]}")
+              f"launches {r['launches'][s]}, compiles "
+              f"{ {k: v['compiles'] for k, v in r['compiles'][s].items()} }")
 
 
 def mpmd_held(r, ref_loss):
@@ -2113,6 +2173,12 @@ def mpmd_held(r, ref_loss):
     expected = [{**dict.fromkeys(got, 0), **want} for got, want in
                 zip(r["launches"], r["expected_launches"])]
     assert r["launches"] == expected, (r["launches"], expected)
+    # (j2): every stage program recorded each signature once, and kept
+    # its first step's: one, or one per chunk for `acc`.
+    for stage in r["compiles"]:
+        for key, row in stage.items():
+            assert row["compiles"] == row["distinct_shapes"] == \
+                row["signatures"] >= 1, (key, row)
 
 
 def flagship_weights(torch, llama, cfg, rows, dev):
@@ -3451,11 +3517,14 @@ def rl_sync_ppo(dev):
     RL_RETURN_BAR within RL_MAX_ITERATIONS iterations."""
     from ray_tpu_torch.rl import PPOConfig
 
+    import torch
+
     algo = (PPOConfig().environment("CartPole-v1")
             .learners(device=dev.type).debugging(seed=RL_SEED).build())
-    update, update_ms = algo.learner.update, []
+    update, update_ms, last_batch = algo.learner.update, [], []
 
     def timed_update(batch):
+        last_batch[:] = [batch]
         t0 = time.perf_counter()
         out = update(batch)  # the metrics' float() waits for the card
         update_ms.append((time.perf_counter() - t0) * 1e3)
@@ -3471,6 +3540,23 @@ def rl_sync_ppo(dev):
             returns.append(result["episode_return_mean"])
             if returns[-1] >= RL_RETURN_BAR:
                 break
+        # (j2)'s counts of the run, then (j4): the watch's hot path on a
+        # minibatch update's argument beside that update's own time.
+        learner = algo.learner
+        watch = {"counts": watch_counts(["rl."])}
+        minibatch = {k: v[:learner.minibatch_size]
+                     for k, v in learner.to_device(last_batch[0]).items()}
+        step_ms = []
+        for _ in range(20):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learner._update_jit(minibatch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        watch.update(hot_path_us=hot_path_us((minibatch,)),
+                     step_ms=statistics.median(step_ms[1:]))
     finally:
         algo.stop()
     cfg = algo.config
@@ -3481,7 +3567,8 @@ def rl_sync_ppo(dev):
           f"{statistics.median(update_ms):.1f} ms (median; first "
           f"{update_ms[0]:.1f}), iteration {statistics.median(iter_s):.2f} s")
     assert max(returns) >= RL_RETURN_BAR, returns
-    return {"iterations": len(returns), "returns": returns,
+    return {"compile_watch": watch,
+            "iterations": len(returns), "returns": returns,
             "update_ms": update_ms, "iteration_s": iter_s,
             "rows_per_iteration": cfg.num_env_runners
             * cfg.num_envs_per_runner * cfg.rollout_length,
@@ -3550,7 +3637,9 @@ def rl_engine_ppo(rt, dev):
             "rows_per_forward": rows_per_forward,
             "requests_per_forward": per_step,
             "forwards_serving_several_runners": batched,
-            "before_kill": before, "after_kill": after}
+            "before_kill": before, "after_kill": after,
+            "compile_watch": {"counts": watch_counts(["rl."]),
+                              "engine_compiles": engine["compiles"]}}
 
 
 class EngineHost:
@@ -3782,16 +3871,232 @@ def rl_phase(torch, llama, card, dev, delta):
     the `{"rl": ...}` record."""
     import ray_tpu_torch as rt
 
+    from ray_tpu_torch._private import compile_watch
+
     record = {"card": card}
     t0 = time.perf_counter()
     record["i1"] = rl_learners(torch, dev)
     rt.init(num_cpus=6, num_gpus=1 if dev.type == "cuda" else 0)
     try:
+        compile_watch.reset()  # (j2)'s windows: (i2), then (i3)
         record["i2"] = rl_sync_ppo(dev)
+        compile_watch.reset()
         record["i3"] = rl_engine_ppo(rt, dev)
     finally:
         rt.shutdown()
     record["i4"] = rl_push_phase(torch, llama, dev, delta)
+    record["wall_s"] = time.perf_counter() - t0
+    return record
+
+
+# ---- (j) the compile watch on the card ------------------------------
+
+#: (j4)'s bar: the watch's hot path (digest + seen-set lookup) at most
+#: this share of the program's step, on the program's real arguments.
+WATCH_SHARE = 0.01
+#: (j3)'s loop: prefill lengths drifting by WATCH_DRIFT_STEP from
+#: WATCH_DRIFT_FROM, one more than the storm threshold's 8 and then some.
+WATCH_DRIFT_FROM, WATCH_DRIFT_STEP, WATCH_DRIFT_CALLS = 16, 8, 12
+#: Calls timed per round of `hot_path_us` (best of 3 rounds).
+WATCH_REPS = 2000
+
+
+def watch_counts(prefixes=None):
+    """{program: [compiles, distinct_shapes]} of this process's compile
+    watch, for the programs whose names start with one of `prefixes`."""
+    from ray_tpu_torch._private import compile_watch as cw
+
+    return {name: [row["compiles"], row["distinct_shapes"]]
+            for name, row in sorted(cw.snapshot().items())
+            if prefixes is None or name.startswith(tuple(prefixes))}
+
+
+def one_record_per_signature(label, counts):
+    """Each program of `counts` recorded each signature once."""
+    assert counts, label
+    for name, (compiles, distinct) in counts.items():
+        assert compiles == distinct, (label, name, compiles, distinct)
+
+
+def hot_path_us(args, kwargs=None):
+    """The compile watch's cost per call on a hit, on these arguments:
+    an instrumented no-op's time less the no-op's own, best of 3 rounds
+    of WATCH_REPS calls (host clock: the hot path is host work)."""
+    from ray_tpu_torch._private import compile_watch as cw
+
+    kwargs = kwargs or {}
+
+    def noop(*a, **k):
+        return None
+
+    watched = cw.instrument("chip_smoke.hot_path", noop)
+    watched(*args, **kwargs)  # the one miss
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(WATCH_REPS):
+            watched(*args, **kwargs)
+        t1 = time.perf_counter()
+        for _ in range(WATCH_REPS):
+            noop(*args, **kwargs)
+        t2 = time.perf_counter()
+        best = min(best, ((t1 - t0) - (t2 - t1)) / WATCH_REPS)
+    return best * 1e6
+
+
+def watch_forced_build(torch, _build):
+    """(j1): flash_fwd built anew (a fresh build directory, the loaded
+    library set aside) inside an instrumented call: exactly one
+    `kernel.flash_fwd` record with nvcc's wall time, and the call's
+    program billed the build's time as compile_ms."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from ray_tpu_torch._private import compile_watch as cw
+    from ray_tpu_torch._private import step_telemetry
+
+    cw.reset()
+    step_telemetry.take_phases()
+    load = cw.instrument("chip_smoke.load_flash_fwd",
+                         lambda: _build.load("flash_fwd"))
+    saved_dir, saved_lib = _build.BUILD_DIR, _build._libs.pop("flash_fwd")
+    saved_dir.parent.mkdir(parents=True, exist_ok=True)
+    fresh = tempfile.mkdtemp(prefix="compile_watch_", dir=saved_dir.parent)
+    try:
+        _build.BUILD_DIR = Path(fresh)
+        t0 = time.perf_counter()
+        load()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        built = _build.library_path("flash_fwd").exists()
+    finally:
+        _build.BUILD_DIR = saved_dir
+        _build._libs["flash_fwd"] = saved_lib
+        shutil.rmtree(fresh, ignore_errors=True)
+    phases = step_telemetry.take_phases()
+    snap = cw.snapshot()
+    kernel = snap["kernel.flash_fwd"]
+    program = snap["chip_smoke.load_flash_fwd"]
+    record = {"kernel_records": kernel["compiles"],
+              "nvcc_ms": kernel["total_ms"],
+              "program_compiles": program["compiles"],
+              "program_compile_ms": program["total_ms"],
+              "billed_compile_ms": phases.get("compile_ms", 0.0),
+              "call_ms": wall_ms}
+    print(f"(j1) flash_fwd built anew inside an instrumented call: "
+          f"{kernel['compiles']} kernel.flash_fwd record(s), nvcc "
+          f"{kernel['total_ms']:.1f} ms; the program billed "
+          f"{record['billed_compile_ms']:.1f} ms of compile_ms (its record "
+          f"{program['total_ms']:.1f} ms; the call {wall_ms:.1f} ms)")
+    assert built
+    assert kernel["compiles"] == 1 and kernel["distinct_shapes"] == 0, kernel
+    assert program["compiles"] == 1, program
+    assert set(snap) == {"kernel.flash_fwd", "chip_smoke.load_flash_fwd"}
+    # The build's wall time: nvcc's own plus the poll and the rename.
+    assert kernel["total_ms"] > 0.0
+    assert 0.0 <= program["total_ms"] - kernel["total_ms"] < 100.0, record
+    # Billed once, by the program's record (the snapshot rounds to µs).
+    assert abs(record["billed_compile_ms"] - program["total_ms"]) < 1e-2, \
+        record
+    assert program["total_ms"] <= wall_ms, record
+    return record
+
+
+def watch_storm(torch, llama, dev):
+    """(j3): a loop whose sequence length drifts through
+    `generate.prefill` at (e1)'s width is a storm `detect_storms`
+    names, with the drifting dimension; a shape-stable loop is not."""
+    from ray_tpu_torch._private import compile_watch as cw
+    from ray_tpu_torch.models import generate as gen
+
+    small = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2,
+                              n_heads=4, n_kv_heads=2, intermediate=512,
+                              max_seq_len=256, dtype=torch.float32,
+                              remat=False)
+    g = torch.Generator(device=dev).manual_seed(5)
+    model = llama.init_params(small, g, device=dev)
+    lengths = [WATCH_DRIFT_FROM + i * WATCH_DRIFT_STEP
+               for i in range(WATCH_DRIFT_CALLS)]
+    tokens = torch.randint(0, small.vocab_size, (1, max(lengths)),
+                           generator=g, device=dev)
+
+    def loop(lens):
+        cw.reset()
+        with torch.no_grad():
+            for t in lens:
+                gen.prefill(model, small, tokens[:, :t],
+                            gen.init_kv_cache(small, 1, 256, device=dev),
+                            0, t)
+        torch.cuda.synchronize()
+        return cw.detect_storms(cw.snapshot())
+
+    storms = loop(lengths)
+    stable = loop([lengths[4]] * WATCH_DRIFT_CALLS)
+    cw.load_inventory(refresh=True)
+    hint = cw.static_hint("generate.prefill")
+    record = {"storms": [{k: s[k] for k in ("program", "compiles",
+                                            "distinct_shapes", "delta")}
+                         for s in storms],
+              "stable_storms": len(stable), "hint": hint}
+    print(f"(j3) prefill lengths {lengths[0]}..{lengths[-1]}: storms "
+          f"{record['storms']}; the same {WATCH_DRIFT_CALLS} calls at one "
+          f"length: {len(stable)} storm(s); static hint: {hint}")
+    assert [s["program"] for s in storms] == ["generate.prefill"], storms
+    assert storms[0]["distinct_shapes"] == WATCH_DRIFT_CALLS, storms
+    assert "dim 1 drifting" in storms[0]["delta"], storms
+    assert stable == [], stable
+    assert hint and "ray_tpu_torch/models/generate.py:" in hint, hint
+    del model
+    torch.cuda.empty_cache()
+    return record
+
+
+def watch_phase(torch, llama, _build, card, dev, windows):
+    """Phase (j), the compile watch on the card: (j1) and (j3) run here;
+    (j2)'s counts and (j4)'s hot-path costs were taken in (c), (e3),
+    (g4) and (i) (`windows`), and are held here. Returns the
+    `{"compile_watch": ...}` record."""
+    t0 = time.perf_counter()
+    record = {"card": card, "windows": windows}
+    # (j2): one record per signature, and no signature past warm-up.
+    c = windows["c"]
+    assert c["after_step_1"] == c["after_last_step"] == {
+        "train.step": [1, 1]}, c
+    e3 = windows["e3"]
+    for key in ("prefill", "decode"):
+        assert e3["engine_compiles"][key] == {
+            "compiles": 1, "distinct_shapes": 1}, e3
+    one_record_per_signature("(e3)", e3["counts"])
+    if "g4" in windows:
+        for label, stages in windows["g4"].items():
+            for stage in stages:
+                for key, row in stage.items():
+                    assert row["compiles"] == row["distinct_shapes"] == \
+                        row["signatures"], (label, key, row)
+    for label in ("i2", "i3"):
+        one_record_per_signature(f"({label})", windows[label]["counts"])
+    policy = windows["i3"]["engine_compiles"]["policy"]
+    assert policy["compiles"] == policy["distinct_shapes"] >= 1, policy
+    print("(j2) compile counts [compiles, distinct shapes]: (c) "
+          f"{c['after_last_step']}; (e3) {e3['counts']}, the engine's "
+          f"stats()['compiles'] {e3['engine_compiles']}; (i2) "
+          f"{windows['i2']['counts']}; (i3) {windows['i3']['counts']}, "
+          f"the policy engine's {windows['i3']['engine_compiles']}"
+          + (f"; (g4) by stage {windows['g4']}" if "g4" in windows else ""))
+    # (j4): the hot path against each program's step.
+    shares = {}
+    for label, key in (("c", "train.step"), ("e3", "engine.paged_decode_step"),
+                       ("i2", "rl.ppo.minibatch_update")):
+        w = windows[label]
+        shares[key] = w["hot_path_us"] / (w["step_ms"] * 1e3)
+        print(f"(j4) {key}: hot path {w['hot_path_us']:.2f} us a call "
+              f"against its step of {w['step_ms']:.3f} ms: share "
+              f"{shares[key]:.2e} (bar {WATCH_SHARE})")
+    record["hot_path_share"] = shares
+    record["j1"] = watch_forced_build(torch, _build)
+    record["j3"] = watch_storm(torch, llama, dev)
+    for key, share in shares.items():
+        assert share < WATCH_SHARE, (key, share)
     record["wall_s"] = time.perf_counter() - t0
     return record
 
@@ -3856,6 +4161,12 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(reports) or 'cached'})")
     print_ptxas(reports)
+    # Each library's nvcc build as the compile watch recorded it.
+    from ray_tpu_torch._private import compile_watch
+
+    nvcc_ms = {name[len("kernel."):]: row["total_ms"]
+               for name, row in compile_watch.snapshot().items()
+               if name.startswith("kernel.")}
 
     if args.only_rl:
         dev = torch.device("cuda")
@@ -4136,6 +4447,8 @@ def main() -> int:
     start_bytes = torch.cuda.memory_allocated()
     losses, norms, step_s = [], [], []
     attn.reset_launch_counts()
+    compile_watch.reset()  # (j2)'s window: (c)'s steps
+    watch_c = {}
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, metrics = step_fn(state, tokens, targets)
@@ -4143,6 +4456,8 @@ def main() -> int:
         step_s.append(time.perf_counter() - t0)
         losses.append(metrics["loss"].item())
         norms.append(metrics["grad_norm"].item())
+        watch_c.setdefault("after_step_1", watch_counts(["train."]))
+    watch_c["after_last_step"] = watch_counts(["train."])
     launches = dict(attn.LAUNCHES)
     peak_bytes = torch.cuda.max_memory_allocated()
     print("losses", [round(x, 4) for x in losses])
@@ -4155,6 +4470,9 @@ def main() -> int:
     steady = statistics.median(step_s[1:])
     tokens_per_s = BATCH * SEQ / steady
     mfu = llama.flops_per_token(cfg, SEQ) * tokens_per_s / PEAK_BF16_FLOPS
+    # (j4): the watch's hot path on the step's own arguments.
+    watch_c.update(hot_path_us=hot_path_us((state, tokens, targets)),
+                   step_ms=steady * 1e3)
 
     if args.profile:
         profile = profile_step(
@@ -4218,6 +4536,13 @@ def main() -> int:
     t0 = time.perf_counter()
     rl = rl_phase(torch, llama, card, dev, serve["delta"])
     print(f"(i): {time.perf_counter() - t0:.1f} s")
+
+    # ---- (j) the compile watch on the card ----------------------------
+    watch = watch_phase(torch, llama, _build, card, dev, {
+        "c": watch_c, "e3": serve["compile_watch"],
+        "g4": {label: r["compiles"] for label, r in mpmd["g4b"].items()},
+        "i2": rl["i2"]["compile_watch"], "i3": rl["i3"]["compile_watch"]})
+    print(f"(j): {watch['wall_s']:.1f} s")
 
     kernels = [
         {
@@ -4354,6 +4679,11 @@ def main() -> int:
             "launches_per_step": wide["f32"]["launches_per_step"][counter],
             "library_max_abs_err": rec["library_max_abs_err"],
         })
+    # (a)'s nvcc build of each kernel's library, as the compile watch
+    # recorded it (None: the library was cached).
+    for entry in kernels:
+        entry["nvcc_ms"] = nvcc_ms.get(
+            os.path.splitext(os.path.basename(entry["source"]))[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"any_softmax_data": main_rec["softmax_data"]}))
     print(json.dumps({"slice": {
@@ -4378,6 +4708,7 @@ def main() -> int:
     print(json.dumps({"wide": wide}))
     print(json.dumps({"f32_any": f32_any}))
     print(json.dumps({"rl": rl}))
+    print(json.dumps({"compile_watch": watch}))
     if args.against:
         print(json.dumps({"against": against(
             torch, attn, args.against, randn, n_layers)}))

@@ -55,7 +55,7 @@ def _build(target: str) -> None:
     concurrent loader never maps a half-written library)."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.tmp"
-    subprocess.run(  # rt: noqa[RT203] — build-once gate: holding _build_lock across the build IS the serialization
+    subprocess.run(
         [os.environ.get("CXX", "g++"), _SOURCE, "-o", tmp, *_CXXFLAGS],
         check=True,
         capture_output=True,

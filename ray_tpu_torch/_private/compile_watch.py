@@ -1,16 +1,32 @@
-# Copied from ray_tpu/_private/compile_watch.py: its JAX-free parts, with
-# `device_memory` ported to torch.cuda and the jax.monitoring watch left out.
+# Copied from ray_tpu/_private/compile_watch.py, with the jax.monitoring
+# listener replaced by one for nvcc builds and dynamo compiles, the digest
+# keyed on the device too, and `device_memory` ported to torch.cuda.
 """Compile watcher (runtime core): the port's copy.
 
-What the port keeps of the JAX package's watcher: the per-program
-compile records (`record_compile`, `fold_record`), the head's storm
-detection (`detect_storms`, `snapshot`, `shape_delta`), the static
-inventory bridge (`load_inventory`, `static_hint`) and `device_memory`,
-ported to `torch.cuda.memory_stats()`. Left out: `instrument` /
-`WatchedFunction` and `_install_monitoring`, the jax.monitoring listener
-that attributes XLA compiles; the port's counterpart is a dynamo
-recompile watch (ROADMAP queue 1, item 7), and nothing records compiles
-until it exists. The JAX package's description follows.
+Eager PyTorch compiles nothing per shape. What the port does compile is
+its CUDA kernels: `ops/_build.build` runs nvcc at first use and reports
+each build here (`report_build`), and `torch.compile`'s dynamo, where a
+caller loads it, reports its compiles through its callback hooks. So:
+
+* ``instrument(name, fn)`` wraps every program the JAX package wraps,
+  under the JAX package's names (`devtools/accel.py`'s inventory lists
+  them). A call is keyed on its tensors' shape, dtype and device; a
+  hit costs one digest and one set lookup. A new signature records
+  one compile for the program, as the JAX watch's fallback branch
+  does, so `compiles` and `distinct_shapes` count what the JAX package
+  counts for the same calls: its ``duration_ms`` is the compile work
+  attributed to the call (nvcc and dynamo; 0.0 when there was none),
+  its ``wall_ms`` the first call's wall time.
+* The listener is a thread-local frame stack, the JAX watch's: an
+  nvcc build is a compile record of its own under ``kernel.<name>``
+  with nvcc's wall time, and its seconds are credited to the innermost
+  instrumented call running on the thread, as ``jax.monitoring``
+  credits XLA's. ``compile_ms`` is billed once, by the program's
+  record, or by the build itself when no program was running, and
+  never for an eager miss: goodput stays honest.
+
+The JAX package's description follows; read its XLA compiles as the
+port's nvcc builds.
 
 XLA-layer compile watcher (runtime core).
 
@@ -66,9 +82,12 @@ import sys
 import threading
 import time
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 __all__ = [
+    "instrument",
+    "WatchedFunction",
+    "report_build",
     "record_compile",
     "fold_record",
     "snapshot",
@@ -87,6 +106,12 @@ __all__ = [
 #: storm threshold must stay below this or a storm could never be
 #: proven).
 DIGEST_RING = 32
+
+#: Cap on one WatchedFunction's seen-digest set. Under the very
+#: storm the watcher detects, a drifting shape mints one digest per
+#: iteration — without a cap the hot-path set grows for days. Clearing
+#: on overflow costs re-misses for known shapes, each recorded again.
+SEEN_CAP = 4096
 
 #: Only digests seen within this window count toward a storm: a
 #: cluster's lifetime legitimately accumulates distinct shapes
@@ -118,6 +143,13 @@ def _env_enabled() -> bool:
 
 _enabled = _env_enabled()
 _storm_threshold = 8
+
+#: Per-thread stack of the instrumented calls in flight (frames of
+#: [program, credited seconds]): an nvcc build or a dynamo compile runs
+#: on the thread that needs it, so the innermost frame there is the
+#: program that pays for it.
+_tl = threading.local()
+_dynamo_installed = False
 
 
 def configure(config) -> None:
@@ -153,19 +185,68 @@ def reset() -> None:
 # ---------------------------------------------------------------------
 
 
+_SCALARS = {type(None): ("S", "NoneType"), bool: ("S", "bool"),
+            int: ("S", "int"), float: ("S", "float"),
+            complex: ("S", "complex")}
+#: torch's tensor types and nn.Module, once torch is loaded (never
+#: imported from here): the hot path tests a leaf's type against them
+#: before any attribute lookup.
+_tensor_types: frozenset = frozenset()
+_module_type: Any = ()
+
+
+def _load_torch_types() -> None:
+    global _tensor_types, _module_type
+    torch = sys.modules.get("torch")
+    if torch is not None and not _tensor_types:
+        _tensor_types = frozenset((torch.Tensor, torch.nn.Parameter))
+        _module_type = torch.nn.Module
+
+
 def _sig(x: Any, depth: int = 0) -> tuple:
-    """Structural signature of one argument: array leaves become
-    ("A", dtype, shape) — exactly what XLA's executable cache keys on
-    — containers recurse, numeric scalars keep only their type (see
-    module docstring), strings keep their value (always jit
-    statics)."""
+    """Structural signature of one argument: tensor and array leaves
+    become ("A", dtype, shape, device) — the port keys on the device
+    too, since a program run on another device is another program —
+    containers recurse, numeric scalars keep only their type (see
+    module docstring), strings keep their value. An `nn.Module` counts
+    by its type: its weights are state the call reads, and the config
+    that sizes them travels as an argument of its own."""
+    kind = type(x)
+    if kind in _tensor_types:
+        return ("A", x.dtype, x.shape, x.device)
+    scalar = _SCALARS.get(kind)
+    if scalar is not None:
+        return scalar
     if depth > 6:
         return ("...",)
+    # Containers inline the tensor case: a parameter tree is mostly
+    # tensor leaves, and a call per leaf is most of a leaf's cost.
+    tensors, inner = _tensor_types, depth + 1
+    if kind is list or kind is tuple:
+        return tuple([
+            ("A", v.dtype, v.shape, v.device) if type(v) in tensors
+            else _sig(v, inner) for v in x
+        ])
+    if kind is dict:
+        try:
+            keys = sorted(x)
+        except TypeError:
+            keys = sorted(x, key=str)
+        return ("D", tuple([
+            (str(k), ("A", v.dtype, v.shape, v.device)
+             if type(v := x[k]) in tensors else _sig(v, inner))
+            for k in keys
+        ]))
+    if kind is str:
+        return ("C", x)
+    if isinstance(x, _module_type):
+        return ("T", kind.__name__)
     shape = getattr(x, "shape", None)
-    dtype = getattr(x, "dtype", None)
-    if shape is not None and dtype is not None:
-        return ("A", str(dtype), tuple(int(d) for d in shape))
-    if x is None or isinstance(x, (bool, int, float, complex)):
+    if shape is not None:
+        dtype = getattr(x, "dtype", None)
+        if dtype is not None:
+            return ("A", dtype, tuple(shape), getattr(x, "device", None))
+    if isinstance(x, (bool, int, float, complex)):
         return ("S", type(x).__name__)
     if isinstance(x, str):
         return ("C", x)
@@ -195,7 +276,11 @@ def arg_digest(args: tuple, kwargs: dict) -> tuple:
     """Hashable digest of a call's shape/dtype structure — the hot
     path of every instrumented call (the <1%-of-step bar lives
     here). The port keeps only the JAX package's pure-Python
-    structural walk (its fast path is jax's C tree_flatten)."""
+    structural walk (its fast path is jax's C tree_flatten): tensor
+    leaves keep their dtype, shape and device objects, stringified
+    only when a compile is recorded."""
+    if not _tensor_types:
+        _load_torch_types()
     if kwargs:
         return (
             _sig(args),
@@ -206,8 +291,9 @@ def arg_digest(args: tuple, kwargs: dict) -> tuple:
 
 def _array_leaves(sig: Any, out: List[tuple]) -> None:
     if isinstance(sig, tuple):
-        if len(sig) == 3 and sig[0] == "A":
-            out.append((sig[1], sig[2]))
+        if len(sig) == 4 and sig[0] == "A":
+            leaf = (str(sig[1]).replace("torch.", ""), tuple(sig[2]))
+            out.append(leaf if sig[3] is None else leaf + (str(sig[3]),))
             return
         for part in sig:
             _array_leaves(part, out)
@@ -243,9 +329,10 @@ _DTYPE_SHORT = {
 
 
 def _leaf_repr(leaf: tuple) -> str:
-    dtype, shape = leaf
+    dtype, shape = leaf[0], leaf[1]
     short = _DTYPE_SHORT.get(str(dtype), str(dtype))
-    return f"{short}[{','.join(str(d) for d in shape)}]"
+    device = f"@{leaf[2]}" if len(leaf) > 2 else ""
+    return f"{short}[{','.join(str(d) for d in shape)}]{device}"
 
 
 def shapes_repr(leaves) -> str:
@@ -283,13 +370,18 @@ def shape_delta(prev_leaves, new_leaves) -> str:
             f"{len(new_leaves)} array leaves"
         )
     for i, (a, b) in enumerate(zip(prev_leaves, new_leaves)):
-        a = (a[0], tuple(a[1]))
-        b = (b[0], tuple(b[1]))
+        a = (a[0], tuple(a[1])) + tuple(a[2:])
+        b = (b[0], tuple(b[1])) + tuple(b[2:])
         if a == b:
             continue
         if a[0] != b[0]:
             return (
                 f"array leaf {i}: dtype "
+                f"{_leaf_repr(a)} -> {_leaf_repr(b)}"
+            )
+        if a[1] == b[1]:
+            return (
+                f"array leaf {i}: device "
                 f"{_leaf_repr(a)} -> {_leaf_repr(b)}"
             )
         dims = [
@@ -427,12 +519,16 @@ def record_compile(
     duration_ms: float,
     *,
     wall_ms: Optional[float] = None,
+    bill: bool = True,
 ) -> None:
     """Record one compilation: local ring, ``compile_ms`` stall
     phase, and the metrics pipe (counter + histogram labeled by
     program NAME only; digest/shape detail rides the kind="compile"
     record into the head's bounded diagnostic ring, never a metric
-    label)."""
+    label). ``compile_ms`` is billed only for compile work
+    (`duration_ms` > 0) and only when `bill`: an eager miss bills
+    nothing, and a build credited to a running program is billed by
+    that program's record."""
     if not _enabled:
         return
     now = time.time()
@@ -448,9 +544,10 @@ def record_compile(
     # Cold-compile time is a stall the loop paid, exactly like
     # data_wait: bill it so the compiling step's residual step_ms
     # stays honest and goodput classifies it as stall, not compute.
-    from .step_telemetry import add_phase
+    if bill and duration_ms > 0.0:
+        from .step_telemetry import add_phase
 
-    add_phase("compile_ms", float(duration_ms))
+        add_phase("compile_ms", float(duration_ms))
     try:
         from ..util.metrics import _Buffer
 
@@ -497,6 +594,159 @@ def record_compile(
         )
     except Exception:  # noqa: BLE001 — observability never raises
         pass
+
+
+# ---------------------------------------------------------------------
+# the listener: nvcc builds and dynamo compiles
+# ---------------------------------------------------------------------
+
+
+def _active_stack() -> list:
+    stack = getattr(_tl, "stack", None)
+    if stack is None:
+        stack = _tl.stack = []
+    return stack
+
+
+def _credit(seconds: float) -> bool:
+    """Credit compile seconds to the innermost instrumented call on
+    this thread; False when none is running."""
+    stack = getattr(_tl, "stack", None)
+    if not stack:
+        return False
+    stack[-1][1] += float(seconds)
+    return True
+
+
+def report_build(kernels: Dict[str, float], seconds: float) -> None:
+    """What `ops/_build.build` calls after compiling kernels: one
+    record per kernel under ``kernel.<name>`` with nvcc's wall time
+    for it (seconds), and the build's wall time (`seconds`, the
+    sources compile in parallel) credited to the instrumented call
+    running on this thread, or billed as ``compile_ms`` itself when
+    none is."""
+    credited = _credit(seconds)
+    for name, kernel_s in kernels.items():
+        record_compile(f"kernel.{name}", None, float(kernel_s) * 1e3,
+                       bill=False)
+    if not credited and _enabled and seconds > 0.0:
+        from .step_telemetry import add_phase
+
+        add_phase("compile_ms", float(seconds) * 1e3)
+
+
+def _on_dynamo_start(*_args) -> None:
+    _tl.dynamo_t0 = time.perf_counter()
+
+
+def _on_dynamo_end(*_args) -> None:
+    t0 = getattr(_tl, "dynamo_t0", None)
+    if t0 is None:
+        return
+    _tl.dynamo_t0 = None
+    seconds = time.perf_counter() - t0
+    if not _credit(seconds):
+        # A compile outside any instrumented program: still counted,
+        # with no digest, so it can never fake a storm.
+        record_compile("(unregistered)", None, seconds * 1e3)
+
+
+def _install_dynamo() -> None:
+    """Hook dynamo's compile callbacks once, and only where a caller
+    has loaded dynamo: the watcher never imports it."""
+    global _dynamo_installed
+    if _dynamo_installed or "torch._dynamo" not in sys.modules:
+        return
+    with _lock:
+        if _dynamo_installed:
+            return
+        _dynamo_installed = True
+        try:
+            from torch._dynamo.callback import (
+                on_compile_end,
+                on_compile_start,
+            )
+
+            on_compile_start(_on_dynamo_start)
+            on_compile_end(_on_dynamo_end)
+        except Exception:  # noqa: BLE001 — a dynamo without the hooks
+            pass
+
+
+class WatchedFunction:
+    """An instrumented program. Hot path (signature already seen):
+    digest + one set lookup, then straight through. Miss path: the
+    call runs inside a thread-local program frame, so the listener
+    credits it with any nvcc build or dynamo compile it triggers, and
+    one compile is recorded for the new signature."""
+
+    __slots__ = ("name", "_fn", "_seen", "_seen_lock")
+
+    def __init__(self, name: str, fn: Callable):
+        self.name = str(name)
+        self._fn = fn
+        self._seen: set = set()
+        self._seen_lock = threading.Lock()
+        _install_dynamo()
+
+    def __call__(self, *args, **kwargs):
+        if not _enabled:
+            return self._fn(*args, **kwargs)
+        digest = arg_digest(args, kwargs)
+        with self._seen_lock:
+            hit = digest in self._seen
+            if not hit:
+                # Claimed before the call: a thread missing the same new
+                # signature meanwhile takes the hit path, so the
+                # signature is recorded once.
+                if len(self._seen) >= SEEN_CAP:
+                    self._seen.clear()
+                self._seen.add(digest)
+        if hit:
+            return self._fn(*args, **kwargs)
+        _install_dynamo()
+        stack = _active_stack()
+        frame = [self.name, 0.0]
+        stack.append(frame)
+        t0 = time.perf_counter()
+        try:
+            out = self._fn(*args, **kwargs)
+        except BaseException:
+            # A call that failed saw no signature: the next one records.
+            with self._seen_lock:
+                self._seen.discard(digest)
+            raise
+        finally:
+            stack.pop()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        record_compile(self.name, digest, frame[1] * 1e3, wall_ms=wall_ms)
+        return out
+
+    def signatures(self) -> int:
+        """The signatures this wrapper has seen (its hot-path set)."""
+        with self._seen_lock:
+            return len(self._seen)
+
+    def stats(self) -> Dict[str, Any]:
+        """This program's compile counts from the process registry
+        (the `engine_stats` surface: a mid-traffic new signature is an
+        engine bug — now a visible counter)."""
+        with _lock:
+            row = _programs.get(self.name)
+            if row is None:
+                return {"compiles": 0, "distinct_shapes": 0}
+            return {
+                "compiles": row["compiles"],
+                "distinct_shapes": len(row["digests"]),
+            }
+
+
+def instrument(name: str, fn: Callable) -> WatchedFunction:
+    """Register a program with the compile watcher by NAME and return
+    the wrapped callable. Names must be bounded-cardinality (program
+    families, not per-request ids): they become the only label on the
+    exported compile series."""
+    return WatchedFunction(name, fn)
 
 
 # ---------------------------------------------------------------------
@@ -548,28 +798,30 @@ _inventory: Any = None
 
 def load_inventory(path: Optional[str] = None, *, refresh: bool = False):
     """The static half of the bridge: the program inventory produced
-    by the JAX package's ``devtools accel --inventory`` (every wrap
-    site, its registered program name, and its RT302 recompile-hazard
-    sites). Resolution order: explicit `path` arg ->
-    ``RT_accel_inventory`` env var (a JSON file). The JAX package
-    falls back to scanning itself; the port has no static pass yet
-    (ROADMAP queue 1, item 7), so without a file there is no
-    inventory. Returns the inventory dict or None; failures are cached
-    so the doctor path never pays twice."""
+    by ``python -m ray_tpu_torch.devtools.accel --inventory`` (every
+    `instrument` site, its registered program name, and its RT302
+    recompile-hazard sites). Resolution order: explicit `path` arg ->
+    ``RT_accel_inventory`` env var (a JSON file, for clusters whose CI
+    exports the inventory as an artifact) -> a lazy in-process scan of
+    the installed package. Returns the inventory dict or None; failures
+    are cached so the doctor path never pays the scan twice."""
     global _inventory
     if refresh:
         _inventory = None
     if _inventory is not None:
         return _inventory or None
     src = path or os.environ.get("RT_accel_inventory")
-    if not src:
-        _inventory = False
-        return None
     try:
-        import json
+        if src:
+            import json
 
-        with open(src) as f:
-            _inventory = json.load(f)
+            with open(src) as f:
+                _inventory = json.load(f)
+        else:
+            from ..devtools.accel import build_inventory
+
+            pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+            _inventory = build_inventory([pkg])
     except Exception:  # noqa: BLE001 — a hint source must never break diagnose
         _inventory = False
         return None
@@ -621,5 +873,5 @@ def static_hint(program: str) -> Optional[str]:
     return (
         f"wrap site {site} has no static RT302 hazard on record — "
         f"suspect call-site shape drift; run "
-        f"`ray_tpu_torch devtools accel` after reproducing"
+        f"`python -m ray_tpu_torch.devtools.accel` after reproducing"
     )

@@ -23,7 +23,8 @@ straggler" (PAPERS: Podracer architectures; per-stage timing
 attribution per arXiv 2412.14374).
 
 Lives in _private so the runtime can import it without dragging in
-the torch-importing train package.
+the torch-importing train package; `ray_tpu_torch.train.telemetry`
+re-exports the user-facing surface.
 """
 
 from __future__ import annotations

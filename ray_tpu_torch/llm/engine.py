@@ -61,9 +61,14 @@ weight push and policy batch to `serve.observability` (the
 family); the hooks are guarded, so a failure there never fails a
 decode. It also keeps counters that `stats()` returns: decode steps
 and their time by batch width, prefill chunks, tokens and time, and
-the requests each policy forward served. The JAX
-engine's registration of its programs with the compile watch has no
-counterpart here.
+the requests each policy forward served.
+
+Compile watch: as in the JAX engine, the prefill, decode and policy
+programs are registered by family (`engine.paged_prefill[<family>]`,
+`engine.paged_decode_step[<family>]`, `engine.policy[<family>]`, the
+last late-bound through `self._program`), and `stats()["compiles"]`
+gives each one's `{"compiles", "distinct_shapes"}`: fixed after
+warm-up, so movement under traffic is a new-signature bug.
 """
 
 from __future__ import annotations
@@ -401,6 +406,26 @@ class InferenceEngine:
             self._kv = None
             self._sched = None
         self._rng = torch.Generator(device=self._device)
+        # Compile-watch registration, by family as in the JAX engine:
+        # the family rides in the program NAME (bounded: model
+        # families), never a free-form label.
+        from .._private import compile_watch
+
+        fam = family or "default"
+        if cfg is not None:
+            self._paged_prefill = compile_watch.instrument(
+                f"engine.paged_prefill[{fam}]", paged_prefill
+            )
+            self._paged_decode = compile_watch.instrument(
+                f"engine.paged_decode_step[{fam}]", paged_decode_step
+            )
+        if program is not None:
+            # Late-bound through self._program so a swapped program
+            # takes effect: the watcher wraps the CALL.
+            self._program_run = compile_watch.instrument(
+                f"engine.policy[{fam}]",
+                lambda *a, **k: self._program.run(*a, **k),
+            )
         self._prefilling: Optional[_Request] = None
         self._by_id: Dict[str, _Request] = {}
         self._policy_pending: "deque[_PolicyRequest]" = deque()
@@ -624,6 +649,16 @@ class InferenceEngine:
                 policy_rows_served=self._policy_rows_served,
                 dead=self._dead is not None,
             )
+            # Per-family compile counts: prefill / decode / policy
+            # programs, each {compiles, distinct_shapes}.
+            compiles: Dict[str, Any] = {}
+            if self._kv is not None:
+                compiles["prefill"] = self._paged_prefill.stats()
+                compiles["decode"] = self._paged_decode.stats()
+            if self._program is not None:
+                compiles["policy"] = self._program_run.stats()
+            if compiles:
+                out["compiles"] = compiles
             if self._kv is not None:
                 out.update(
                     kv_bytes=self._kv.nbytes(),
@@ -730,7 +765,7 @@ class InferenceEngine:
             padded[cursor:cursor + req.n] = req.inputs
             cursor += req.n
         try:
-            outs = self._program.run(
+            outs = self._program_run(
                 params, torch.tensor(padded, device=self._device),
                 self._seeded(_POLICY_STREAM, self._policy_steps),
             )
@@ -949,7 +984,7 @@ class InferenceEngine:
             req.padded[:, req.offset:req.offset + chunk], device=dev)
         table = torch.tensor(
             self._tables[req.slot:req.slot + 1], device=dev)
-        logits, pool = paged_prefill(
+        logits, pool = self._paged_prefill(
             self._gens[req.gen]["params"],
             self.cfg,
             tokens,
@@ -1031,7 +1066,7 @@ class InferenceEngine:
         positions = torch.tensor(self._positions, device=dev)
         if len(by_gen) == 1:
             gen = next(iter(by_gen))
-            token, pool, last_logits = paged_decode_step(
+            token, pool, last_logits = self._paged_decode(
                 self._gens[gen]["params"],
                 self.cfg,
                 self._kv.pool,
@@ -1062,7 +1097,7 @@ class InferenceEngine:
                 mask = np.zeros(ec.slots, bool)
                 mask[by_gen[gen]] = True
                 gmask = torch.tensor(mask, device=dev)
-                token, pool, out_logits = paged_decode_step(
+                token, pool, out_logits = self._paged_decode(
                     self._gens[gen]["params"],
                     self.cfg,
                     pool,

@@ -23,6 +23,11 @@ Tokens are int64.
 
 The KV cache layout is [layers, batch, kv_heads, max_len, head_dim];
 the paged pool's is [layers, n_blocks, kv_heads, block_len, head_dim].
+
+Compile watch: `decode_step`, `prefill`, `paged_prefill`,
+`paged_decode_step` and `generate` run through programs registered
+under the JAX package's names (`generate.decode_step`, ...), so a
+drifting shape through any of them is a storm `doctor` names.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .._private import compile_watch
 from ..ops.attention import repeat_kv
 from ..ops.norms import apply_rotary, rotary_embedding
 from .llama import (
@@ -212,22 +218,27 @@ def _decode_step(model, cfg, cache, last_logits, positions, alive,
     return token, cache, logits[:, 0]
 
 
+_decode_step_prog = compile_watch.instrument("generate.decode_step",
+                                             _decode_step)
+_prefill_prog = compile_watch.instrument("generate.prefill",
+                                         _forward_with_cache)
+
+
 def decode_step(model: Llama, cfg: LlamaConfig, cache, last_logits,
                 positions, alive, generator=None, *,
                 temperature: float = 0.0, top_k: int = 0):
     """Single-step decode, the entry point shared by `generate_stream`:
     `positions` may be an int or per-row. The cache is updated in place
     and returned; `last_logits` is only read."""
-    return _decode_step(model, cfg, cache, last_logits, positions, alive,
-                        generator, temperature, top_k)
+    return _decode_step_prog(model, cfg, cache, last_logits, positions,
+                             alive, generator, temperature, top_k)
 
 
 def prefill(model: Llama, cfg: LlamaConfig, tokens, cache, cache_pos,
             valid_len):
     """KV-cache prefill: one forward over `tokens` writing the cache at
     `cache_pos` (in place). Returns (logits, cache)."""
-    return _forward_with_cache(model, cfg, tokens, cache, cache_pos,
-                               valid_len)
+    return _prefill_prog(model, cfg, tokens, cache, cache_pos, valid_len)
 
 
 # ---------------------------------------------------------------------
@@ -316,13 +327,7 @@ def _paged_forward(model: Llama, cfg: LlamaConfig, tokens, pool, tables,
     return model.lm_head(x).float(), pool
 
 
-def paged_prefill(model: Llama, cfg: LlamaConfig, tokens, pool, table,
-                  offset, valid_len):
-    """Chunked prefill straight into the block pool: one forward over
-    `tokens` [b, chunk] at positions [offset, offset + chunk) of the
-    sequences whose block tables are `table` [b, nb]. A prefix-cache hit
-    simply starts at a later offset with the shared blocks already in
-    the pool. The pool is updated in place; returns (logits, pool)."""
+def _paged_prefill_impl(model, cfg, tokens, pool, table, offset, valid_len):
     dev = _device(model)
     tokens = torch.as_tensor(tokens, device=dev)
     b, t = tokens.shape
@@ -335,15 +340,9 @@ def paged_prefill(model: Llama, cfg: LlamaConfig, tokens, pool, table,
     return _paged_forward(model, cfg, tokens, pool, table, q_pos, valid)
 
 
-def paged_decode_step(model: Llama, cfg: LlamaConfig, pool, tables,
-                      last_logits, positions, alive, generator=None, *,
-                      temperature: float = 0.0, top_k: int = 0):
-    """Single-step decode over the FULL slot batch against the block
-    pool (the paged analog of `decode_step`): sample one token per row
-    from `last_logits`, scatter its k/v into each row's current block,
-    and gather-attend over the row's block table. The pool is updated in
-    place; `last_logits` is only read, and the next logits are a new
-    tensor. Returns (token [b], pool, next last_logits [b, vocab])."""
+def _paged_decode_step_impl(model, cfg, pool, tables, last_logits,
+                            positions, alive, generator, temperature,
+                            top_k):
     dev = _device(model)
     alive = torch.as_tensor(alive, device=dev)
     tables = torch.as_tensor(tables, device=dev)
@@ -362,6 +361,37 @@ def paged_decode_step(model: Llama, cfg: LlamaConfig, pool, tables,
         positions + 1,
     )
     return token, pool, logits[:, 0]
+
+
+_paged_prefill_prog = compile_watch.instrument("generate.paged_prefill",
+                                               _paged_prefill_impl)
+_paged_decode_prog = compile_watch.instrument("generate.paged_decode_step",
+                                              _paged_decode_step_impl)
+
+
+def paged_prefill(model: Llama, cfg: LlamaConfig, tokens, pool, table,
+                  offset, valid_len):
+    """Chunked prefill straight into the block pool: one forward over
+    `tokens` [b, chunk] at positions [offset, offset + chunk) of the
+    sequences whose block tables are `table` [b, nb]. A prefix-cache hit
+    simply starts at a later offset with the shared blocks already in
+    the pool. The pool is updated in place; returns (logits, pool)."""
+    return _paged_prefill_prog(model, cfg, tokens, pool, table, offset,
+                               valid_len)
+
+
+def paged_decode_step(model: Llama, cfg: LlamaConfig, pool, tables,
+                      last_logits, positions, alive, generator=None, *,
+                      temperature: float = 0.0, top_k: int = 0):
+    """Single-step decode over the FULL slot batch against the block
+    pool (the paged analog of `decode_step`): sample one token per row
+    from `last_logits`, scatter its k/v into each row's current block,
+    and gather-attend over the row's block table. The pool is updated in
+    place; `last_logits` is only read, and the next logits are a new
+    tensor. Returns (token [b], pool, next last_logits [b, vocab])."""
+    return _paged_decode_prog(model, cfg, pool, tables, last_logits,
+                              positions, alive, generator, temperature,
+                              top_k)
 
 
 # ---------------------------------------------------------------------
@@ -418,6 +448,11 @@ def generate(
         alive = alive & (token != eos_token)
     lengths = torch.stack(alive_flags, dim=1).sum(dim=1)
     return torch.stack(tokens, dim=1), lengths
+
+
+# Rebound through the compile watch, as the JAX package rebinds its
+# `generate`: whole-batch generation is a named program.
+generate = compile_watch.instrument("generate.generate", generate)
 
 
 @torch.inference_mode()
@@ -478,9 +513,9 @@ def generate_stream(
                                          alive, rng, temperature=temperature,
                                          top_k=top_k)
         alive = alive & (token != eos_token)
-        yield token.cpu().numpy()
+        yield token.cpu().numpy()  # rt: noqa[RT303] — the stream contract IS one host token per step; this sync is the product, not overhead
         position = position + 1
         # Once every row has emitted EOS there is no token left to
         # produce: stop without running a dead step.
-        if not bool(alive.any()):
+        if not bool(alive.any()):  # rt: noqa[RT303] — early-stop predicate must reach the host; it saves whole dead steps, worth one scalar sync
             return

@@ -279,7 +279,7 @@ def flash_forward(q2, k, v, causal: bool, kv_len: int):
     _launch(
         "flash_fwd", _kernel("flash_fwd"), q2.device,
         q2.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, t, k.shape[1], d, kv_len, int(causal),
+        lse.data_ptr(), bh, t, k.shape[1], d, kv_len, 1 if causal else 0,
     )
     return out, lse
 
@@ -325,7 +325,8 @@ def flash_backward_main(q2, k, v, do, lse, delta, dq_acc, causal: bool,
     _launch("flash_bwd", _kernel("flash_bwd"), q2.device,
             q2.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, t, k.shape[1], d, kv_len, q_len, int(causal))
+            dv.data_ptr(), bh, t, k.shape[1], d, kv_len, q_len,
+            1 if causal else 0)
     return dk, dv
 
 

@@ -41,8 +41,8 @@ it asks a share of the cards (a learner on the CPU keeps it on the
 host). The reference's engine actor asks `num_cpus=0` and nothing
 else, so it serves the policy from the host (ROADMAP queue 3,
 hazards). The runners sample on the host, as the reference's do. The
-JAX package's registration of the batch program with the compile watch
-has no counterpart here (ROADMAP queue 1, item 7).
+policy program's forward is the compile-watch program
+`rl.policy_program`, the JAX package's name (one signature per bucket).
 """
 
 from __future__ import annotations
@@ -83,11 +83,18 @@ class PolicyProgram(BatchProgram):
     ):
         self.obs_size = int(obs_size)
         self.buckets = tuple(sorted(int(b) for b in buckets))
+        from .._private import compile_watch
 
-    @torch.no_grad()
+        self._jit = compile_watch.instrument("rl.policy_program", self._run)
+
     def run(self, params, inputs, generator) -> Dict[str, Any]:
         """(PolicyNet, obs [bucket, obs_size] on its device, a generator
         on that device) -> actions, greedy, logp, values as tensors."""
+        return self._jit(params, inputs, generator)
+
+    @staticmethod
+    @torch.no_grad()
+    def _run(params, inputs, generator) -> Dict[str, Any]:
         from .models import apply_policy
 
         logits, values = apply_policy(params, inputs)

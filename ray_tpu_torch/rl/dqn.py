@@ -9,7 +9,9 @@ the learner's device ("cuda" unless the caller asks for the CPU), and
 the replay buffer preallocated numpy rings (no per-transition Python
 objects), as in the reference. The TD loss is `optax.huber_loss` with
 delta 1 (`F.huber_loss` computes the same), the optimizer
-`optax.adam` (`learner.adam`).
+`optax.adam` (`learner.adam`). The TD update and the Q forward are the
+compile-watch programs `rl.dqn.td_update` and `rl.dqn.q_values`, the
+JAX package's names.
 """
 
 from __future__ import annotations
@@ -126,6 +128,14 @@ class DQNLearner:
             buffer_capacity, obs_size, seed=seed
         )
         self.updates = 0
+        from .._private import compile_watch
+
+        self._update_jit = compile_watch.instrument(
+            "rl.dqn.td_update", self._td_update
+        )
+        self._q_jit = compile_watch.instrument(
+            "rl.dqn.q_values", self._q_values
+        )
 
     # -- Q function ----------------------------------------------------
     @staticmethod
@@ -141,7 +151,7 @@ class DQNLearner:
         import torch
 
         with torch.no_grad():
-            return self._q_values(self.params, obs).cpu().numpy()
+            return self._q_jit(self.params, obs).cpu().numpy()
 
     def _td_update(self, batch):
         import torch
@@ -200,7 +210,7 @@ class DQNLearner:
                 for k, v in batch.items()
             }
             device_batch["actions"] = device_batch["actions"].long()
-            loss = self._td_update(device_batch)
+            loss = self._update_jit(device_batch)
             self.updates += 1
             if self.updates % self.target_update_freq == 0:
                 self.target_params.load_state_dict(

@@ -17,9 +17,12 @@ norm >= max_norm; `torch.nn.utils.clip_grad_norm_` adds 1e-6 to the
 norm, so the clip is written out); then `torch.optim.Adam` with
 eps 1e-8, which computes `optax.adam`'s update, m_hat / (sqrt(v_hat) +
 eps) with eps_root 0 (held to `optax.adam` in
-`tests/test_torch_rl.py`). The JAX learner's registration of its
-programs with the compile watch has no counterpart here (ROADMAP queue
-1, item 7).
+`tests/test_torch_rl.py`).
+
+Compile watch: the minibatch update, the gradient computation and the
+gradient application are the programs `rl.ppo.minibatch_update`,
+`rl.ppo.compute_gradients` and `rl.ppo.apply_gradients`, the JAX
+learner's names.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._private import compile_watch
 from .models import (
     apply_policy,
     init_policy_params,
@@ -97,6 +101,15 @@ class TorchLearner:
         self.minibatch_size = minibatch_size
         self.num_epochs = num_epochs
         self._rng = np.random.default_rng(seed)
+        self._update_jit = compile_watch.instrument(
+            "rl.ppo.minibatch_update", self._minibatch_update)
+        # Split-phase entry points for the multi-learner path
+        # (learner_group.py): gradients computed per shard, applied
+        # identically everywhere after averaging.
+        self._grad_jit = compile_watch.instrument(
+            "rl.ppo.compute_gradients", self._gradients)
+        self._apply_jit = compile_watch.instrument(
+            "rl.ppo.apply_gradients", self._step)
 
     # -- PPO loss (reference: ppo_torch_learner compute_loss) ---------
     def _loss(self, batch: Dict[str, torch.Tensor]):
@@ -140,22 +153,33 @@ class TorchLearner:
         for p in params:
             p.grad = None
 
-    # -- split-phase API (multi-learner) ------------------------------
-    def compute_gradients(self, minibatch) -> Tuple[Dict, Dict]:
-        """Gradients of the PPO loss on one minibatch, by parameter name
-        (`PolicyNet` state-dict names), and its metrics as 0-d tensors;
-        params unchanged."""
-        loss, metrics = self._loss(self.to_device(minibatch))
+    def _minibatch_update(self, minibatch: Dict[str, torch.Tensor]):
+        """One minibatch's loss, gradients and optimizer step: the
+        metrics as 0-d tensors."""
+        loss, metrics = self._loss(minibatch)
+        params = [p for _, p in self.params.named_parameters()]
+        self._step(list(torch.autograd.grad(loss, params)))
+        return dict(metrics, total_loss=loss.detach())
+
+    def _gradients(self, minibatch: Dict[str, torch.Tensor]):
+        loss, metrics = self._loss(minibatch)
         names, params = zip(*self.params.named_parameters())
         grads = torch.autograd.grad(loss, params)
         return dict(zip(names, grads)), dict(metrics,
                                              total_loss=loss.detach())
 
+    # -- split-phase API (multi-learner) ------------------------------
+    def compute_gradients(self, minibatch) -> Tuple[Dict, Dict]:
+        """Gradients of the PPO loss on one minibatch, by parameter name
+        (`PolicyNet` state-dict names), and its metrics as 0-d tensors;
+        params unchanged."""
+        return self._grad_jit(self.to_device(minibatch))
+
     def apply_gradients(self, grads) -> None:
         """One optimizer step (global-norm clip, then Adam) from gradients
         by parameter name (tensors or numpy arrays)."""
-        self._step([to_f32(grads[name], self.device).clone()
-                    for name, _ in self.params.named_parameters()])
+        self._apply_jit([to_f32(grads[name], self.device).clone()
+                         for name, _ in self.params.named_parameters()])
 
     # -- public --------------------------------------------------------
     def update(self, batch: Dict[str, Any]) -> Dict[str, float]:
@@ -164,7 +188,6 @@ class TorchLearner:
         n = len(batch["obs"])
         device_batch = self.to_device(batch)
         metrics: Dict[str, torch.Tensor] = {}
-        params = [p for _, p in self.params.named_parameters()]
         for _ in range(self.num_epochs):
             perm = torch.from_numpy(self._rng.permutation(n)).to(
                 self.device)
@@ -173,9 +196,7 @@ class TorchLearner:
                 if len(idx) < self.minibatch_size and start > 0:
                     continue  # drop the ragged tail, as the reference
                 minibatch = {k: v[idx] for k, v in device_batch.items()}
-                loss, metrics = self._loss(minibatch)
-                self._step(list(torch.autograd.grad(loss, params)))
-                metrics = dict(metrics, total_loss=loss.detach())
+                metrics = self._update_jit(minibatch)
         return {k: float(v) for k, v in metrics.items()}
 
     def get_weights(self) -> Dict[str, Any]:

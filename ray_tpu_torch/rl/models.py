@@ -14,6 +14,9 @@ the other and the parity tests hand JAX's initial weights to the port
 (`load_jax_policy_params`): `jax.random.orthogonal` cannot be
 reproduced in torch, so the port's own init (`init_policy_params`)
 draws its orthogonal matrices from an explicit CPU `torch.Generator`.
+
+`sample_actions` runs through the compile-watch program
+`rl.sample_actions`, the JAX package's name.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Any, Dict, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+
+from .._private import compile_watch
 
 __all__ = [
     "PolicyNet",
@@ -135,16 +140,24 @@ def apply_policy(params: Union[PolicyNet, Dict], obs):
 
 
 @torch.no_grad()
-def sample_actions(params, obs, generator: torch.Generator):
-    """Inference-side sampling used by env runners: (actions, logp,
-    value) as numpy, and the generator (advanced in place; returned so
-    call sites read as the reference's, which threads its key)."""
+def _sample(params, obs, generator: torch.Generator):
     logits, value = apply_policy(params, obs)
     actions = torch.multinomial(torch.softmax(logits, -1), 1,
                                 generator=generator)
     logp = torch.log_softmax(logits, -1).gather(1, actions)[:, 0]
+    return actions[:, 0], logp, value
+
+
+_sample_prog = compile_watch.instrument("rl.sample_actions", _sample)
+
+
+def sample_actions(params, obs, generator: torch.Generator):
+    """Inference-side sampling used by env runners: (actions, logp,
+    value) as numpy, and the generator (advanced in place; returned so
+    call sites read as the reference's, which threads its key)."""
+    actions, logp, value = _sample_prog(params, obs, generator)
     return (
-        actions[:, 0].cpu().numpy(),
+        actions.cpu().numpy(),
         logp.cpu().numpy(),
         value.cpu().numpy(),
         generator,

@@ -11,8 +11,13 @@ runtime over channel edges, `mpmd_pipeline.py`).
 `TorchTrainer(num_workers > 1)` runs on a `WorkerGroup` of the port's
 runtime actors (`worker_group.py`, copied), joined by `TorchBackend`.
 
-Not ported yet: datasets (ROADMAP queue 1, item 2) and the head-side
-step telemetry re-exports (`telemetry`, item 7)."""
+`telemetry` (copied from `ray_tpu/train/telemetry.py`) is the
+step-telemetry surface for hand-rolled loops and the head-side queries
+(`step_summary`, `step_records`). Every program the steps run is registered with the
+compile watch under the JAX package's names (`train.step`,
+`train.pp_step`, `mpmd.s<stage>.<key>`, ...).
+
+Not ported yet: datasets (ROADMAP queue 1, item 2)."""
 
 from .backend import Backend, TorchBackend, init_torch_distributed, run_local_gang
 from .checkpoint import (
@@ -47,6 +52,7 @@ from .train_step import (
     prefetch_to_device,
     shard_batch,
 )
+from . import telemetry
 from .trainer import TorchTrainer
 
 __all__ = [
@@ -82,4 +88,5 @@ __all__ = [
     "wait_for_checkpoints",
     "pending_checkpoints",
     "CheckpointManager",
+    "telemetry",
 ]

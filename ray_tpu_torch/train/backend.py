@@ -187,7 +187,7 @@ def run_local_gang(fn: Callable[..., Any], world_size: int,
         for p in procs:
             if p.is_alive():
                 p.kill()
-                p.join()
+                p.join()  # rt: noqa[RT008] — joins a process just sent SIGKILL
         results.close()
         inbox.close()
         inbox.cancel_join_thread()

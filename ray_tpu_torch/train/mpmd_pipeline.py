@@ -44,10 +44,13 @@ Activations cross the edges as CPU tensors (the channels pickle their
 records; a pickled CUDA tensor would come back on the sender's card
 index), moved to the stage's device after `get`.
 
-Left out against the JAX package: its stage programs are jitted and
-registered with the compile watch (`compile_watch.instrument`); the
-port's stage programs are eager, and `instrument` is not ported
-(ROADMAP queue 1, item 7).
+Compile watch: as in the JAX package, every stage program is registered
+by name, `mpmd.s<stage>.<key>` with key `fwd:<chunk>` (a non-last
+chunk's forward), `bwd:<chunk>` (a chunk's recompute and backward, the
+last chunk's objective included), `acc` (the gradient accumulation) and
+`opt` (the stage's optimizer step): each runs one signature per
+microbatch geometry, and a drifting microbatch shape is a storm `doctor`
+names.
 """
 
 from __future__ import annotations
@@ -164,6 +167,25 @@ def _chunk_vjp(chunk: _Chunk, params: List[torch.Tensor], x, gy,
     return grads, dx
 
 
+@torch.no_grad()
+def _chunk_forward(chunk: _Chunk, x):
+    """A non-last chunk's forward: (y, aux)."""
+    return chunk(x)
+
+
+def _last_chunk_vjp(chunk: _Chunk, params: List[torch.Tensor], x, targets,
+                    inv_count: float, aux_scale: float):
+    """The last chunk's forward inside its backward: its objective, the
+    gradient of it with respect to `params` and `x`, and the loss pieces.
+    Returns (param grads, dx, objective, nll, count, aux)."""
+    x = x.detach().requires_grad_()
+    with torch.enable_grad():
+        obj, (nll, cnt, aux) = chunk.objective(x, targets, inv_count,
+                                               aux_scale)
+        *dp, dx = _grads(obj, params + [x])
+    return dp, dx, obj, nll, cnt, aux
+
+
 def _grads(outs, inputs: List[torch.Tensor], cts=None) -> List[torch.Tensor]:
     """`torch.autograd.grad`, with zeros for an input the outputs do not
     reach (as `jax.vjp` gives)."""
@@ -230,6 +252,29 @@ class _PipelineStage:
         self._params: Dict[int, List[torch.Tensor]] = {}
         self._opt_state = None
         self._edges: Dict[str, Dict[int, Optional[Edge]]] = {}
+        # Every stage program registers with the compile watcher by
+        # name (mpmd.s<stage>.<key>, bounded by the pipeline topology):
+        # each runs one signature from warm-up on.
+        from .._private import compile_watch
+
+        def _program(key: str, fn):
+            return compile_watch.instrument(f"mpmd.s{self.stage}.{key}", fn)
+
+        self._programs: Dict[str, Callable] = {}
+        for c, _lo, _hi in self.chunk_specs:
+            if c == self.V - 1:
+                self._programs[f"bwd:{c}"] = _program(f"bwd:{c}",
+                                                      _last_chunk_vjp)
+            else:
+                self._programs[f"fwd:{c}"] = _program(f"fwd:{c}",
+                                                      _chunk_forward)
+                self._programs[f"bwd:{c}"] = _program(f"bwd:{c}", _chunk_vjp)
+        self._programs["acc"] = _program("acc", torch._foreach_add_)
+        if self._optimizer is not None:
+            optimizer = self._optimizer
+            self._programs["opt"] = _program(
+                "opt", lambda params, grads, state: optimizer.apply(
+                    params, grads, state, global_norm(grads)))
         # Session wiring: stage rank telemetry rides the same
         # per-(step, rank) records gang training uses, so doctor /
         # goodput / gang-skew read pipeline stages like data ranks.
@@ -326,8 +371,7 @@ class _PipelineStage:
                 stash_peak = max(stash_peak, len(stash))
                 if c != last_c:
                     t0 = time.monotonic()
-                    with torch.no_grad():
-                        y, aux = chunk(x)
+                    y, aux = self._programs[f"fwd:{c}"](chunk, x)
                     y = y.cpu()  # waits for the chunk
                     _time(f"F:{c}", t0)
                     aux_parts.append(aux)
@@ -339,13 +383,9 @@ class _PipelineStage:
                 params = self._params[c]
                 if c == last_c:
                     t0 = time.monotonic()
-                    x = x.detach().requires_grad_()
-                    with torch.enable_grad():
-                        obj, (nll, cnt, aux) = chunk.objective(
-                            x, targets_mbs[mb].to(dev), inv_count,
-                            self.aux_scale,
-                        )
-                        *dp, dx = _grads(obj, params + [x])
+                    dp, dx, obj, nll, cnt, aux = self._programs[f"bwd:{c}"](
+                        chunk, params, x, targets_mbs[mb].to(dev),
+                        inv_count, self.aux_scale)
                     dx = dx.cpu()
                     _time(f"B:{c}", t0)
                     nll_parts.append(nll.detach())
@@ -359,10 +399,8 @@ class _PipelineStage:
                 else:
                     gy = self._recv("bwd_in", c, ("B", c, mb))
                     t0 = time.monotonic()
-                    dp, dx = _chunk_vjp(
-                        chunk, params, x, gy, self.aux_scale,
-                        wrt_input=c > 0,
-                    )
+                    dp, dx = self._programs[f"bwd:{c}"](
+                        chunk, params, x, gy, self.aux_scale, c > 0)
                     if c == 0:
                         self._sync()
                     else:
@@ -371,7 +409,7 @@ class _PipelineStage:
                     if c > 0:
                         self._send("bwd_out", c, ("B", c - 1, mb), dx)
                 if c in grads:
-                    torch._foreach_add_(grads[c], dp)
+                    self._programs["acc"](grads[c], dp)
                 else:
                     grads[c] = list(dp)
         if stash:
@@ -383,8 +421,7 @@ class _PipelineStage:
         if self._optimizer is not None:
             t0 = time.monotonic()
             flat = [g for c, _lo, _hi in self.chunk_specs for g in grads[c]]
-            self._optimizer.apply(self._all_params(), flat, self._opt_state,
-                                  global_norm(flat))
+            self._programs["opt"](self._all_params(), flat, self._opt_state)
             self._sync()
             opt_ms = (time.monotonic() - t0) * 1e3
 
@@ -514,6 +551,14 @@ class _PipelineStage:
         counts = dict(attention.LAUNCHES)
         attention.reset_launch_counts()
         return counts
+
+    def compile_counts(self) -> Dict[str, Dict[str, int]]:
+        """Each of this stage's programs (`mpmd.s<stage>.<key>` by key):
+        its compile-watch counts in this stage's process (`compiles`,
+        `distinct_shapes`) and the signatures this stage's own program
+        has seen (`signatures`)."""
+        return {key: dict(prog.stats(), signatures=prog.signatures())
+                for key, prog in self._programs.items()}
 
     def peak_memory(self) -> Dict[str, Any]:
         """This stage's device and its peak of allocated memory since

@@ -23,6 +23,10 @@ of targets, and every rank's MoE aux loss divided by num_mb * sp * ep.
 The shares add up to JAX's loss: the xent's (nll_sum, count) summed over
 `sp` and `ep` before the division, and the aux loss averaged over `sp`
 and `ep`, summed over the stages and divided by num_mb.
+
+Compile watch: the step is `train.pp_step`, and `init_fn`'s parts are
+`train.pipeline.init_params` (the stage laid out) and
+`train.pipeline.init_opt_state`, the JAX package's names.
 """
 
 from __future__ import annotations
@@ -157,12 +161,21 @@ def make_pp_train_step(
     device = torch.device(mesh.device_type)
     aux_scale = cfg.moe_aux_weight / (num_mb * sp * ep)
 
+    from .._private import compile_watch
+
+    build_stage = compile_watch.instrument(
+        "train.pipeline.init_params",
+        lambda model: stage_module(model, pp, pp_rank, ep, ep_rank,
+                                   device=device))
+    init_opt_state = compile_watch.instrument(
+        "train.pipeline.init_opt_state", optimizer.init)
+
     def init_fn(model: Llama) -> TrainState:
         if model.cfg != cfg:
             raise ValueError("the model's config is not the step's")
-        stage = stage_module(model, pp, pp_rank, ep, ep_rank, device=device)
+        stage = build_stage(model)
         return TrainState(step=0, params=stage,
-                          opt_state=optimizer.init(list(stage.parameters())))
+                          opt_state=init_opt_state(list(stage.parameters())))
 
     def local(x, b_loc, t_loc):
         x = torch.as_tensor(x)
@@ -226,6 +239,8 @@ def make_pp_train_step(
         state.step += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 
+    # Same compile-watch contract as make_train_step's "train.step".
+    step_fn = compile_watch.instrument("train.pp_step", step_fn)
     return init_fn, step_fn
 
 

@@ -19,6 +19,13 @@ the sequence sharded over `sp` (the model's attention runs over the sp
 group, and the gradients are summed over it). With `mesh=None` it is the
 single-device step. Pipeline parallelism is `make_pp_train_step`
 (`pipeline_step.py`).
+
+Compile watch: the step is the program `train.step`, and `init_fn`'s two
+parts `train.init_params` (the model laid out on its device or mesh; the
+JAX package's jitted init also draws the weights, which the port's
+caller builds) and `train.init_opt_state`, under the JAX package's
+names: one signature per (state, batch) geometry, and a drifting batch
+shape is a storm `doctor` names.
 """
 
 from __future__ import annotations
@@ -498,17 +505,23 @@ def make_train_step(
     device = torch.device(device)
 
     blank = []  # donate=False on a mesh: the model's unsharded skeleton
+    from .._private import compile_watch
+
+    def place(model: nn.Module) -> nn.Module:
+        if mesh is None:
+            return model.to(device)
+        if not donate:
+            blank[:] = [copy.deepcopy(model).to("meta")]
+        return shard_module(model, mesh, param_annotations, param_rules)
+
+    place = compile_watch.instrument("train.init_params", place)
+    init_opt_state = compile_watch.instrument("train.init_opt_state",
+                                              optimizer.init)
 
     def init_fn(model: nn.Module) -> TrainState:
-        if mesh is None:
-            model = model.to(device)
-        else:
-            if not donate:
-                blank[:] = [copy.deepcopy(model).to("meta")]
-            shard_module(model, mesh, param_annotations, param_rules)
-        params = list(model.parameters())
+        model = place(model)
         return TrainState(step=0, params=model,
-                          opt_state=optimizer.init(params))
+                          opt_state=init_opt_state(list(model.parameters())))
 
     def copy_state(state: TrainState) -> TrainState:
         """A new state equal to `state`. FSDP2 modules cannot be deep
@@ -560,6 +573,9 @@ def make_train_step(
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": gnorm}
 
+    # One signature per (state, batch) geometry, as the JAX step's one
+    # compile: a drifting batch shape convicts itself in `doctor`.
+    step_fn = compile_watch.instrument("train.step", step_fn)
     return init_fn, step_fn
 
 

@@ -25,7 +25,13 @@ def test_the_runtime_copies_are_found():
                  "ray_tpu_torch/rl/env.py",
                  "ray_tpu_torch/rl/actor_manager.py",
                  "ray_tpu_torch/rl/rollout_queue.py",
-                 "ray_tpu_torch/rl/weight_sync.py"):
+                 "ray_tpu_torch/rl/weight_sync.py",
+                 "ray_tpu_torch/train/telemetry.py",
+                 "ray_tpu_torch/devtools/lint.py",
+                 "ray_tpu_torch/devtools/rules.py",
+                 "ray_tpu_torch/devtools/contracts.py",
+                 "ray_tpu_torch/devtools/check.py",
+                 "ray_tpu_torch/devtools/concurrency.py"):
         assert copy in COPIES
 
 

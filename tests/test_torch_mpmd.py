@@ -311,6 +311,36 @@ def test_mpmd_interleaved_parity_over_four_steps(rt_port):
     assert losses[-1] < losses[0]
 
 
+def test_mpmd_stage_programs_keep_one_signature_each(rt_port):
+    """Every stage program is registered with the compile watch in its
+    stage's process under the JAX package's names, and keeps the
+    signatures of its first step over every step (2 stages x 2 chunks,
+    3 steps): one each, but `acc`'s, one per chunk's gradient list, as
+    the JAX package's one `acc` program compiles per chunk."""
+    cfg_j, cfg = _tiny()
+    B, T, m = 4, 16, 4
+    pipe = _build_pipe(cfg, 2, m, B // m, T,
+                       llama.load_jax_params(_jax_params(cfg_j), cfg),
+                       chunks_per_stage=2,
+                       optimizer_factory=functools.partial(SGD, 0.1))
+    try:
+        inp, tgt = _batch(cfg.vocab_size, B, T)
+        for _ in range(3):
+            pipe.step(inp, tgt)
+        counts = rt.get([s.compile_counts.remote() for s in pipe.stages],
+                        timeout=60)
+    finally:
+        pipe.shutdown()
+    assert [sorted(c) for c in counts] == [
+        ["acc", "bwd:0", "bwd:2", "fwd:0", "fwd:2", "opt"],
+        ["acc", "bwd:1", "bwd:3", "fwd:1", "opt"]]
+    for stage in counts:
+        for key, row in stage.items():
+            n = 2 if key == "acc" else 1
+            assert row == {"compiles": n, "distinct_shapes": n,
+                           "signatures": n}, (key, row)
+
+
 def test_mpmd_checkpoint_roundtrip_async_barrier(rt_port, tmp_path):
     """save_checkpoint(async) + wait_for_checkpoints (the durability
     barrier) + restore: parameters survive byte-exact across further

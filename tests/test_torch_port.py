@@ -106,6 +106,35 @@ def test_sharded_training_modules_leave_jax_out(module):
 
 
 @pytest.mark.parametrize("module", [
+    "ray_tpu_torch._private.compile_watch",
+    "ray_tpu_torch.train.telemetry",
+    "ray_tpu_torch.devtools",
+    "ray_tpu_torch.devtools.lint",
+    "ray_tpu_torch.devtools.rules",
+    "ray_tpu_torch.devtools.contracts",
+    "ray_tpu_torch.devtools.check",
+    "ray_tpu_torch.devtools.concurrency",
+    "ray_tpu_torch.devtools.accel",
+])
+def test_observability_modules_leave_jax_out(module):
+    """Each alone, in a fresh interpreter; the watch and the gates load
+    no torch either (the train package does)."""
+    torch_free = not module.startswith("ray_tpu_torch.train")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'ray_tpu')]\n"
+        "assert not bad, bad\n"
+        f"assert not {torch_free} or 'torch' not in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=100)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
     "ray_tpu_torch.serve",
     "ray_tpu_torch.llm.serving",
     "ray_tpu_torch.cluster_utils",
