@@ -253,9 +253,39 @@ Phases, none of whose failures is caught:
       update must be under WATCH_SHARE of each one's step ((c)'s
       steady step, (e3)'s decode step at batch 8, the minibatch update
       timed 20 times after (i2)).
+  (k) data and tune (`ray_tpu_torch.data`, `ray_tpu_torch.tune`) on the
+      card, after (j): `ray_tpu_torch.init(num_cpus=4, num_gpus=1)`.
+      (k1) DATA_ROWS rows of SEQ + 1 int32 tokens below DATA_VOCAB, drawn
+      from MPMD_SEED (phase (c)'s), written as DATA_FILES .npy files into
+      a temporary directory and read by `data.read_numpy(...,
+      column="tokens")`; a `map_batches` splits each row into `tokens`
+      and `targets` and adds its `row` id, then `random_shuffle(seed=
+      DATA_SHUFFLE_SEED)`. `TorchTrainer(data_loop, ScalingConfig(
+      num_workers=1, use_gpu=True), datasets={"train": ds})`: the loop
+      builds (c)'s model (the 7B width at `--layers`, bf16, flash, remat
+      "full") from MPMD_SEED, the `MeshSpec(fsdp=1)` step of (f2) on a
+      NCCL world of one rank, and reads `get_device_batches("train",
+      mesh=..., batch_size=BATCH, prefetch_batches=2, buffer_size=2)`,
+      DATA_ROWS / BATCH steps. Every batch tensor must be on the card,
+      every row read once (count and sum), every loss finite and the
+      last 4 below the first 4 on average, step 1's loss within
+      MESH_LOSS_REL of a direct `make_train_step` on the same weights
+      and the fit's first batch, and the launch counters (zeroed just
+      before the fit) 2 forward launches and one backward op per layer
+      per step. Prints the median step, each step's `data_wait_ms` and
+      `h2d_ms` from step telemetry, and (f2)'s median step. (k2) a
+      `Tuner` over `TorchTrainer(data_loop)` at TUNE_LAYERS layers and
+      TUNE_STEPS steps on (k1)'s dataset, `param_space={"lr":
+      grid_search(TUNE_LRS)}`, `TuneConfig(metric="loss", mode="min",
+      resources_per_trial={"num_gpus": 1}, max_concurrent_trials=1)`: 3
+      trials with no error, each reporting the card's name and a pid
+      other than the driver's, their step-1 losses within MESH_LOSS_REL
+      of each other, `get_best_result()` the lowest loss; then one trial
+      of the same trainer with `resources_per_trial={"num_cpus": 1}`
+      must end with the error that no CUDA device is visible.
 
 Prints `{"kernels": [...]}` (with each kernel's launches under each
-remat policy and in the mesh step), then `{"slice": {...}}`, then
+remat policy, in the mesh step and in (k1)), then `{"slice": {...}}`, then
 `{"serve": {...}}` (the card, TTFT and inter-token gap p50/p99, decode
 tokens/s and step ms at a full batch beside its bound, prefill
 tokens/s, prefix hits and tokens saved, pool bytes, peak memory of
@@ -283,7 +313,10 @@ push, the streams' lengths and the consistency counts), then
 `{"compile_watch": {...}}` ((j): each window's counts, the hot path's
 us and share of each step, (j1)'s nvcc and billed ms, (j3)'s storm and
 hint; each kernel's entry in the kernels line carries its library's
-nvcc ms from (a), None when cached), then the
+nvcc ms from (a), None when cached), `{"data": {...}}` ((k): the card;
+(k1)'s losses, step ms, per-step `data_wait_ms` and `h2d_ms`, rows,
+launches, the direct step's loss, (f2)'s median step; (k2)'s trials,
+best lr and the card-less trial's error), then the
 card's name and power limit, and as the last
 line `{"ok": true, "device": {...}}`. Exits non-zero with no
 result line when there is no CUDA card or the port is not beside it.
@@ -306,8 +339,13 @@ actors (NCCL, `MeshSpec(fsdp=4)`), held to the local gang's fsdp4 run;
 then `MPMDPipeline` in 4 stages, one per card, at CARDS4_MPMD_LAYERS
 layers and CARDS4_MPMD_MICROBATCHES x 4096 in microbatches of 1, held
 to one card's loss on the same weights and batch (and (g4b)'s other
-bars). Each run's loss must fall and its step 1 lie within
-CARDS4_LOSS_REL of one card's, and each `make_train_step` run's flash
+bars), then (k3): `TorchTrainer(num_workers=4, datasets=...)` on a gang
+of the runtime's `num_gpus=1` actors at `MeshSpec(fsdp=4)`, (k1)'s rows
+unshuffled (one file a rank), each rank reading its `get_device_batches`
+shard (BATCH rows a rank, the global batch 4 x BATCH): every rank must
+read as many rows, every row be read once over the ranks, and every
+rank report the same losses. Each run's loss must fall and its step 1
+lie within CARDS4_LOSS_REL of one card's, and each `make_train_step` run's flash
 launches on every rank equal one per layer and step, forward and each
 backward launch (the ring run's none); it prints `{"four_cards": {...}}`
 (step ms, tokens/s, peak per card). With `--profile` it traces one more
@@ -316,6 +354,8 @@ apart). It fails on a machine with fewer than 4 cards.
 
 `--only-mpmd` builds the kernels and runs only phase (g4) (with
 `--cards 4`, only the four-card MPMD run), then the last two lines.
+`--only-data` builds the kernels and runs only phase (k) ((k1)-(k2);
+with `--cards 4`, only (k3)), then the last two lines.
 `--only-rl` builds the kernels and runs only phase (i), with (i4)'s
 delta measured as (e2) measures it on (i4)'s weights A (paged logits
 against the teacher-forced bf16 forward, x 3), then the last two
@@ -477,6 +517,19 @@ MPMD_SCHEDULES = (("1f1b", 1), ("interleaved", 2))
 #: microbatches of 1, against one card's loss (CARDS4_LOSS_REL).
 CARDS4_MPMD_LAYERS = 8
 CARDS4_MPMD_MICROBATCHES = 8
+#: Phase (k): DATA_ROWS rows of SEQ + 1 tokens in DATA_FILES .npy files,
+#: read in batches of BATCH, so (k1) runs DATA_ROWS / BATCH steps and
+#: reads each row once. The tokens lie below DATA_VOCAB: which ids occur
+#: is what one batch teaches the next, so the loss falls over rows it has
+#: not seen (over the whole vocabulary, distinct random rows teach
+#: nothing that carries to the next row).
+DATA_ROWS, DATA_FILES = 64, 4
+DATA_VOCAB = 512
+DATA_SHUFFLE_SEED = 17
+#: (k2): the Tuner's trials, (k1)'s loop at TUNE_LAYERS layers and
+#: TUNE_STEPS steps, one trial a learning rate.
+TUNE_LAYERS, TUNE_STEPS = 2, 4
+TUNE_LRS = (1e-4, 3e-4, 1e-3)
 #: Dense f32 peak of an H100 SXM outside the tensor cores, and its dense
 #: TF32 tensor-core peak (NVIDIA data sheet). An f32 kernel's operations
 #: bound is the lesser of its products at 67 TFLOP/s and the same
@@ -2566,6 +2619,7 @@ def four_card_phase(torch, card, n_layers, profile=False):
     return {"card": card, "cards": 4, "batch": CARDS4_BATCH, "seq": SEQ,
             "long_seq": CARDS4_LONG_SEQ, "layers": n_layers, "runs": runs,
             "mpmd": cards4_mpmd_run(torch, card),
+            "data": cards4_data_run(torch, card, n_layers),
             "peak_per_card": {name: [rk[name]["max_memory_allocated"]
                                      for rk in ranks] for name in runs
                               if all(name in rk for rk in ranks)},
@@ -4101,6 +4155,361 @@ def watch_phase(torch, llama, _build, card, dev, windows):
     return record
 
 
+def data_loop(config):
+    """Phase (k)'s train loop, run by `TorchTrainer` in the driver
+    ((k1)), in each (k2) trial's actor and on each rank of (k3)'s gang:
+    (c)'s model at `config["n_layers"]` from MPMD_SEED (phase (c)'s),
+    the mesh step over `MeshSpec(fsdp=config["fsdp"])`, fed by
+    `get_device_batches` for at most `config["steps"]` steps. Each step
+    reports its loss, the first step's loss, its own time, the batch's
+    row ids (this rank's), whether every batch tensor was on the card,
+    the card's name and the process."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.train import (
+        default_optimizer,
+        get_context,
+        get_device_batches,
+        init_torch_distributed,
+        make_train_step,
+        report,
+    )
+    from ray_tpu_torch.train.backend import free_port
+
+    dev = torch.device(config.get("device", "cuda"))
+    cuda = dev.type == "cuda"
+    # (k1) and (k2) make a world of one rank; (k3)'s gang has its group.
+    own_group = not dist.is_initialized()
+    if own_group:
+        init_torch_distributed(0, 1, f"localhost:{free_port()}", device=dev)
+    batches = None
+    try:
+        cfg = llama.LlamaConfig.llama2_7b(n_layers=config["n_layers"],
+                                          max_seq_len=SEQ)
+        if "width" in config:  # a CPU rehearsal's small width
+            cfg = dataclasses.replace(cfg, **config["width"])
+        model = llama.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(MPMD_SEED),
+            device=dev)
+        mesh = MeshSpec(fsdp=config["fsdp"]).build(dev)
+        init_fn, step_fn = make_train_step(
+            llama.loss_fn, default_optimizer(learning_rate=config["lr"],
+                                             total_steps=config["steps"]),
+            mesh, llama.param_annotations(cfg))
+        state = init_fn(model)
+        del model
+        batches = get_device_batches("train", mesh=mesh, batch_size=BATCH,
+                                     prefetch_batches=2, buffer_size=2)
+        first = None
+        for _, batch in zip(range(config["steps"]), batches):
+            on_card = all(
+                x.device_mesh.device_type == dev.type
+                and x.to_local().device.type == dev.type
+                for x in batch.values())
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch["tokens"], batch["targets"])
+            if cuda:
+                torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            loss = metrics["loss"].item()
+            first = loss if first is None else first
+            report({"loss": loss, "first_loss": first, "step_ms": step_ms,
+                    "rows": batch["row"].to_local().tolist(),
+                    "on_card": on_card,
+                    "device": torch.cuda.get_device_name() if cuda else "cpu",
+                    "pid": os.getpid(), "rank": get_context().world_rank})
+        del state, step_fn, init_fn
+    finally:
+        if batches is not None:
+            batches.close()
+        if own_group:
+            dist.destroy_process_group()
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def data_rows(torch, dev):
+    """(k)'s DATA_ROWS rows of SEQ + 1 int32 tokens below DATA_VOCAB,
+    drawn from MPMD_SEED (phase (c)'s) on `dev`, as numpy."""
+    g = torch.Generator(device=dev).manual_seed(MPMD_SEED)
+    return torch.randint(0, DATA_VOCAB, (DATA_ROWS, SEQ + 1), generator=g,
+                         device=dev).to(torch.int32).cpu().numpy()
+
+
+def token_dataset(rows, directory, shuffle):
+    """`rows` written as DATA_FILES .npy shards into `directory` and read
+    back by `ray_tpu_torch.data.read_numpy`; a `map_batches` splits each
+    row into int64 `tokens` and `targets` of SEQ and adds its `row` id
+    (found by its first 8 tokens); with `shuffle`, a seeded
+    `random_shuffle`."""
+    import numpy as np
+
+    from ray_tpu_torch import data
+
+    per_file = len(rows) // DATA_FILES
+    for i in range(DATA_FILES):
+        np.save(os.path.join(directory, f"part-{i:02d}.npy"),
+                rows[i * per_file:(i + 1) * per_file])
+    row_of = {row[:8].tobytes(): i for i, row in enumerate(rows)}
+    assert len(row_of) == len(rows)
+
+    def split_rows(batch):
+        t = batch["tokens"]
+        return {"tokens": t[:, :-1].astype(np.int64),
+                "targets": t[:, 1:].astype(np.int64),
+                "row": np.array([row_of[r[:8].tobytes()] for r in t])}
+
+    ds = data.read_numpy(directory, column="tokens").map_batches(split_rows)
+    return ds.random_shuffle(seed=DATA_SHUFFLE_SEED) if shuffle else ds
+
+
+def rows_seen(histories):
+    """Row ids in the order the steps of each history read them."""
+    return [[r for m in h for r in m["rows"]] for h in histories]
+
+
+def data_train_run(torch, llama, attn, rows, ds, n_layers, dev):
+    """(k1): `TorchTrainer(datasets=...)` in the driver over `ds`, every
+    row once (see the module's doc); then a direct `make_train_step` on
+    the same weights and the fit's first batch. Returns the record."""
+    from ray_tpu_torch.train import (
+        ScalingConfig,
+        TorchTrainer,
+        default_optimizer,
+        make_train_step,
+        telemetry,
+    )
+
+    steps = DATA_ROWS // BATCH
+    attn.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = TorchTrainer(
+        data_loop,
+        train_loop_config={"n_layers": n_layers, "lr": 3e-4, "steps": steps,
+                           "fsdp": 1, "device": dev.type},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        datasets={"train": ds},
+    ).fit()
+    fit_s = time.perf_counter() - t0
+    launches = dict(attn.LAUNCHES)
+    assert result.error is None, result.error
+    hist = result.metrics_history
+    # The loop's steps, as step telemetry recorded them.
+    records = sorted((r for r in telemetry.step_records()
+                      if r.get("pid") == os.getpid()),
+                     key=lambda r: r["step"])[-steps:]
+    losses = [m["loss"] for m in hist]
+    (seen,) = rows_seen([hist])
+    # The direct step: the same weights, the fit's first batch.
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=n_layers, max_seq_len=SEQ)
+    model = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(MPMD_SEED), device=dev)
+    init_fn, step_fn = make_train_step(
+        llama.loss_fn, default_optimizer(learning_rate=3e-4,
+                                         total_steps=steps), device=dev)
+    first = torch.from_numpy(rows[hist[0]["rows"]]).long().to(dev)
+    direct = step_fn(init_fn(model), first[:, :-1], first[:, 1:])[1][
+        "loss"].item()
+    del model, init_fn, step_fn, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = [m["step_ms"] for m in hist]
+    data_wait = [r.get("data_wait_ms", 0.0) for r in records]
+    h2d = [r.get("h2d_ms", 0.0) for r in records]
+    return {
+        "steps": len(hist), "losses": losses, "step_ms": step_ms,
+        "steady_step_ms": statistics.median(step_ms[1:]),
+        "data_wait_ms": data_wait, "h2d_ms": h2d,
+        "median_data_wait_ms": statistics.median(data_wait[1:]),
+        "median_h2d_ms": statistics.median(h2d[1:]),
+        "telemetry_steps": [r["step"] for r in records],
+        "rows_seen": len(seen), "distinct_rows": len(set(seen)),
+        "row_sum": sum(seen), "on_card": all(m["on_card"] for m in hist),
+        "direct_step1_loss": direct,
+        "loss_rel_to_direct": rel(losses[0], direct),
+        "launches": launches, "fit_s": fit_s,
+    }
+
+
+def data_tune_run(ds, dev):
+    """(k2): a `Tuner` over `TorchTrainer` trials of `data_loop` at
+    TUNE_LAYERS layers and TUNE_STEPS steps on (k1)'s dataset, one trial
+    a card; then one trial that asks for no card (see the module's
+    doc). Returns the record."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    trainer = TorchTrainer(
+        data_loop,
+        train_loop_config={"n_layers": TUNE_LAYERS, "lr": 3e-4,
+                           "steps": TUNE_STEPS, "fsdp": 1,
+                           "device": dev.type},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        datasets={"train": ds})
+    t0 = time.perf_counter()
+    grid = tune.Tuner(
+        trainer, param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min", resources_per_trial={"num_gpus": 1},
+            max_concurrent_trials=1)).fit()
+    tune_s = time.perf_counter() - t0
+    trials = [{"lr": r.config["lr"], "error": r.error,
+               **{k: r.metrics.get(k) for k in (
+                   "loss", "first_loss", "device", "pid",
+                   "training_iteration")}} for r in grid]
+    best = grid.get_best_result("loss", "min") if not grid.errors else None
+    t0 = time.perf_counter()
+    cardless = tune.Tuner(
+        trainer, tune_config=tune.TuneConfig(
+            metric="loss", mode="min",
+            resources_per_trial={"num_cpus": 1})).fit()
+    cardless_s = time.perf_counter() - t0
+    return {"trials": trials, "errors": len(grid.errors),
+            "best_lr": best.config["lr"] if best else None,
+            "tune_s": tune_s,
+            "cardless_trials": len(cardless),
+            "cardless_errors": [r.error for r in cardless.errors],
+            "cardless_s": cardless_s}
+
+
+def data_phase(torch, llama, attn, card, n_layers, dev, f2_step_ms=None):
+    """Phase (k), (k1) and (k2) on one card (see the module's doc).
+    Returns the `{"data": ...}` record."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    rows = data_rows(torch, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        ds = token_dataset(rows, tmp, shuffle=True)
+        rt.init(num_cpus=4, num_gpus=1)
+        try:
+            t0 = time.perf_counter()
+            k1 = data_train_run(torch, llama, attn, rows, ds, n_layers, dev)
+            print(f"(k1): {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            k2 = data_tune_run(ds, dev)
+            print(f"(k2): {time.perf_counter() - t0:.1f} s")
+        finally:
+            rt.shutdown()
+    losses = k1["losses"]
+    print(f"(k1) TorchTrainer(datasets=...) -> get_device_batches -> "
+          f"MeshSpec(fsdp=1) step, {n_layers} layers, {k1['steps']} steps "
+          f"of {BATCH} x {SEQ}: losses {[round(x, 4) for x in losses]}, "
+          f"step 1 {losses[0]:.6f} against the direct step's "
+          f"{k1['direct_step1_loss']:.6f} (relative "
+          f"{k1['loss_rel_to_direct']:.2e}), rows seen {k1['rows_seen']} "
+          f"({k1['distinct_rows']} distinct, sum {k1['row_sum']}), batches "
+          f"on the card: {k1['on_card']}, launches {k1['launches']}, fit "
+          f"{k1['fit_s']:.1f} s")
+    print(f"(k1) median step {k1['steady_step_ms']:.2f} ms; per step "
+          f"data_wait_ms {[round(x, 3) for x in k1['data_wait_ms']]} "
+          f"(median {k1['median_data_wait_ms']:.3f}), h2d_ms "
+          f"{[round(x, 3) for x in k1['h2d_ms']]} (median "
+          f"{k1['median_h2d_ms']:.3f}); (f2)'s median step "
+          + (f"{f2_step_ms:.2f} ms" if f2_step_ms is not None
+             else "not run in this call") + f"; card: {card}")
+    print(f"(k2) Tuner over TorchTrainer, lr {list(TUNE_LRS)}: trials "
+          f"{k2['trials']}, best lr {k2['best_lr']}, {k2['tune_s']:.1f} s; "
+          f"the trial that asked for no card: {k2['cardless_errors']} "
+          f"({k2['cardless_s']:.1f} s)")
+    steps = DATA_ROWS // BATCH
+    assert k1["steps"] == steps and len(k1["telemetry_steps"]) == steps, k1
+    assert k1["on_card"], k1
+    assert k1["rows_seen"] == DATA_ROWS == k1["distinct_rows"], k1
+    assert k1["row_sum"] == DATA_ROWS * (DATA_ROWS - 1) // 2, k1
+    assert all(math.isfinite(x) for x in losses), losses
+    assert statistics.mean(losses[-4:]) < statistics.mean(losses[:4]), losses
+    assert k1["loss_rel_to_direct"] <= MESH_LOSS_REL, k1
+    if dev.type == "cuda":
+        assert k1["launches"]["flash_fwd"] == steps * n_layers * 2, k1
+        for name in BWD_LAUNCHES:
+            assert k1["launches"][name] == steps * n_layers, k1
+    trials = k2["trials"]
+    assert len(trials) == len(TUNE_LRS) and k2["errors"] == 0, k2
+    name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
+    assert all(t["device"] == name and t["pid"] not in (None, os.getpid())
+               for t in trials), k2
+    first = [t["first_loss"] for t in trials]
+    assert max(first) - min(first) <= MESH_LOSS_REL * min(first), first
+    assert k2["best_lr"] == min(trials, key=lambda t: t["loss"])["lr"], k2
+    assert k2["cardless_trials"] == 1 and len(k2["cardless_errors"]) == 1, k2
+    assert "no CUDA device is visible" in k2["cardless_errors"][0], k2
+    return {"card": card,
+            "config": f"llama2_7b width, {n_layers} layers, bf16, flash, "
+                      f"remat full, MeshSpec(fsdp=1); {DATA_ROWS} rows in "
+                      f"{DATA_FILES} .npy files, batch {BATCH} x {SEQ}",
+            "k1": k1, "f2_steady_step_ms": f2_step_ms, "k2": k2,
+            "bars": {"mesh_loss_rel": MESH_LOSS_REL}}
+
+
+def cards4_data_run(torch, card, n_layers, timeout=420.0, dev=None):
+    """(k3), `--cards 4`: `TorchTrainer(num_workers=4, datasets=...)` on a
+    gang of the runtime's `num_gpus=1` actors (NCCL) at fsdp 4, each rank
+    reading its `get_device_batches` shard of (k1)'s rows (unshuffled, one
+    file a rank): every rank reads as many rows, and their union is every
+    row once. A fit still running after `timeout` seconds fails."""
+    import tempfile
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+    dev = dev or torch.device("cuda")
+    rows = data_rows(torch, dev)
+    steps = DATA_ROWS // (4 * BATCH)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        ds = token_dataset(rows, tmp, shuffle=False)
+        rt.init(num_cpus=8, num_gpus=4)
+        try:
+            box = {}
+            trainer = TorchTrainer(
+                data_loop,
+                train_loop_config={"n_layers": n_layers, "lr": 3e-4,
+                                   "steps": steps, "fsdp": 4,
+                                   "device": dev.type},
+                scaling_config=ScalingConfig(
+                    num_workers=4, use_gpu=dev.type == "cuda"),
+                datasets={"train": ds})
+            fit = threading.Thread(
+                target=lambda: box.update(r=trainer.fit()), daemon=True)
+            t0 = time.perf_counter()
+            fit.start()
+            fit.join(timeout)
+            if fit.is_alive():
+                raise TimeoutError(f"(k3) still running after {timeout} s")
+            result = box["r"]
+            fit_s = time.perf_counter() - t0
+        finally:
+            rt.shutdown()
+    assert result.error is None, result.error
+    histories = result.metrics_by_rank
+    seen = rows_seen(histories)
+    losses = [[m["loss"] for m in h] for h in histories]
+    union = [r for s in seen for r in s]
+    step_ms = [m["step_ms"] for m in histories[0]]
+    print(f"(k3) TorchTrainer(num_workers=4, datasets=...) at fsdp 4: rows "
+          f"per rank {[len(s) for s in seen]}, union {len(set(union))} of "
+          f"{DATA_ROWS} ({len(union)} read), losses (rank 0) "
+          f"{[round(x, 4) for x in losses[0]]}, step ms "
+          f"{[round(x, 2) for x in step_ms]}, fit {fit_s:.1f} s; card: {card}")
+    assert len(histories) == 4 and all(len(h) == steps for h in histories)
+    assert all(len(s) == DATA_ROWS // 4 for s in seen), seen
+    assert sorted(union) == list(range(DATA_ROWS)), seen
+    assert all(m["on_card"] for h in histories for m in h)
+    assert all(math.isfinite(x) for x in losses[0]), losses
+    assert all(h == losses[0] for h in losses), losses
+    return {"rows_per_rank": [len(s) for s in seen],
+            "union": len(set(union)), "losses": losses[0],
+            "step_ms": step_ms,
+            "steady_step_ms": statistics.median(step_ms[1:]),
+            "fit_s": fit_s}
+
+
 def main() -> int:
     import torch
 
@@ -4134,6 +4543,10 @@ def main() -> int:
         "--only-rl", action="store_true",
         help="build the kernels, then run only the RL phase ((i1)-(i4) on "
              "one card)")
+    parser.add_argument(
+        "--only-data", action="store_true",
+        help="build the kernels, then run only the data and tune phase "
+             "((k1)-(k2) on one card; with --cards 4, only (k3))")
     args = parser.parse_args()
     n_layers = args.layers
 
@@ -4172,6 +4585,22 @@ def main() -> int:
         dev = torch.device("cuda")
         record = {"rl": rl_phase(torch, llama, card, dev,
                                  rl_decode_delta(torch, llama, dev))}
+        print(json.dumps(record))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
+
+    if args.only_data:
+        if args.cards == 4:
+            record = {"four_cards": {"data": cards4_data_run(
+                torch, card, n_layers)}}
+        else:
+            record = {"data": data_phase(torch, llama, attn, card, n_layers,
+                                         torch.device("cuda"))}
         print(json.dumps(record))
         print(f"card: {card}")
         print(json.dumps({"ok": True, "device": {
@@ -4544,6 +4973,12 @@ def main() -> int:
         "i2": rl["i2"]["compile_watch"], "i3": rl["i3"]["compile_watch"]})
     print(f"(j): {watch['wall_s']:.1f} s")
 
+    # ---- (k) data and tune on the card --------------------------------
+    t0 = time.perf_counter()
+    data = data_phase(torch, llama, attn, card, n_layers, dev,
+                      sharded["f2"]["steady_step_ms"])
+    print(f"(k): {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {
             "name": "flash_fwd", "route": "cuda",
@@ -4560,6 +4995,7 @@ def main() -> int:
             "launches_by_policy": {p: n["flash_fwd"]
                                    for p, n in by_policy.items()},
             "launches_mesh_step": sharded["f2"]["launches"]["flash_fwd"],
+            "launches_data": data["k1"]["launches"]["flash_fwd"],
             "launches_per_step_pp": {
                 g: pp[g]["launches_per_step"]["flash_fwd"]
                 for g in ("g1", "g2")},
@@ -4591,6 +5027,7 @@ def main() -> int:
             "launches_by_policy": {p: n["flash_bwd"]
                                    for p, n in by_policy.items()},
             "launches_mesh_step": sharded["f2"]["launches"]["flash_bwd"],
+            "launches_data": data["k1"]["launches"]["flash_bwd"],
             "launches_per_step_pp": {
                 g: pp[g]["launches_per_step"]["flash_bwd"]
                 for g in ("g1", "g2")},
@@ -4709,6 +5146,7 @@ def main() -> int:
     print(json.dumps({"f32_any": f32_any}))
     print(json.dumps({"rl": rl}))
     print(json.dumps({"compile_watch": watch}))
+    print(json.dumps({"data": data}))
     if args.against:
         print(json.dumps({"against": against(
             torch, attn, args.against, randn, n_layers)}))

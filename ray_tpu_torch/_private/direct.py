@@ -269,6 +269,13 @@ class DirectTaskManager:
         # fires during the pop). A plain Lock self-deadlocks there.
         self._lock = make_lock("direct.manager", "rlock")
         self._futures: Dict[bytes, Tuple[ResultFuture, int]] = {}
+        #: Each pending task's future by its first return, until it
+        #: completes: the future holds the task's args (`hold_refs`),
+        #: which must outlive every handle to its results. Without it,
+        #: dropping the results of a task still running (a shuffle's
+        #: outputs, say) drops its args, their results are never
+        #: published, and the task's worker waits on them for good.
+        self._running: Dict[bytes, ResultFuture] = {}
         #: direct results already published to the daemon object table
         #: (large/shm results are implicitly published by the worker).
         self._published: set = set()
@@ -326,7 +333,16 @@ class DirectTaskManager:
         with self._lock:
             for i, ret in enumerate(spec["returns"]):
                 self._futures[ret] = (fut, i)
+            if spec["returns"]:
+                first = spec["returns"][0]
+                self._running[first] = fut
+        if spec["returns"]:
+            fut.add_done_callback(lambda _fut: self._done_running(first))
         return fut
+
+    def _done_running(self, first: bytes) -> None:
+        with self._lock:
+            self._running.pop(first, None)
 
     def submit(self, spec: dict, solo: bool = False) -> None:
         key = scheduling_key(spec)
@@ -589,7 +605,10 @@ class DirectTaskManager:
                     found = futures.get(ret)
                     if found is not None:
                         return found[0]
-                return None  # every handle dropped pre-completion
+                # Every handle dropped pre-completion: the running
+                # future still completes, releasing its args.
+                return self._running.get(entry.returns[0]) if (
+                    entry.returns) else None
 
             for index, outcome in real_parts:
                 fut = find(batch[index])
@@ -889,6 +908,8 @@ class DirectTaskManager:
                 self._futures.pop(ret, (None, 0))[0]
                 for ret in spec["returns"]
             }
+            if spec["returns"]:
+                futures.add(self._running.get(spec["returns"][0]))
         for fut in futures:
             if fut is not None:
                 fut.to_daemon()
@@ -923,9 +944,13 @@ class DirectTaskManager:
                 if entry is not None:
                     fut = entry[0]
                     break
+            if fut is None and returns:
+                # Every handle to the result was dropped before
+                # completion: nothing to record (the object was never
+                # globally visible), but the running future completes,
+                # releasing its args.
+                fut = self._running.get(returns[0])
         if fut is None:
-            # Every handle to the result was dropped before completion;
-            # nothing to record (the object was never globally visible).
             return
         fut.fulfill(reply.get("results"), reply.get("error"))
 

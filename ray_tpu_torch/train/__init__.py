@@ -17,7 +17,9 @@ step-telemetry surface for hand-rolled loops and the head-side queries
 compile watch under the JAX package's names (`train.step`,
 `train.pp_step`, `mpmd.s<stage>.<key>`, ...).
 
-Not ported yet: datasets (ROADMAP queue 1, item 2)."""
+`TorchTrainer(datasets=...)` splits each `ray_tpu_torch.data` dataset
+into one streaming shard per rank: `get_dataset_shard` reads it,
+`get_device_batches` puts it on the mesh ahead of the step."""
 
 from .backend import Backend, TorchBackend, init_torch_distributed, run_local_gang
 from .checkpoint import (

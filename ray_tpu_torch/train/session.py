@@ -3,9 +3,10 @@
 
 User code calls `report(metrics, checkpoint=...)`, `get_context()` and
 `get_checkpoint()` (for restore); a retried attempt finds the previous
-attempt's latest checkpoint through the marker in the trial dir. The
-dataset shards (`get_dataset_shard`, `get_device_batches`) wait for the
-copied data runtime."""
+attempt's latest checkpoint through the marker in the trial dir.
+`get_dataset_shard` is this rank's streaming shard of a dataset passed
+to the trainer, `get_device_batches` the same shard as batches on the
+mesh (a host prefetch thread, then `prefetch_to_device`)."""
 
 from __future__ import annotations
 
@@ -169,18 +170,60 @@ def get_checkpoint() -> Optional[str]:
 
 
 def get_dataset_shard(name: str = "train"):
-    """This worker's streaming shard of the trainer's dataset: waits
-    for the copied data runtime."""
-    raise NotImplementedError(
-        "get_dataset_shard: the data runtime (ray_tpu.data) is not copied "
-        "into the port yet (ROADMAP queue 1, item 2, \"Data\")")
+    """This worker's streaming shard of the dataset passed to the
+    trainer (as `ray_tpu/train/session.py`'s; reference:
+    train.get_dataset_shard, session.py:1067 — a DataIterator over this
+    rank's split). Raises KeyError for a name the trainer was not given,
+    or outside a fit."""
+    session = get_session()
+    if session is None or name not in session.dataset_shards:
+        raise KeyError(
+            f"no dataset shard {name!r}; pass datasets={{...}} to the "
+            "trainer"
+        )
+    return session.dataset_shards[name]
 
 
-def get_device_batches(name: str = "train", **kwargs):
-    """This rank's shard as device-resident batches: waits for the
-    copied data runtime (`prefetch_to_device` over any host iterator
-    works meanwhile)."""
-    raise NotImplementedError(
-        "get_device_batches: the data runtime (ray_tpu.data) is not copied "
-        "into the port yet (ROADMAP queue 1, item 2, \"Data\"); "
-        "prefetch_to_device takes any iterator of host batches")
+def get_device_batches(
+    name: str = "train",
+    *,
+    mesh,
+    batch_size: int = 256,
+    batch_format: str = "numpy",
+    drop_last: bool = False,
+    prefetch_batches: int = 2,
+    buffer_size: int = 2,
+    logical_axes=("batch",),
+    rules=None,
+):
+    """This rank's shard as batches on the mesh with the whole overlap
+    pipeline engaged: a background thread resolves and formats host
+    batches `prefetch_batches` ahead (DataIterator.iter_batches), and
+    `buffer_size` of them are copied onto the mesh ahead of consumption
+    (`prefetch_to_device`: pinned memory and a side stream on the card)
+    so batch N+1 is there before step N retires. The stalls are billed
+    to step telemetry as `data_wait_ms` and `h2d_ms`.
+
+    The shard's rows are this rank's: on a mesh of several ranks the
+    global batch is the ranks' batches in the mesh's order
+    (`prefetch_to_device(..., rank_local=True)`), `batch_size` rows
+    each, so the shards must give every rank as many batches (an
+    `equal=True` split of equal blocks)."""
+    from ..parallel.sharding import ACT_RULES
+    from .train_step import prefetch_to_device
+
+    shard = get_dataset_shard(name)
+    batches = shard.iter_batches(
+        batch_size=batch_size,
+        batch_format=batch_format,
+        drop_last=drop_last,
+        prefetch_batches=prefetch_batches,
+    )
+    return prefetch_to_device(
+        batches,
+        mesh,
+        buffer_size=buffer_size,
+        logical_axes=logical_axes,
+        rules=rules if rules is not None else ACT_RULES,
+        rank_local=True,
+    )

@@ -595,6 +595,7 @@ def prefetch_to_device(
     buffer_size: int = 2,
     logical_axes: Tuple[Optional[str], ...] = ("batch", "seq"),
     rules: Rules = ACT_RULES,
+    rank_local: bool = False,
 ):
     """Double-buffer host batches onto the mesh: batch N+1's copy is
     issued before batch N is consumed, so its host-to-device transfer
@@ -607,20 +608,42 @@ def prefetch_to_device(
 
     `batches` is any iterator of trees; buffer_size=2 is classic double
     buffering, 1 degenerates to put-then-yield with no overlap.
+
+    By default every rank passes the same whole batch, as `shard_batch`
+    takes it. `rank_local=True` takes each rank's batches as its own
+    rows (a per-rank dataset shard, `get_device_batches`): each leaf is
+    this rank's local shard, and the global batch is the ranks' batches
+    in the mesh's order. Every mesh axis of size above 1 must then
+    shard the batch (ranks that replicate it would hold different
+    rows), and every rank must pass as many batches as the others.
     """
     if buffer_size < 1:
         raise ValueError(f"buffer_size must be >= 1, got {buffer_size}")
     placements = placements_for(mesh, logical_axes, rules)
+    if rank_local:
+        replicated = [name for name, p, n in zip(
+            mesh.mesh_dim_names, placements, mesh.shape)
+            if n > 1 and not p.is_shard()]
+        if replicated:
+            raise ValueError(
+                f"rank-local batches need the batch sharded over every mesh "
+                f"axis of more than one rank; {replicated} would replicate "
+                f"rows that differ between its ranks")
     cuda = mesh.device_type == "cuda"
     stream = torch.cuda.Stream() if cuda else None
+
+    def place(x):
+        if rank_local:
+            return DTensor.from_local(x, mesh, placements, run_check=False)
+        return _to_mesh(x, mesh, placements)
 
     def put_leaf(x):
         x = torch.as_tensor(x)
         if not cuda:
-            return _to_mesh(x, mesh, placements)
+            return place(x)
         with torch.cuda.stream(stream):
             x = x.pin_memory().to("cuda", non_blocking=True)
-            return _to_mesh(x, mesh, placements)
+            return place(x)
 
     def put(batch):
         t0 = time.monotonic()

@@ -10,8 +10,10 @@ The result holds rank 0's reports and checkpoint, and every rank's
 reports (`Result.metrics_by_rank`). A failed attempt is retried up to
 `FailureConfig.max_failures` times and resumes from the trial dir's
 latest checkpoint; `fit` returns only once every async checkpoint the
-loop issued is durable. `datasets` needs the copied data runtime and
-raises.
+loop issued is durable. `datasets` (`ray_tpu_torch.data` datasets) are
+split once per trainer into one streaming shard per rank
+(`streaming_split(world_size, equal=True)`); the loop reads its shard
+with `get_dataset_shard` or `get_device_batches`.
 """
 
 from __future__ import annotations
@@ -48,10 +50,7 @@ class TorchTrainer:
         self.backend = backend or TorchBackend()
         device = "cuda" if self.scaling_config.use_gpu else "cpu"
         self.backend_config = {"device": device, **(backend_config or {})}
-        if datasets:
-            raise NotImplementedError(
-                "datasets: the data runtime (ray_tpu.data) is not copied "
-                "into the port yet (ROADMAP queue 1, item 2, \"Data\")")
+        self.datasets = datasets or {}
 
     def fit(self) -> Result:
         max_failures = self.run_config.failure_config.max_failures
@@ -95,6 +94,26 @@ class TorchTrainer:
         except (TypeError, ValueError):
             return False
 
+    def _make_shards(self, world_size: int, rank: int) -> Dict[str, Any]:
+        """Rank's streaming shard of each dataset, split once per trainer
+        (as JaxTrainer's, ray_tpu/train/trainer.py:95-116; reference:
+        DataConfig's streaming split)."""
+        if not self.datasets:
+            return {}
+        if not hasattr(self, "_split_cache"):
+            self._split_cache = {
+                name: ds.streaming_split(world_size, equal=True)
+                for name, ds in self.datasets.items()
+            }
+        return {name: splits[rank]
+                for name, splits in self._split_cache.items()}
+
+    def _make_gang_shards(self, world_size: int):
+        if not self.datasets:
+            return None
+        return [self._make_shards(world_size, rank)
+                for rank in range(world_size)]
+
     def _fit_local(self, name: str, storage: str) -> Result:
         """The loop runs here, with this process's mesh."""
         history = []
@@ -108,7 +127,8 @@ class TorchTrainer:
             experiment_name=name,
             trial_dir=storage,
         )
-        session = init_session(context, result_callback=on_result)
+        session = init_session(context, result_callback=on_result,
+                               dataset_shards=self._make_shards(1, rank=0))
         try:
             self._train_loop(*self._loop_args())
         finally:
@@ -145,7 +165,9 @@ class TorchTrainer:
             try:
                 outs = group.run_train_loop(
                     self._train_loop, name, self._loop_args(),
-                    trial_dir=storage)
+                    trial_dir=storage,
+                    dataset_shards_per_rank=self._make_gang_shards(
+                        self.scaling_config.num_workers))
             finally:
                 self.backend.on_shutdown(group)
         finally:

@@ -15,7 +15,8 @@ REWRITE = ("port the change, or review the new hunks, then run "
 
 
 def test_the_runtime_copies_are_found():
-    # The runtime, its API, dag/, util/ and the earlier slices' copies.
+    # The runtime, its API, dag/, util/, data/, tune/ and the earlier
+    # slices' copies.
     assert len(COPIES) >= 50
     for copy in ("ray_tpu_torch/_private/daemon.py",
                  "ray_tpu_torch/_private/worker.py",
@@ -31,7 +32,18 @@ def test_the_runtime_copies_are_found():
                  "ray_tpu_torch/devtools/rules.py",
                  "ray_tpu_torch/devtools/contracts.py",
                  "ray_tpu_torch/devtools/check.py",
-                 "ray_tpu_torch/devtools/concurrency.py"):
+                 "ray_tpu_torch/devtools/concurrency.py",
+                 "ray_tpu_torch/data/__init__.py",
+                 "ray_tpu_torch/data/block.py",
+                 "ray_tpu_torch/data/tfrecords.py",
+                 "ray_tpu_torch/data/executor.py",
+                 "ray_tpu_torch/data/dataset.py",
+                 "ray_tpu_torch/data/read_api.py",
+                 "ray_tpu_torch/tune/__init__.py",
+                 "ray_tpu_torch/tune/search.py",
+                 "ray_tpu_torch/tune/schedulers.py",
+                 "ray_tpu_torch/tune/session.py",
+                 "ray_tpu_torch/tune/tuner.py"):
         assert copy in COPIES
 
 

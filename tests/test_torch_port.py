@@ -183,6 +183,34 @@ def test_rl_modules_leave_jax_out(module):
     assert proc.returncode == 0, proc.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "ray_tpu_torch.data",
+    "ray_tpu_torch.data.block",
+    "ray_tpu_torch.data.tfrecords",
+    "ray_tpu_torch.data.executor",
+    "ray_tpu_torch.data.dataset",
+    "ray_tpu_torch.data.read_api",
+    "ray_tpu_torch.tune",
+    "ray_tpu_torch.tune.search",
+    "ray_tpu_torch.tune.schedulers",
+    "ray_tpu_torch.tune.session",
+    "ray_tpu_torch.tune.tuner",
+])
+def test_data_and_tune_modules_leave_jax_out(module):
+    """Each alone, in a fresh interpreter."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'ray_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=100)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_rl_runner_and_learner_actors_leave_jax_and_ray_tpu_out():
     """An env runner that sampled and a learner actor that stepped, both
     spawned by the port's runtime in a fresh interpreter: neither they

@@ -345,24 +345,20 @@ class TestTorchTrainer:
         with pytest.raises(RuntimeError, match="outside"):
             report({"x": 1})
 
-    @pytest.mark.parametrize("kw,match", [
-        ({"datasets": {"train": [1, 2]}}, "data runtime"),
-        ({"datasets": {"train": [1, 2]},
-          "scaling_config": ScalingConfig(num_workers=2)}, "item 2"),
-    ])
-    def test_what_waits_for_the_runtime_raises(self, kw, match):
-        """Datasets wait for the copied data runtime (ROADMAP queue 1,
-        item 2, "Data"), with a gang or without."""
-        with pytest.raises(NotImplementedError, match=match):
-            TorchTrainer(lambda: None, **kw)
+    def test_get_dataset_shard_outside_a_fit_raises_key_error(self):
+        with pytest.raises(KeyError, match="train"):
+            get_dataset_shard("train")
 
-    @pytest.mark.parametrize("call", [
-        lambda: get_dataset_shard("train"),
-        lambda: get_device_batches("train"),
-    ])
-    def test_runtime_entry_points_raise(self, call):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    def test_get_dataset_shard_of_an_unknown_name_raises_key_error(self):
+        """Inside a fit given no dataset of that name: the loop's
+        KeyError is the fit's error."""
+
+        def loop():
+            get_dataset_shard("eval")
+
+        result = TorchTrainer(loop).fit()
+        assert isinstance(result.error, KeyError)
+        assert "eval" in str(result.error)
 
     def test_a_failed_attempts_mesh_model_is_freed_by_the_retry(
             self, world_of_one):
@@ -453,6 +449,244 @@ class TestDeviceBatchPrefetch:
             losses.append([step_fn(state, toks[:, :-1], toks[:, 1:])[1]
                            ["loss"].item() for _ in range(3)])
         assert losses[0] == losses[1]
+
+
+def _jax_data_loop():
+    """JaxTrainer's loop over its dataset shard: the JAX package's step
+    on `LlamaConfig.tiny()` from `config["params"]`, one step a batch of
+    2 rows, each loss reported. Built here so cloudpickle
+    sends it by value."""
+
+    def loop(config):
+        import jax
+
+        from ray_tpu.models import llama as jax_llama
+        from ray_tpu.parallel import MeshSpec as JaxMeshSpec
+        from ray_tpu.train import get_dataset_shard as jax_shard
+        from ray_tpu.train import report as jax_report
+        from ray_tpu.train import train_step as jax_train
+
+        cfg = jax_llama.LlamaConfig.tiny()
+        mesh = JaxMeshSpec(fsdp=1).build(jax.devices()[:1])
+        init_fn, step_fn = jax_train.make_train_step(
+            lambda p, t, y: jax_llama.loss_fn(p, t, y, cfg),
+            jax_train.default_optimizer(learning_rate=config["lr"],
+                                        total_steps=20),
+            mesh, jax_llama.param_annotations(cfg), donate=False)
+        state = init_fn(jax.random.PRNGKey(0), lambda k: jax.tree.map(
+            jax.numpy.asarray, config["params"]))
+        for batch in jax_shard("train").iter_batches(batch_size=2):
+            state, metrics = step_fn(state, batch["tokens"],
+                                     batch["targets"])
+            jax_report({"loss": float(metrics["loss"]),
+                        "rows": batch["row"].tolist()})
+
+    return loop
+
+
+def _port_data_loop():
+    """TorchTrainer's counterpart of `_jax_data_loop`: the same weights
+    through `load_jax_params`, fed by `get_device_batches` on a
+    `MeshSpec(fsdp=1)` mesh (a gloo world of one made here when the
+    process has none)."""
+
+    def loop(config):
+        import torch
+        import torch.distributed as dist
+
+        from ray_tpu_torch.models import llama
+        from ray_tpu_torch.parallel import MeshSpec
+        from ray_tpu_torch.train import (
+            default_optimizer,
+            get_device_batches,
+            init_torch_distributed,
+            make_train_step,
+            report,
+        )
+        from ray_tpu_torch.train.backend import free_port
+
+        own = not dist.is_initialized()
+        if own:
+            init_torch_distributed(0, 1, f"localhost:{free_port()}",
+                                   device="cpu")
+        try:
+            cfg = llama.LlamaConfig.tiny()
+            model = llama.Llama(cfg, device="cpu")
+            model.load_state_dict(llama.load_jax_params(config["params"],
+                                                        cfg))
+            mesh = MeshSpec(fsdp=1).build("cpu")
+            init_fn, step_fn = make_train_step(
+                llama.loss_fn,
+                default_optimizer(learning_rate=config["lr"],
+                                  total_steps=20),
+                mesh, llama.param_annotations(cfg))
+            state = init_fn(model)
+            for batch in get_device_batches("train", mesh=mesh,
+                                            batch_size=2):
+                state, metrics = step_fn(state, batch["tokens"],
+                                         batch["targets"])
+                report({"loss": metrics["loss"].item(),
+                        "rows": batch["row"].to_local().tolist()})
+        finally:
+            if own:
+                dist.destroy_process_group()
+
+    return loop
+
+
+def _token_rows(n=8):
+    """Columns of `n` rows (int64 tokens and targets of 32, a row id)
+    and the JAX package's tiny init as numpy."""
+    cfg = jax_llama.LlamaConfig.tiny()
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (n, 33))
+    params = jax.tree.map(np.array, jax_llama.init_params(
+        jax.random.PRNGKey(0), cfg))
+    return {"tokens": tokens[:, :-1], "targets": tokens[:, 1:],
+            "row": np.arange(n)}, params
+
+
+def _fit_both(columns, params, lr=1e-2):
+    """The JaxTrainer's and the TorchTrainer's reports over the same
+    rows, each runtime shut down before the other starts."""
+    import ray_tpu as jax_rt
+    import ray_tpu_torch as rt
+    from ray_tpu import data as jax_data
+    from ray_tpu_torch import data
+
+    jax_rt.init(num_cpus=4)
+    try:
+        want = JaxTrainer(
+            _jax_data_loop(), train_loop_config={"params": params, "lr": lr},
+            datasets={"train": jax_data.from_numpy(columns)}).fit()
+    finally:
+        jax_rt.shutdown()
+    rt.init(num_cpus=4)
+    try:
+        got = TorchTrainer(
+            _port_data_loop(), train_loop_config={"params": params, "lr": lr},
+            scaling_config=ScalingConfig(use_gpu=False),
+            datasets={"train": data.from_numpy(columns)}).fit()
+    finally:
+        rt.shutdown()
+    return want, got
+
+
+class TestTrainerDatasets:
+    """`TorchTrainer(datasets=...)`, `get_dataset_shard` and
+    `get_device_batches` against `JaxTrainer(datasets=...)`, and a
+    `Tuner` over each: the same rows in the same order, and the loss
+    trajectories of the same weights (JAX init through
+    `load_jax_params`) at `test_fit_local_reports_and_matches_jax_trainer`'s
+    rtol 1e-4. Each test starts the runtimes it needs and shuts each
+    down before the next starts."""
+
+    def test_trainer_device_batches_end_to_end(self):
+        """As tests/test_train.py's: the host prefetch thread and the
+        device double buffer feed the loop every row once."""
+        import ray_tpu_torch as rt
+        from ray_tpu_torch import data
+
+        def loop():
+            store = dist.HashStore()
+            dist.init_process_group("gloo", store=store, rank=0,
+                                    world_size=1)
+            try:
+                mesh = MeshSpec(fsdp=1).build("cpu")
+                total, count = 0, 0
+                for batch in get_device_batches(
+                        "train", mesh=mesh, batch_size=32,
+                        prefetch_batches=2, buffer_size=2):
+                    assert isinstance(batch["id"], DTensor)
+                    total += int(batch["id"].to_local().sum())
+                    count += int(batch["id"].shape[0])
+            finally:
+                dist.destroy_process_group()
+            report({"total": total, "count": count})
+
+        rt.init(num_cpus=4)
+        try:
+            result = TorchTrainer(
+                loop, datasets={"train": data.range(96, parallelism=4)}
+            ).fit()
+        finally:
+            rt.shutdown()
+        assert result.error is None, result.error
+        assert result.metrics == {"count": 96, "total": sum(range(96))}
+
+    def test_fit_over_a_dataset_matches_jax_trainer(self):
+        columns, params = _token_rows()
+        want, got = _fit_both(columns, params)
+        assert want.error is None and got.error is None, (want.error,
+                                                          got.error)
+        assert len(got.metrics_history) == 4
+        assert ([m["rows"] for m in got.metrics_history]
+                == [m["rows"] for m in want.metrics_history]
+                == [[0, 1], [2, 3], [4, 5], [6, 7]])
+        np.testing.assert_allclose(
+            [m["loss"] for m in got.metrics_history],
+            [m["loss"] for m in want.metrics_history], rtol=1e-4)
+
+    @pytest.mark.timeout(300)
+    def test_tuner_over_torch_trainer_matches_tuner_over_jax_trainer(self):
+        """Each trial's actor gets the trainer's clone with its dataset,
+        and reports the last loss of its learning rate."""
+        import ray_tpu as jax_rt
+        import ray_tpu_torch as rt
+        from ray_tpu import data as jax_data
+        from ray_tpu import tune as jax_tune
+        from ray_tpu_torch import data, tune
+
+        columns, params = _token_rows()
+        lrs = [1e-3, 1e-2]
+
+        def fit(t, trainer):
+            grid = t.Tuner(
+                trainer, param_space={"lr": t.grid_search(lrs)},
+                tune_config=t.TuneConfig(metric="loss", mode="min",
+                                         max_concurrent_trials=2)).fit()
+            assert not grid.errors, [r.error for r in grid.errors]
+            return {r.config["lr"]: r.metrics["loss"] for r in grid}
+
+        jax_rt.init(num_cpus=4)
+        try:
+            want = fit(jax_tune, JaxTrainer(
+                _jax_data_loop(), train_loop_config={"params": params},
+                datasets={"train": jax_data.from_numpy(columns)}))
+        finally:
+            jax_rt.shutdown()
+        rt.init(num_cpus=4)
+        try:
+            got = fit(tune, TorchTrainer(
+                _port_data_loop(), train_loop_config={"params": params},
+                scaling_config=ScalingConfig(use_gpu=False),
+                datasets={"train": data.from_numpy(columns)}))
+        finally:
+            rt.shutdown()
+        assert sorted(got) == sorted(want) == lrs
+        np.testing.assert_allclose([got[lr] for lr in lrs],
+                                   [want[lr] for lr in lrs], rtol=1e-4)
+
+    def test_a_card_trial_on_a_cardless_box_lands_in_errors(self):
+        """`TorchTrainer(use_gpu=True)` in a trial that asked for no
+        card raises there; it does not fall back to the CPU."""
+        import ray_tpu_torch as rt
+        from ray_tpu_torch import tune
+
+        def loop():
+            report({"loss": 1.0})
+
+        rt.init(num_cpus=2)
+        try:
+            grid = tune.Tuner(
+                TorchTrainer(loop,
+                             scaling_config=ScalingConfig(use_gpu=True)),
+                tune_config=tune.TuneConfig(metric="loss", mode="min"),
+            ).fit()
+        finally:
+            rt.shutdown()
+        assert len(grid) == 1 and len(grid.errors) == 1
+        assert "no CUDA device is visible" in grid.errors[0].error
+        assert grid[0].metrics == {}
 
 
 @pytest.fixture(scope="module")
@@ -552,6 +786,41 @@ class TestTrainerGang:
         assert result.metrics_history == result.metrics_by_rank[0]
         assert result.checkpoint_path == path
         assert load_metadata(path) == {"step": self.STEPS - 1}
+
+    @pytest.mark.timeout(200)
+    def test_gang_of_two_reads_equal_shards_of_every_row(self, cluster):
+        """`datasets=` on a gang: each rank's `get_device_batches` shard
+        is its own rows (6 blocks of 20 split 3 and 3), the global batch
+        on the fsdp 2 mesh both ranks' 10, and the shards together every
+        row once."""
+        from ray_tpu_torch import data
+
+        def loop():
+            from ray_tpu_torch.parallel import MeshSpec
+            from ray_tpu_torch.train import (
+                get_context,
+                get_device_batches,
+                report,
+            )
+
+            mesh = MeshSpec(fsdp=2).build("cpu")
+            for batch in get_device_batches("train", mesh=mesh,
+                                            batch_size=10):
+                report({"rows": batch["id"].to_local().tolist(),
+                        "global": list(batch["id"].shape),
+                        "rank": get_context().world_rank})
+
+        result = TorchTrainer(
+            loop, scaling_config=ScalingConfig(num_workers=2, use_gpu=False),
+            datasets={"train": data.range(120, parallelism=6)}).fit()
+        assert result.error is None, result.error
+        seen = [[r for m in h for r in m["rows"]]
+                for h in result.metrics_by_rank]
+        assert [len(s) for s in seen] == [60, 60]
+        assert sorted(seen[0] + seen[1]) == list(range(120))
+        assert all(m["global"] == [20] for h in result.metrics_by_rank
+                   for m in h)
+        assert [h[0]["rank"] for h in result.metrics_by_rank] == [0, 1]
 
     @pytest.mark.timeout(200)
     def test_a_failing_rank_fails_the_fit(self, cluster):
