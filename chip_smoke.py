@@ -283,6 +283,41 @@ Phases, none of whose failures is caught:
       of each other, `get_best_result()` the lowest loss; then one trial
       of the same trainer with `resources_per_trial={"num_cpus": 1}`
       must end with the error that no CUDA device is visible.
+  (l) the cluster surface (the CLI, jobs, dashboard, workflow, util APIs
+      and autoscaler), after (k), against (k1)'s record (`--only-cluster`
+      runs (k1) first). (l1) `python -m ray_tpu_torch start --head
+      --num-gpus 1` in a subprocess: `status` and `state ls nodes` must
+      show GPU 1.0. `submit --no-wait` of an entrypoint (`cluster_job`)
+      that must see the card itself (the job manager gives it the host's
+      CUDA_VISIBLE_DEVICES; no card fails the job), draws (k1)'s rows on
+      it, connects through RT_ADDRESS and runs (k1)'s `TorchTrainer(
+      datasets=...)` in a `num_gpus=1` actor (`ClusterFit`: a driver has
+      no profile endpoint). After its first step the rank waits until
+      `profile --duration-s 2 --out ...` starts (`hold_for_profiler`);
+      the rank's `device_trace` must name the flash forward and backward
+      kernels. `jobs` must read SUCCEEDED, and `logs` give 32 losses
+      within MESH_LOSS_REL of (k1)'s, every row once, the launch counts
+      of (k1). The dashboard (`dashboard --port 0`): `/api/resources`
+      GPU 1.0 total and available, `/api/steps` the job's steps, and
+      `/metrics` its rank's compile series. `stop` must leave no process
+      of the head and give the card's free memory back within
+      CLUSTER_MEM_SLACK. (l2) under `init(num_cpus=4, num_gpus=1)`: a
+      workflow of two `num_gpus=1` steps, A one step of (k1)'s model on
+      its first batch (loss and gradient norm as tensors on the card),
+      B failing on its first run; `workflow.resume` in a driver
+      subprocess with CUDA_VISIBLE_DEVICES="" must not run A again (no
+      flash launch), load A's saved tensors on the CPU, and finish; A's
+      loss within MESH_LOSS_REL of (k1)'s direct step. (l4) two
+      `num_gpus=0.5` actors map CLUSTER_POOL_CALLS flash forwards at
+      CLUSTER_FLASH_SHAPE (half through `ActorPool.map`, half through
+      `map_unordered`), each call's seed taken from a `util.Queue`; every
+      output within REL_TOL of the plain version. (l3) an
+      `AutoscalingCluster` with a card-less head and one node type
+      {"CPU": 2, "GPU": 1}, max 1: a `num_gpus=1` flash forward at
+      CLUSTER_FLASH_SHAPE must launch exactly that node, run on the card
+      within REL_TOL of the plain version, and the node be terminated
+      after CLUSTER_IDLE_S idle; prints the seconds from demand to
+      running.
 
 Prints `{"kernels": [...]}` (with each kernel's launches under each
 remat policy, in the mesh step and in (k1)), then `{"slice": {...}}`, then
@@ -316,7 +351,12 @@ hint; each kernel's entry in the kernels line carries its library's
 nvcc ms from (a), None when cached), `{"data": {...}}` ((k): the card;
 (k1)'s losses, step ms, per-step `data_wait_ms` and `h2d_ms`, rows,
 launches, the direct step's loss, (f2)'s median step; (k2)'s trials,
-best lr and the card-less trial's error), then the
+best lr and the card-less trial's error), `{"cluster": {...}}` ((l):
+each part's seconds, (l1)'s step ms and losses beside (k1)'s, the
+profile and the trace's kernels, the dashboard's reads, the stop and
+the card's free memory; (l2)'s runs and reloaded value; (l3)'s demand
+to running s, launches and idle to termination s; (l4)'s seeds and
+errors), then the
 card's name and power limit, and as the last
 line `{"ok": true, "device": {...}}`. Exits non-zero with no
 result line when there is no CUDA card or the port is not beside it.
@@ -356,6 +396,8 @@ apart). It fails on a machine with fewer than 4 cards.
 `--cards 4`, only the four-card MPMD run), then the last two lines.
 `--only-data` builds the kernels and runs only phase (k) ((k1)-(k2);
 with `--cards 4`, only (k3)), then the last two lines.
+`--only-cluster` builds the kernels and runs only phase (l), (k1) first
+as its reference, then the last two lines.
 `--only-rl` builds the kernels and runs only phase (i), with (i4)'s
 delta measured as (e2) measures it on (i4)'s weights A (paged logits
 against the teacher-forced bf16 forward, x 3), then the last two
@@ -396,6 +438,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -530,6 +573,18 @@ DATA_SHUFFLE_SEED = 17
 #: TUNE_STEPS steps, one trial a learning rate.
 TUNE_LAYERS, TUNE_STEPS = 2, 4
 TUNE_LRS = (1e-4, 3e-4, 1e-3)
+#: Phase (l), the cluster surface, on one card (see the module's doc).
+#: CLUSTER_MEM_SLACK: how far the card's free memory after `stop` may lie
+#: below its value before `start` (a process left holding a CUDA context
+#: costs about 500 MiB). CLUSTER_IDLE_S: (l3)'s idle timeout.
+#: CLUSTER_FLASH_SHAPE: (l3)'s flash forward, 32 heads of 128 over SEQ
+#: tokens (the Llama-2-7B width); (l4) maps CLUSTER_POOL_CALLS of them.
+#: CLUSTER_TIMEOUT_S: the most any of (l)'s waits takes.
+CLUSTER_MEM_SLACK = 256 << 20
+CLUSTER_IDLE_S = 3.0
+CLUSTER_FLASH_SHAPE = (1, 32, SEQ, 128)
+CLUSTER_POOL_CALLS = 8
+CLUSTER_TIMEOUT_S = 600.0
 #: Dense f32 peak of an H100 SXM outside the tensor cores, and its dense
 #: TF32 tensor-core peak (NVIDIA data sheet). An f32 kernel's operations
 #: bound is the lesser of its products at 67 TFLOP/s and the same
@@ -4163,7 +4218,8 @@ def data_loop(config):
     `get_device_batches` for at most `config["steps"]` steps. Each step
     reports its loss, the first step's loss, its own time, the batch's
     row ids (this rank's), whether every batch tensor was on the card,
-    the card's name and the process."""
+    the card's name and the process. With `config["hold"]` ((l1)) the
+    rank waits after its first step until the profiler starts."""
     import torch
     import torch.distributed as dist
 
@@ -4221,6 +4277,8 @@ def data_loop(config):
                     "on_card": on_card,
                     "device": torch.cuda.get_device_name() if cuda else "cpu",
                     "pid": os.getpid(), "rank": get_context().world_rank})
+            if "hold" in config and loss == first:
+                hold_for_profiler(config["hold"])
         del state, step_fn, init_fn
     finally:
         if batches is not None:
@@ -4230,6 +4288,21 @@ def data_loop(config):
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
+
+
+def hold_for_profiler(directory):
+    """(l1): after the first step, send its record to the head, leave
+    `ready` in `directory` and wait for `go`: the gang profiler, started
+    once the head knows this rank, opens its window on the steps that
+    follow."""
+    from ray_tpu_torch.util import metrics
+
+    metrics.flush()
+    open(os.path.join(directory, "ready"), "w").close()
+    deadline = time.time() + CLUSTER_TIMEOUT_S
+    while not os.path.exists(os.path.join(directory, "go")):
+        assert time.time() < deadline, "the profiler never started"
+        time.sleep(0.01)
 
 
 def data_rows(torch, dev):
@@ -4510,6 +4583,678 @@ def cards4_data_run(torch, card, n_layers, timeout=420.0, dev=None):
             "fit_s": fit_s}
 
 
+def cluster_cli(info, *argv, timeout=120.0):
+    """`python -m ray_tpu_torch --cluster-info INFO *argv` from this
+    checkout: the CompletedProcess, its output as text."""
+    return subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "--cluster-info", info,
+         *argv],
+        env=cluster_env(), capture_output=True, text=True, timeout=timeout)
+
+
+def cluster_env():
+    env = dict(os.environ)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH", "")) if p)
+    env.pop("RT_ADDRESS", None)
+    return env
+
+
+def descendants(pid):
+    """The live processes below `pid`, read from /proc."""
+    children = collections.defaultdict(list)
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if stat[0] != "Z":
+            children[int(stat[1])].append(int(entry))
+    found, todo = [], [pid]
+    while todo:
+        for child in children.get(todo.pop(), ()):
+            found.append(child)
+            todo.append(child)
+    return found
+
+
+def flash_inputs(torch, seed, dev, shape):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn(*shape, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16) for _ in range(3)]
+
+
+class ClusterFit:
+    """(l1)'s trainer actor (`num_gpus=1`), which the submitted job
+    starts: (k1)'s `TorchTrainer(datasets=...)` run in a runtime worker,
+    whose steps the gang profiler reaches (a driver process has no
+    profile endpoint)."""
+
+    def fit(self, config, ds):
+        import torch
+
+        from ray_tpu_torch.ops import attention as attn
+        from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+
+        attn.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = TorchTrainer(
+            data_loop, train_loop_config=config,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            datasets={"train": ds}).fit()
+        if result.error is not None:
+            raise result.error
+        hist = result.metrics_history
+        return {"losses": [m["loss"] for m in hist],
+                "step_ms": [m["step_ms"] for m in hist],
+                "rows": rows_seen([hist])[0],
+                "on_card": all(m["on_card"] for m in hist),
+                "device": hist[-1]["device"], "pid": os.getpid(),
+                "launches": dict(attn.LAUNCHES),
+                "fit_s": time.perf_counter() - t0,
+                "cuda": torch.cuda.is_available()}
+
+
+def cluster_job(config):
+    """(l1)'s entrypoint, run by `python -m ray_tpu_torch submit`: it
+    must see the card itself (the job manager gives it the host's
+    CUDA_VISIBLE_DEVICES), draws (k1)'s rows on it, connects through
+    RT_ADDRESS and fits (k1)'s run in a `ClusterFit` actor. Prints
+    `JOB {...}` and returns the exit code."""
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch as rt
+
+    dev = torch.device(config["device"])
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        print(f"JOB-FAILED the job sees no card "
+              f"(CUDA_VISIBLE_DEVICES={visible!r})", flush=True)
+        return 1
+    rt.init()
+    try:
+        rows = data_rows(torch, dev)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_job_") as tmp:
+            ds = token_dataset(rows, tmp, shuffle=True)
+            fitter = rt.remote(num_gpus=1)(ClusterFit).remote()
+            out = rt.get(fitter.fit.remote(config, ds),
+                         timeout=CLUSTER_TIMEOUT_S)
+            # The actor stays until the profiler, whose window may reach
+            # past the last step, is done with it.
+            deadline = time.time() + CLUSTER_TIMEOUT_S
+            while not os.path.exists(os.path.join(config["hold"],
+                                                  "profiled")):
+                assert time.time() < deadline, "the profiler never ended"
+                time.sleep(0.1)
+            rt.kill(fitter)
+        out["job_visible_devices"] = visible
+        out["job_device"] = (torch.cuda.get_device_name(0)
+                             if dev.type == "cuda" else "cpu")
+        print("JOB " + json.dumps(out), flush=True)
+        return 0
+    finally:
+        rt.shutdown()
+
+
+def http_get(url, timeout=30.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        return resp.read().decode()
+
+
+def trace_kernels(path):
+    """The flash kernels (FLASH_KERNELS) that a chrome trace's events
+    name, with their counts."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", []) if isinstance(events, dict) \
+        else events
+    counts = collections.Counter()
+    for event in events:
+        name = str(event.get("name", ""))
+        for kernel in FLASH_KERNELS:
+            if re.search(rf"\b{kernel}\b", name):
+                counts[kernel] += 1
+    return dict(counts)
+
+
+def cluster_job_run(torch, n_layers, dev, tmp, width=None):
+    """(l1): a head started by the CLI with the card, (k1)'s run
+    submitted as a job, its gang profiled, the dashboard read, and the
+    head stopped. Returns the record."""
+    info = os.path.join(tmp, "cluster.json")
+    free_before = torch.cuda.mem_get_info()[0] if dev.type == "cuda" else 0
+    head_log = open(os.path.join(tmp, "head.log"), "w")
+    t0 = time.perf_counter()
+    head = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "--cluster-info", info,
+         "start", "--head", "--num-cpus", "8", "--num-gpus", "1",
+         "--session-dir", os.path.join(tmp, "session")],
+        env=cluster_env(), stdout=head_log, stderr=subprocess.STDOUT)
+    rec = {}
+    dash = None
+    try:
+        deadline = time.time() + 60
+        while not os.path.exists(info):
+            assert head.poll() is None and time.time() < deadline, (
+                "the head never wrote its cluster info")
+            time.sleep(0.2)
+        rec["head_start_s"] = time.perf_counter() - t0
+        status = cluster_cli(info, "status")
+        assert status.returncode == 0, status.stdout + status.stderr
+        totals = status.stdout.split("cluster totals:", 1)[1].splitlines()[0]
+        rec["status_totals"] = totals.strip()
+        nodes = cluster_cli(info, "state", "ls", "nodes", "--json")
+        assert nodes.returncode == 0, nodes.stdout + nodes.stderr
+        rec["node_gpus"] = [n["resources"].get("GPU", 0.0)
+                            for n in json.loads(nodes.stdout)]
+        hold = os.path.join(tmp, "hold")
+        os.makedirs(hold)
+        config = {"n_layers": n_layers, "lr": 3e-4,
+                  "steps": DATA_ROWS // BATCH, "fsdp": 1,
+                  "device": dev.type, "hold": hold}
+        if width:
+            config["width"] = width
+        script = os.path.join(tmp, "cluster_job.py")
+        with open(script, "w") as f:
+            f.write("import json, sys\n"
+                    f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+                    "import chip_smoke\n"
+                    "sys.exit(chip_smoke.cluster_job(json.loads(sys.argv[1])))\n")
+        t_submit = time.perf_counter()
+        sub = cluster_cli(info, "submit", "--no-wait", "--", sys.executable,
+                          script, json.dumps(config))
+        assert sub.returncode == 0, sub.stdout + sub.stderr
+        job_id = re.search(r"submitted (\S+)", sub.stdout).group(1)
+
+        def job_status():
+            jobs = cluster_cli(info, "jobs")
+            assert jobs.returncode == 0, jobs.stdout + jobs.stderr
+            return next(j["status"] for j in json.loads(jobs.stdout)
+                        if j["job_id"] == job_id)
+
+        # The gang profiler, once the head knows the job's rank: the rank
+        # waits after its first step until the profiler starts.
+        while not os.path.exists(os.path.join(hold, "ready")):
+            assert job_status() in ("PENDING", "RUNNING"), (
+                cluster_cli(info, "logs", job_id).stdout[-4000:])
+            assert time.perf_counter() - t_submit < CLUSTER_TIMEOUT_S
+            time.sleep(0.2)
+        trace_path = os.path.join(tmp, "gang_trace.json")
+        profiler = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "--cluster-info", info,
+             "profile", "--duration-s", "2", "--out", trace_path],
+            env=cluster_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        open(os.path.join(hold, "go"), "w").close()
+        profile = profiler.communicate(timeout=120)[0]
+        open(os.path.join(hold, "profiled"), "w").close()
+        assert profiler.returncode == 0, profile
+        device_trace = re.search(r"device trace: (\S+)", profile)
+        rec["profile"] = profile.strip().splitlines()
+        rec["device_trace_kernels"] = (
+            trace_kernels(device_trace.group(1)) if device_trace else {})
+        with open(trace_path) as f:
+            rec["merged_trace_events"] = len(json.load(f))
+        while (status := job_status()) in ("PENDING", "RUNNING"):
+            assert time.perf_counter() - t_submit < CLUSTER_TIMEOUT_S, (
+                "the job did not finish")
+            time.sleep(1.0)
+        rec["job_s"] = time.perf_counter() - t_submit
+        rec["job_status"] = status
+        logs = cluster_cli(info, "logs", job_id)
+        assert logs.returncode == 0, logs.stdout + logs.stderr
+        lines = [line for line in logs.stdout.splitlines()
+                 if line.startswith("JOB ")]
+        assert status == "SUCCEEDED" and lines, logs.stdout[-4000:]
+        rec["job"] = json.loads(lines[-1][len("JOB "):])
+        # The dashboard, attached to the head as a driver.
+        dash = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch", "--cluster-info", info,
+             "dashboard", "--port", "0"],
+            env=cluster_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        url = None
+        for line in dash.stdout:
+            if "dashboard:" in line:
+                url = line.split("dashboard:", 1)[1].strip()
+                break
+        assert url, "the dashboard never came up"
+        resources = json.loads(http_get(url + "/api/resources"))
+        rec["dashboard_gpu"] = {k: resources[k].get("GPU")
+                                for k in ("total", "available")}
+        # The job's steps: the head's step ring (/api/steps, per job)
+        # and the compile series of its rank's programs (/metrics).
+        steps = json.loads(http_get(url + "/api/steps"))
+        rec["dashboard_steps_observed"] = steps.get("steps_observed")
+        metrics = http_get(url + "/metrics")
+        rec["metrics_compile_lines"] = [
+            line for line in metrics.splitlines()
+            if line.startswith("rt_jax_compiles_total{")]
+        rec["metrics_nodes_alive"] = [
+            line for line in metrics.splitlines()
+            if line.startswith("rt_nodes_alive")]
+        scrape = cluster_cli(info, "metrics", "scrape")
+        assert scrape.returncode == 0, scrape.stdout + scrape.stderr
+        rec["scrape_bytes"] = len(scrape.stdout)
+    finally:
+        if dash is not None:
+            dash.terminate()
+            try:
+                dash.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                dash.kill()
+        below = descendants(head.pid)
+        stop = cluster_cli(info, "stop")
+        try:
+            head.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            head.kill()
+            head.wait(timeout=30)
+        head_log.close()
+    deadline = time.time() + 30
+    while (left := [p for p in below if os.path.exists(f"/proc/{p}")]) \
+            and time.time() < deadline:
+        time.sleep(0.5)
+    rec["stop"] = stop.stdout.strip()
+    rec["left_processes"] = left
+    rec["head_rc"] = head.returncode
+    if dev.type == "cuda":
+        deadline = time.time() + 30
+        while True:
+            free_after = torch.cuda.mem_get_info()[0]
+            if free_after >= free_before - CLUSTER_MEM_SLACK or \
+                    time.time() > deadline:
+                break
+            time.sleep(0.5)
+        rec["free_before"], rec["free_after"] = free_before, free_after
+    return rec
+
+
+def wf_step_a(n_layers, device, row_ids, runs, width=None):
+    """(l2)'s step A (`num_gpus=1`): one step of (k1)'s model on the
+    rows `row_ids` of (k1)'s data (its first batch), on the flash
+    kernels. Appends a line to `runs` each time
+    it runs; returns the loss and the gradient norm as tensors on the
+    card, and its launches."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.train import default_optimizer, make_train_step
+
+    dev = torch.device(device)
+    attn.reset_launch_counts()
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=n_layers, max_seq_len=SEQ)
+    if width:
+        cfg = dataclasses.replace(cfg, **width)
+    model = llama.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(MPMD_SEED), device=dev)
+    init_fn, step_fn = make_train_step(
+        llama.loss_fn, default_optimizer(learning_rate=3e-4, total_steps=1),
+        device=dev)
+    rows = torch.from_numpy(data_rows(torch, dev)[row_ids]).long().to(dev)
+    _, metrics = step_fn(init_fn(model), rows[:, :-1], rows[:, 1:])
+    launches = dict(attn.LAUNCHES)
+    with open(runs, "a") as f:
+        f.write(json.dumps({"pid": os.getpid(), "launches": launches}) + "\n")
+    return {"loss": metrics["loss"].detach(),
+            "grad_norm": metrics["grad_norm"].detach(),
+            "launches": launches}
+
+
+def wf_step_b(a, marker):
+    """(l2)'s step B (`num_gpus=1`): fails on its first run (it leaves
+    `marker`), then returns step A's loss and gradient norm as floats,
+    read on the card."""
+    import torch
+
+    if not os.path.exists(marker):
+        open(marker, "w").close()
+        raise RuntimeError("step B fails on its first run")
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return {"loss": a["loss"].to(dev).item(),
+            "grad_norm": a["grad_norm"].to(dev).item(),
+            "a_device": str(a["loss"].device), "b_device": str(dev)}
+
+
+def wf_resume(address, storage, workflow_id, step_id):
+    """(l2)'s resume, run in a driver that sees no card: step A's saved
+    value loads here, on the CPU, and the workflow finishes. Prints
+    `RESUME {...}`."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+
+    rt.init(address=address)
+    try:
+        saved = workflow._WorkflowStorage(
+            workflow._root(storage), workflow_id).load_step(step_id)
+        out = workflow.resume(workflow_id, storage=storage)
+        print("RESUME " + json.dumps({
+            "cuda": torch.cuda.is_available(),
+            "saved_device": str(saved["loss"].device),
+            "saved_loss": saved["loss"].item(),
+            "saved_grad_norm": saved["grad_norm"].item(),
+            "output": out,
+            "status": workflow.get_status(workflow_id, storage=storage)}),
+            flush=True)
+    finally:
+        rt.shutdown()
+
+
+def cluster_workflow_run(torch, rt, n_layers, dev, tmp, row_ids,
+                         width=None):
+    """(l2): step A on `row_ids`, then step B, B failing; the resume in
+    a driver that sees no card. Returns the record."""
+    import importlib
+
+    from ray_tpu_torch import workflow
+
+    cs = importlib.import_module("chip_smoke")
+    storage = os.path.join(tmp, "workflows")
+    runs = os.path.join(tmp, "step_a_runs")
+    marker = os.path.join(tmp, "step_b_failed_once")
+    step_a = rt.remote(num_gpus=1)(cs.wf_step_a)
+    step_b = rt.remote(num_gpus=1)(cs.wf_step_b)
+    dag = step_b.bind(step_a.bind(n_layers, dev.type, row_ids, runs, width),
+                      marker)
+    t0 = time.perf_counter()
+    try:
+        workflow.run(dag, workflow_id="l2", storage=storage)
+        raise AssertionError("step B did not fail on its first run")
+    except RuntimeError as e:
+        first_error = repr(e)[:200]
+    first_s = time.perf_counter() - t0
+    (step_id,) = [name[len("step-"):-len(".pkl")]
+                  for name in os.listdir(os.path.join(storage, "l2"))
+                  if name.startswith("step-") and "wf_step_a" in name]
+    env = cluster_env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+         "chip_smoke.wf_resume(*sys.argv[2:])",
+         os.path.dirname(os.path.abspath(__file__)),
+         rt.api._session.daemon.socket_path, storage, "l2", step_id],
+        env=env, capture_output=True, text=True, timeout=CLUSTER_TIMEOUT_S)
+    resume_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    line = [x for x in proc.stdout.splitlines() if x.startswith("RESUME ")]
+    resumed = json.loads(line[-1][len("RESUME "):])
+    with open(runs) as f:
+        a_runs = [json.loads(x) for x in f if x.strip()]
+    return {"first_error": first_error, "first_s": first_s,
+            "resume_s": resume_s, "step_a_runs": len(a_runs),
+            "step_a_launches": a_runs[0]["launches"],
+            "resume_step_a_launches": sum(
+                sum(r["launches"].values()) for r in a_runs[1:]),
+            "step_id": step_id, **resumed}
+
+
+def flash_against_plain(dev_type, seed, shape):
+    """(l3)'s and (l4)'s task: the flash forward on `shape`
+    (CLUSTER_FLASH_SHAPE) from `seed`, and its error against the plain
+    version."""
+    import torch
+
+    from ray_tpu_torch.ops import attention as attn
+
+    started = time.time()
+    dev = torch.device(dev_type)
+    attn.reset_launch_counts()
+    q, k, v = flash_inputs(torch, seed, dev, shape)
+    out = attn.flash_attention(q, k, v, causal=True)
+    launches = dict(attn.LAUNCHES)
+    ref = attn.mha_reference(q, k, v, causal=True)
+    err, ref_max, rel_l2 = rel_errors(out, ref)
+    return {"started": started, "pid": os.getpid(),
+            "device": (torch.cuda.get_device_name(0)
+                       if dev.type == "cuda" else "cpu"),
+            "launches": launches, "max_abs_err": err, "ref_max": ref_max,
+            "rel_l2": rel_l2, "out": out.cpu()}
+
+
+def cluster_autoscale_run(dev):
+    """(l3): an AutoscalingCluster whose head has no card and whose one
+    node type is {"CPU": 2, "GPU": 1}, max 1; a `num_gpus=1` task makes
+    it launch that node, runs there, and the node goes after idling.
+    Returns the record."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import AutoscalingCluster
+
+    cluster = AutoscalingCluster(
+        head_resources={"CPU": 2.0},
+        worker_node_types={"card": {"resources": {"CPU": 2.0, "GPU": 1.0},
+                                    "min_workers": 0, "max_workers": 1}},
+        idle_timeout_s=CLUSTER_IDLE_S)
+    cluster.start()
+    try:
+        rt.init(address=cluster.address)
+        try:
+            task = rt.remote(num_gpus=1)(flash_against_plain)
+            t0 = time.time()
+            out = rt.get(task.remote(dev.type, 0, CLUSTER_FLASH_SHAPE),
+                         timeout=CLUSTER_TIMEOUT_S)
+            workers_busy = cluster.num_workers()
+        finally:
+            rt.shutdown()
+        t_idle = time.time()
+        while cluster.num_workers() and \
+                time.time() - t_idle < CLUSTER_TIMEOUT_S:
+            time.sleep(0.2)
+        idle_s = time.time() - t_idle
+        launched = cluster.provider._seq
+        left = cluster.num_workers()
+    finally:
+        cluster.shutdown()
+    out.pop("out")
+    return {"demand_to_running_s": out["started"] - t0,
+            "workers_while_running": workers_busy, "launched": launched,
+            "workers_after_idle": left, "idle_to_terminated_s": idle_s,
+            **{k: out[k] for k in ("device", "launches", "max_abs_err",
+                                   "ref_max", "rel_l2")}}
+
+
+class PoolForward:
+    """(l4)'s actor (`num_gpus=0.5`): each call takes a seed from the
+    queue and runs `flash_against_plain` on it."""
+
+    def __init__(self, dev_type, shape):
+        self.dev_type, self.shape = dev_type, shape
+
+    def forward(self, queue):
+        seed = queue.get(timeout=60)
+        out = flash_against_plain(self.dev_type, seed, self.shape)
+        return seed, out["pid"], out["launches"], out["out"]
+
+
+def cluster_pool_run(torch, rt, dev):
+    """(l4): two half-card actors map CLUSTER_POOL_CALLS flash forwards,
+    half through `ActorPool.map` and half through `map_unordered`, each
+    call's seed taken from a `util.Queue`; every output against the plain
+    version here. Returns the record."""
+    import importlib
+
+    from ray_tpu_torch.ops import attention as attn
+    from ray_tpu_torch.util.actor_pool import ActorPool
+    from ray_tpu_torch.util.queue import Queue
+
+    cs = importlib.import_module("chip_smoke")
+    actors = [rt.remote(num_gpus=0.5)(cs.PoolForward).remote(
+        dev.type, CLUSTER_FLASH_SHAPE) for _ in range(2)]
+    queue = Queue()
+    for seed in range(100, 100 + CLUSTER_POOL_CALLS):
+        queue.put(seed)
+    pool = ActorPool(actors)
+    half = CLUSTER_POOL_CALLS // 2
+    t0 = time.perf_counter()
+    ordered = list(pool.map(lambda a, _: a.forward.remote(queue),
+                            range(half)))
+    unordered = list(pool.map_unordered(lambda a, _: a.forward.remote(queue),
+                                        range(half)))
+    pool_s = time.perf_counter() - t0
+    errs, ok = [], True
+    for seed, _, _, out in ordered + unordered:
+        q, k, v = flash_inputs(torch, seed, dev, CLUSTER_FLASH_SHAPE)
+        good, err = held(f"(l4) seed {seed}", out.to(dev),
+                         attn.mha_reference(q, k, v, causal=True))
+        ok, errs = ok and good, errs + [err]
+    for actor in actors:
+        rt.kill(actor)
+    queue.shutdown()
+    return {"seeds": sorted(s for s, *_ in ordered + unordered),
+            "ordered_seeds": [s for s, *_ in ordered],
+            "pids": sorted({p for _, p, _, _ in ordered + unordered}),
+            "launches": sum(l["flash_fwd"] for _, _, l, _ in
+                            ordered + unordered),
+            "max_abs_err": max(errs), "within_bars": ok, "pool_s": pool_s}
+
+
+def k1_reference(torch, llama, attn, n_layers, dev):
+    """(k1)'s run alone (`--only-cluster`): its record."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    rows = data_rows(torch, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        ds = token_dataset(rows, tmp, shuffle=True)
+        rt.init(num_cpus=4, num_gpus=1)
+        try:
+            return data_train_run(torch, llama, attn, rows, ds, n_layers,
+                                  dev)
+        finally:
+            rt.shutdown()
+
+
+def cluster_phase(torch, llama, attn, card, n_layers, dev, k1=None,
+                  width=None):
+    """Phase (l), (l1)-(l4) on one card (see the module's doc). `k1`:
+    (k1)'s record, run here when None. Returns the `{"cluster": ...}`
+    record."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    if k1 is None:
+        k1 = k1_reference(torch, llama, attn, n_layers, dev)
+    seconds = {"k1": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cluster_") as tmp:
+        t0 = time.perf_counter()
+        l1 = cluster_job_run(torch, n_layers, dev, tmp, width)
+        seconds["l1"] = time.perf_counter() - t0
+        rt.init(num_cpus=4, num_gpus=1)
+        try:
+            t0 = time.perf_counter()
+            l2 = cluster_workflow_run(torch, rt, n_layers, dev, tmp,
+                                      l1["job"]["rows"][:BATCH], width)
+            seconds["l2"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            l4 = cluster_pool_run(torch, rt, dev)
+            seconds["l4"] = time.perf_counter() - t0
+        finally:
+            rt.shutdown()
+    t0 = time.perf_counter()
+    l3 = cluster_autoscale_run(dev)
+    seconds["l3"] = time.perf_counter() - t0
+    job = l1["job"]
+    steps = DATA_ROWS // BATCH
+    loss_rel = max(rel(a, b) for a, b in zip(job["losses"], k1["losses"]))
+    print(f"(l1) head --num-gpus 1: status totals {l1['status_totals']}, "
+          f"state ls nodes GPU {l1['node_gpus']}; job {l1['job_status']} in "
+          f"{l1['job_s']:.1f} s, the job saw CUDA_VISIBLE_DEVICES="
+          f"{job['job_visible_devices']!r} ({job['job_device']}); "
+          f"{len(job['losses'])} steps, median "
+          f"{statistics.median(job['step_ms'][1:]):.2f} ms (k1's "
+          f"{k1['steady_step_ms']:.2f}), losses {[round(x, 4) for x in job['losses']]}"
+          f", max relative to (k1)'s {loss_rel:.3g}; launches "
+          f"{job['launches']}; profile {l1['profile']}, the rank's device "
+          f"trace names {l1['device_trace_kernels']}; dashboard GPU "
+          f"{l1['dashboard_gpu']}, steps {l1['dashboard_steps_observed']}, /metrics "
+          f"compile series {l1['metrics_compile_lines']}; "
+          f"stop: {l1['stop']!r}, left {l1['left_processes']}, free "
+          f"{l1.get('free_before')} -> {l1.get('free_after')} B; card: {card}")
+    print(f"(l2) workflow: first run {l2['first_error']} in "
+          f"{l2['first_s']:.1f} s; resume in a card-less driver "
+          f"{l2['resume_s']:.1f} s: output {l2['output']}, step A ran "
+          f"{l2['step_a_runs']} time(s) (launches {l2['step_a_launches']}; "
+          f"on resume {l2['resume_step_a_launches']}), its saved value on "
+          f"{l2['saved_device']} (loss {l2['saved_loss']:.6f})")
+    print(f"(l3) autoscaler: demand to running "
+          f"{l3['demand_to_running_s']:.2f} s, {l3['launched']} launch(es), "
+          f"{l3['workers_while_running']} node(s) while running, "
+          f"{l3['workers_after_idle']} after {l3['idle_to_terminated_s']:.1f}"
+          f" s idle; on {l3['device']}, launches {l3['launches']}, max err "
+          f"{l3['max_abs_err']:.3g} (max|ref| {l3['ref_max']:.3g})")
+    print(f"(l4) ActorPool: seeds {l4['seeds']}, pids {l4['pids']}, "
+          f"{l4['launches']} flash launches, max err {l4['max_abs_err']:.3g}"
+          f" in {l4['pool_s']:.1f} s")
+    print(f"(l): {seconds}")
+    assert "'GPU': 1.0" in l1["status_totals"], l1
+    assert l1["node_gpus"] == [1.0], l1
+    assert l1["dashboard_gpu"] == {"total": 1.0, "available": 1.0}, l1
+    assert l1["job_status"] == "SUCCEEDED", l1
+    assert len(job["losses"]) == steps == len(k1["losses"]), (job, k1)
+    assert len(set(job["rows"])) == DATA_ROWS == len(job["rows"]), job
+    assert sum(job["rows"]) == k1["row_sum"], (job["rows"], k1)
+    assert loss_rel <= MESH_LOSS_REL, (job["losses"], k1["losses"])
+    assert job["on_card"], job
+    assert l1["merged_trace_events"] > 0, l1
+    if dev.type == "cuda":
+        assert job["device"] == torch.cuda.get_device_name(0), job
+        assert job["launches"]["flash_fwd"] == steps * n_layers * 2, job
+        for name in BWD_LAUNCHES:
+            assert job["launches"][name] == steps * n_layers, job
+        kernels = l1["device_trace_kernels"]
+        assert kernels.get("flash_fwd_kernel") and \
+            kernels.get("flash_bwd_kernel"), l1
+        assert l1["free_after"] >= l1["free_before"] - CLUSTER_MEM_SLACK, l1
+    assert l1["dashboard_steps_observed"] >= steps, l1
+    assert l1["metrics_compile_lines"] and l1["metrics_nodes_alive"], l1
+    assert not l1["left_processes"] and l1["head_rc"] is not None, l1
+    assert l2["step_a_runs"] == 1 and l2["resume_step_a_launches"] == 0, l2
+    assert l2["status"] == "SUCCESSFUL" and not l2["cuda"], l2
+    assert l2["saved_device"] == "cpu", l2
+    assert l2["output"]["loss"] == l2["saved_loss"], l2
+    assert math.isfinite(l2["saved_loss"]) and l2["saved_grad_norm"] > 0, l2
+    assert rel(l2["saved_loss"], k1["direct_step1_loss"]) <= MESH_LOSS_REL, (
+        l2, k1["direct_step1_loss"])
+    if dev.type == "cuda":
+        assert l2["step_a_launches"]["flash_fwd"] == n_layers * 2, l2
+        assert l3["device"] == torch.cuda.get_device_name(0), l3
+        assert l3["launches"]["flash_fwd"] == 1, l3
+        assert l4["launches"] == CLUSTER_POOL_CALLS, l4
+    assert l3["launched"] == 1 and l3["workers_while_running"] == 1, l3
+    assert l3["workers_after_idle"] == 0, l3
+    assert l3["max_abs_err"] <= REL_TOL * l3["ref_max"] and \
+        l3["rel_l2"] <= REL_TOL, l3
+    assert l4["seeds"] == list(range(100, 100 + CLUSTER_POOL_CALLS)), l4
+    assert l4["within_bars"], l4
+    return {"card": card, "seconds": seconds,
+            "l1": {"step_ms": job["step_ms"],
+                   "steady_step_ms": statistics.median(job["step_ms"][1:]),
+                   "k1_steady_step_ms": k1["steady_step_ms"],
+                   "losses": job["losses"], "k1_losses": k1["losses"],
+                   "max_loss_rel_to_k1": loss_rel,
+                   **{k: v for k, v in l1.items() if k != "job"},
+                   "job_launches": job["launches"], "fit_s": job["fit_s"],
+                   "job_visible_devices": job["job_visible_devices"]},
+            "l2": l2, "l3": l3, "l4": l4,
+            "bars": {"loss_rel": MESH_LOSS_REL, "rel_tol": REL_TOL,
+                     "mem_slack": CLUSTER_MEM_SLACK}}
+
+
 def main() -> int:
     import torch
 
@@ -4547,6 +5292,10 @@ def main() -> int:
         "--only-data", action="store_true",
         help="build the kernels, then run only the data and tune phase "
              "((k1)-(k2) on one card; with --cards 4, only (k3))")
+    parser.add_argument(
+        "--only-cluster", action="store_true",
+        help="build the kernels, then run only the cluster surface's phase "
+             "((l1)-(l4) on one card, with (k1) as its reference)")
     args = parser.parse_args()
     n_layers = args.layers
 
@@ -4585,6 +5334,18 @@ def main() -> int:
         dev = torch.device("cuda")
         record = {"rl": rl_phase(torch, llama, card, dev,
                                  rl_decode_delta(torch, llama, dev))}
+        print(json.dumps(record))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
+
+    if args.only_cluster:
+        record = {"cluster": cluster_phase(torch, llama, attn, card,
+                                           n_layers, torch.device("cuda"))}
         print(json.dumps(record))
         print(f"card: {card}")
         print(json.dumps({"ok": True, "device": {
@@ -4979,6 +5740,12 @@ def main() -> int:
                       sharded["f2"]["steady_step_ms"])
     print(f"(k): {time.perf_counter() - t0:.1f} s")
 
+    # ---- (l) the cluster surface on the card --------------------------
+    t0 = time.perf_counter()
+    cluster = cluster_phase(torch, llama, attn, card, n_layers, dev,
+                            data["k1"])
+    print(f"(l): {time.perf_counter() - t0:.1f} s")
+
     kernels = [
         {
             "name": "flash_fwd", "route": "cuda",
@@ -5147,6 +5914,7 @@ def main() -> int:
     print(json.dumps({"rl": rl}))
     print(json.dumps({"compile_watch": watch}))
     print(json.dumps({"data": data}))
+    print(json.dumps({"cluster": cluster}))
     if args.against:
         print(json.dumps({"against": against(
             torch, attn, args.against, randn, n_layers)}))

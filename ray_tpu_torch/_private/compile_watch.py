@@ -77,6 +77,8 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
+import operator
 import os
 import sys
 import threading
@@ -193,6 +195,14 @@ _SCALARS = {type(None): ("S", "NoneType"), bool: ("S", "bool"),
 #: before any attribute lookup.
 _tensor_types: frozenset = frozenset()
 _module_type: Any = ()
+_dtype_of = operator.attrgetter("dtype")
+_shape_of = operator.attrgetter("shape")
+_device_of = operator.attrgetter("device")
+#: A dict's keys in insertion order -> [marker, marker of a dict whose
+#: values are all tensors, keys in sorted order or None when already
+#: sorted, whether its values were all tensors when last checked].
+#: Bounded like the seen sets.
+_dict_plans: Dict[tuple, list] = {}
 
 
 def _load_torch_types() -> None:
@@ -203,42 +213,79 @@ def _load_torch_types() -> None:
         _module_type = torch.nn.Module
 
 
+def _dict_plan(x: dict, keys: tuple) -> list:
+    try:
+        ordered = sorted(x)
+    except TypeError:
+        ordered = sorted(x, key=str)
+    names = tuple(map(str, ordered))
+    plan = [("D",) + names, ("D*",) + names,
+            None if tuple(ordered) == keys else tuple(ordered), False]
+    if len(_dict_plans) >= SEEN_CAP:
+        _dict_plans.clear()
+    _dict_plans[keys] = plan
+    return plan
+
+
+def _walk(x: Any, kind: type, struct: list, tensors: list, depth: int,
+          check: bool) -> None:
+    """Flatten a dict, list or tuple: its markers and other leaves into
+    `struct`, its tensors into `tensors`, in call order. A container
+    whose values are all tensors is one starred marker and no tokens
+    per value. For a dict, a check that found only tensors is kept
+    with its keys and trusted unless `check`: `arg_digest` verifies
+    the trust over all tensors at once and walks again with `check`
+    when it failed, so a call's digest never depends on the cache."""
+    if kind is dict:
+        keys = tuple(x)
+        plan = _dict_plans.get(keys)
+        if plan is None:
+            plan = _dict_plan(x, keys)
+        values = x.values() if plan[2] is None else [x[k] for k in plan[2]]
+        if check or not plan[3]:
+            plan[3] = all(map(_tensor_types.__contains__, map(type, values)))
+        marker, every, leafy = plan[0], plan[1], plan[3]
+    else:
+        tag = "U" if kind is tuple else "L"
+        marker, every, values = (tag, len(x)), (tag + "*", len(x)), x
+        leafy = all(map(_tensor_types.__contains__, map(type, x)))
+    if leafy:
+        struct.append(every)
+        tensors += values
+        return
+    struct.append(marker)
+    depth += 1
+    for v in values:
+        kind = type(v)
+        if kind in _tensor_types:
+            struct.append("A")
+            tensors.append(v)
+        elif kind is dict or kind is list or kind is tuple:
+            if depth > 6:
+                struct.append(("...",))
+            else:
+                _walk(v, kind, struct, tensors, depth, check)
+        else:
+            struct.append(_sig(v, depth))
+
+
 def _sig(x: Any, depth: int = 0) -> tuple:
-    """Structural signature of one argument: tensor and array leaves
-    become ("A", dtype, shape, device) — the port keys on the device
-    too, since a program run on another device is another program —
-    containers recurse, numeric scalars keep only their type (see
-    module docstring), strings keep their value. An `nn.Module` counts
-    by its type: its weights are state the call reads, and the config
-    that sizes them travels as an argument of its own."""
+    """Structural signature of a leaf `_walk` does not flatten: numeric
+    scalars keep only their type (see module docstring), strings keep
+    their value, an `nn.Module` counts by its type (its weights are
+    state the call reads, and the config that sizes them travels as an
+    argument of its own), array-likes become ("A", dtype, shape,
+    device), and containers of other types recurse."""
     kind = type(x)
-    if kind in _tensor_types:
-        return ("A", x.dtype, x.shape, x.device)
     scalar = _SCALARS.get(kind)
     if scalar is not None:
         return scalar
-    if depth > 6:
-        return ("...",)
-    # Containers inline the tensor case: a parameter tree is mostly
-    # tensor leaves, and a call per leaf is most of a leaf's cost.
-    tensors, inner = _tensor_types, depth + 1
-    if kind is list or kind is tuple:
-        return tuple([
-            ("A", v.dtype, v.shape, v.device) if type(v) in tensors
-            else _sig(v, inner) for v in x
-        ])
-    if kind is dict:
-        try:
-            keys = sorted(x)
-        except TypeError:
-            keys = sorted(x, key=str)
-        return ("D", tuple([
-            (str(k), ("A", v.dtype, v.shape, v.device)
-             if type(v := x[k]) in tensors else _sig(v, inner))
-            for k in keys
-        ]))
     if kind is str:
         return ("C", x)
+    if kind in _tensor_types:
+        return ("A", x.dtype, x.shape, x.device)
+    if depth > 6:
+        return ("...",)
     if isinstance(x, _module_type):
         return ("T", kind.__name__)
     shape = getattr(x, "shape", None)
@@ -275,18 +322,27 @@ def _sig(x: Any, depth: int = 0) -> tuple:
 def arg_digest(args: tuple, kwargs: dict) -> tuple:
     """Hashable digest of a call's shape/dtype structure — the hot
     path of every instrumented call (the <1%-of-step bar lives
-    here). The port keeps only the JAX package's pure-Python
-    structural walk (its fast path is jax's C tree_flatten): tensor
-    leaves keep their dtype, shape and device objects, stringified
-    only when a compile is recorded."""
+    here). The port's walk (the JAX package's fast path is jax's C
+    tree_flatten) flattens the containers into a tuple of markers and
+    a list of tensors, whose dtypes, shapes and devices are read in
+    three C loops: (markers, dtypes, shapes, devices), the objects
+    stringified only when a compile is recorded."""
     if not _tensor_types:
         _load_torch_types()
+    struct: list = []
+    tensors: list = []
+    _walk(args, tuple, struct, tensors, 0, False)
     if kwargs:
-        return (
-            _sig(args),
-            tuple((k, _sig(v)) for k, v in sorted(kwargs.items())),
-        )
-    return (_sig(args),)
+        _walk(kwargs, dict, struct, tensors, 0, False)
+    if not all(map(_tensor_types.__contains__, map(type, tensors))):
+        # A dict that held only tensors when last seen holds more now.
+        struct.clear()
+        tensors.clear()
+        _walk(args, tuple, struct, tensors, 0, True)
+        if kwargs:
+            _walk(kwargs, dict, struct, tensors, 0, True)
+    return (tuple(struct), tuple(map(_dtype_of, tensors)),
+            tuple(map(_shape_of, tensors)), tuple(map(_device_of, tensors)))
 
 
 def _array_leaves(sig: Any, out: List[tuple]) -> None:
@@ -300,24 +356,24 @@ def _array_leaves(sig: Any, out: List[tuple]) -> None:
 
 
 def digest_leaves(digest: Any) -> List[tuple]:
-    """The (dtype, shape) array leaves of a digest, in call order —
-    what `shape_delta` diffs and the wire ships. Handles both digest
-    formats: fast-path ``(treedef, leaf_pairs)`` — told apart by its
-    non-tuple treedef head — and the structural-walk fallback."""
+    """The (dtype, shape, device) array leaves of a digest, in call
+    order — what `shape_delta` diffs and the wire ships: the tensors
+    where the markers place them, and the array-likes inside other
+    leaves' signatures."""
+    struct, dtypes, shapes, devices = digest
+    tensors = iter(range(len(dtypes)))
     leaves: List[tuple] = []
-    if (
-        isinstance(digest, tuple)
-        and len(digest) == 2
-        and not isinstance(digest[0], tuple)
-        and isinstance(digest[1], tuple)
-    ):
-        for leaf in digest[1]:
-            # Array leaves are the (dtype, shape-tuple) pairs;
-            # ("str", s) / (typename, None) carry no shape.
-            if isinstance(leaf[1], tuple):
-                leaves.append((str(leaf[0]), leaf[1]))
-        return leaves
-    _array_leaves(digest, leaves)
+    for token in struct:
+        if token == "A":
+            count = 1
+        elif token[:1] in (("D*",), ("L*",), ("U*",)):
+            count = len(token) - 1 if token[0] == "D*" else token[1]
+        else:
+            _array_leaves(token, leaves)
+            continue
+        for i in itertools.islice(tensors, count):
+            leaves.append((str(dtypes[i]).replace("torch.", ""),
+                           tuple(shapes[i]), str(devices[i])))
     return leaves
 
 

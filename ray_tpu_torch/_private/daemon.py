@@ -32,6 +32,7 @@ protocol, src/ray/object_manager/plasma/store.h).
 from __future__ import annotations
 
 import bisect
+import json
 import math
 import os
 import queue
@@ -81,6 +82,11 @@ from ray_tpu_torch.devtools.lock_witness import make_lock
 PENDING = "PENDING"
 SEALED = "SEALED"
 ERRORED = "ERRORED"
+
+#: A CPU worker's env keeps the host's CUDA_VISIBLE_DEVICES under this
+#: name (as JSON, null where the host left it unset): the worker's own
+#: is "", which hides the cards.
+HOST_CUDA_VISIBLE_DEVICES = "RT_HOST_CUDA_VISIBLE_DEVICES"
 
 
 def _oob_chunk(chunk: bytes):
@@ -4157,7 +4163,12 @@ class NodeDaemon:
             # CUDA runtime: hide the cards, as the JAX package hides its
             # TPU chips (TPU_VISIBLE_CHIPS="" and JAX_PLATFORMS=cpu). A
             # GPU worker sees the host's cards; each rank binds its own
-            # card itself (`train.backend.init_torch_distributed`).
+            # card itself (`train.backend.init_torch_distributed`). The
+            # host's value stays under a name of its own, for the one
+            # process a CPU worker starts that must see the cards: a
+            # submitted job's entrypoint (`job_submission.JobManager`).
+            env[HOST_CUDA_VISIBLE_DEVICES] = json.dumps(
+                os.environ.get("CUDA_VISIBLE_DEVICES"))
             env["CUDA_VISIBLE_DEVICES"] = ""
         # Workers must import this package regardless of their cwd.
         pkg_root = os.path.dirname(

@@ -59,7 +59,56 @@ _EXPORTS = {
 _MAINS = {"accel_main": ".accel", "check_main": ".check",
           "race_main": ".concurrency"}
 
-__all__ = sorted([*_EXPORTS, *_MAINS])
+__all__ = sorted([*_EXPORTS, *_MAINS, "all_main"])
+
+
+def all_main(argv=None, out=None) -> int:
+    """`python -m ray_tpu_torch devtools all [paths] [--json]` — lint +
+    check + race + accel over the same tree with merged findings: the
+    single CI gate, as the JAX package's `devtools.all_main`. Shares
+    the passes' default path (this package), validation, rendering
+    and exit codes (0 clean, 1 findings, 2 usage errors)."""
+    import argparse
+    import json
+    import os
+    import sys
+    from dataclasses import asdict
+
+    out = out if out is not None else sys.stdout
+    parser = argparse.ArgumentParser(
+        prog="ray_tpu_torch devtools all",
+        description=("lint + check + race + accel with merged findings "
+                     "(single CI gate)"),
+    )
+    parser.add_argument(
+        "paths", nargs="*", help="files/dirs (default: ray_tpu_torch)")
+    parser.add_argument(
+        "--json", action="store_true", dest="as_json",
+        help="emit merged findings as JSON (CI mode)")
+    try:
+        args = parser.parse_args(argv)
+    except SystemExit as e:
+        return 2 if e.code else 0
+    paths = args.paths or [
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
+    missing = [p for p in paths if not os.path.exists(p)]
+    if missing:
+        print(f"devtools: no such path(s): {', '.join(missing)}",
+              file=sys.stderr)
+        return 2
+    findings = []
+    for name in ("lint_paths", "check_paths", "race_paths", "accel_paths"):
+        findings += __getattr__(name)(paths)
+    findings.sort(key=lambda f: (f.path, f.line, f.col, f.rule))
+    if args.as_json:
+        print(json.dumps([asdict(f) for f in findings], indent=2),
+              file=out)
+    else:
+        for finding in findings:
+            print(finding.render(), file=out)
+        if findings:
+            print(f"{len(findings)} finding(s)", file=out)
+    return 1 if findings else 0
 
 
 def __getattr__(name):

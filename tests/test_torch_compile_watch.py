@@ -101,6 +101,33 @@ def test_arg_digest_keys_on_shape_dtype_and_device():
         ("float32", (4, 8), "cpu"), ("float16", (4, 8), "cpu")]
 
 
+def test_arg_digest_does_not_depend_on_what_a_dict_held_before():
+    """The walk trusts a dict's keys to hold only tensors once it saw
+    them so; a dict with those keys that holds something else now
+    digests as a fresh walk does, and its array leaves keep call
+    order."""
+    a32, a16 = torch.zeros(4, 8), torch.zeros(2, dtype=torch.float16)
+    tree = {"w": a32, "b": a32}
+
+    def fresh(*args):
+        cw._dict_plans.clear()
+        return cw.arg_digest(args, {})
+
+    first = cw.arg_digest((tree,), {})
+    assert first == fresh(tree)
+    tree["b"] = {"inner": a16}
+    assert cw.arg_digest((tree,), {}) == fresh(tree) != first
+    tree["b"] = 3
+    assert cw.arg_digest((tree,), {}) == fresh(tree)
+    tree["b"] = a16
+    assert cw.arg_digest((tree,), {}) == fresh(tree)
+    assert cw.digest_leaves(cw.arg_digest(
+        (a16, {"z": [a32, 1, np.zeros(3, np.int8)], "a": a16}), {"k": a32},
+    )) == [("float16", (2,), "cpu"), ("float16", (2,), "cpu"),
+           ("float32", (4, 8), "cpu"), ("int8", (3,), "cpu"),
+           ("float32", (4, 8), "cpu")]
+
+
 def test_shape_delta_names_drifting_dimension_dtype_and_device():
     def leaves(x):
         return cw.digest_leaves(cw.arg_digest((x,), {}))

@@ -6,8 +6,11 @@ JAX package's."""
 import ast
 import inspect
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import time
 
 import jax
 import numpy as np
@@ -63,7 +66,8 @@ def test_imports_leave_jax_and_ray_tpu_out():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
         "for name in names:\n"
-        "    importlib.import_module(name)\n"
+        "    if not name.endswith('.__main__'):  # it runs the CLI\n"
+        "        importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'ray_tpu')]\n"
         "assert not bad, bad\n"
@@ -209,6 +213,109 @@ def test_data_and_tune_modules_leave_jax_out(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=100)
     assert proc.returncode == 0, proc.stderr
+
+
+CLUSTER_SURFACE = (
+    "ray_tpu_torch.util.prometheus",
+    "ray_tpu_torch.util.actor_pool",
+    "ray_tpu_torch.util.queue",
+    "ray_tpu_torch.util.collective",
+    "ray_tpu_torch.job_submission",
+    "ray_tpu_torch.dashboard",
+    "ray_tpu_torch.workflow",
+    "ray_tpu_torch.workflow.virtual_actor",
+    "ray_tpu_torch.autoscaler.node_provider",
+    "ray_tpu_torch.autoscaler.autoscaler",
+    "ray_tpu_torch.autoscaler.sdk",
+    "ray_tpu_torch.autoscaler.cluster",
+    "ray_tpu_torch.autoscaler",
+    "ray_tpu_torch.autoscaler.v2.instance",
+    "ray_tpu_torch.autoscaler.v2.instance_manager",
+    "ray_tpu_torch.autoscaler.v2.reconciler",
+    "ray_tpu_torch.autoscaler.v2.autoscaler",
+    "ray_tpu_torch.autoscaler.v2",
+    "ray_tpu_torch.scripts",
+    "ray_tpu_torch.scripts.cli",
+    "ray_tpu_torch.__main__",
+)
+
+
+@pytest.mark.parametrize("module", CLUSTER_SURFACE)
+def test_cluster_surface_modules_leave_jax_out(module):
+    """Each alone, in a fresh interpreter, and without torch: the CLI,
+    jobs, dashboard, workflow, util APIs and autoscaler are the
+    runtime's. `__main__` runs the CLI: its `--help`."""
+    code = (
+        "import importlib, sys\n"
+        "sys.argv = ['ray_tpu_torch', '--help']\n"
+        "try:\n"
+        f"    importlib.import_module({module!r})\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'ray_tpu', 'torch')]\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=100)
+    assert proc.returncode == 0, proc.stderr
+
+
+#: Runs `python -m ray_tpu_torch` with argv[1:] in this interpreter, with
+#: JAX and the JAX package unimportable, and prints whether torch's CUDA
+#: was initialized.
+_BLOCKED_CLI = (
+    "import importlib.abc, runpy, sys\n"
+    "class Block(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'):\n"
+    "            raise ImportError(f'{name} is blocked')\n"
+    "sys.meta_path.insert(0, Block())\n"
+    "argv = sys.argv[1:]\n"
+    "sys.argv = ['ray_tpu_torch'] + argv\n"
+    "try:\n"
+    "    runpy.run_module('ray_tpu_torch', run_name='__main__')\n"
+    "except SystemExit as e:\n"
+    "    assert not e.code, e.code\n"
+    "torch = sys.modules.get('torch')\n"
+    "print('CUDA', bool(torch and torch.cuda.is_initialized()))\n"
+)
+
+
+def test_cli_help_and_status_run_without_jax_or_cuda(tmp_path):
+    """`python -m ray_tpu_torch --help`, and `status` against a head it
+    starts, with `jax` and `ray_tpu` blocked: neither imports them, and
+    neither initializes torch's CUDA."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("RT_ADDRESS", None)
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_CLI, "--help"],
+                         env=env, capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert "usage: ray_tpu_torch" in out.stdout
+    assert out.stdout.strip().endswith("CUDA False")
+    info = str(tmp_path / "cluster.json")
+    session = tempfile.mkdtemp(prefix="rt_cli_")  # short socket paths
+    head = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch", "--cluster-info", info,
+         "start", "--head", "--num-cpus", "1", "--num-gpus", "0",
+         "--session-dir", session],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    try:
+        deadline = time.time() + 30
+        while not os.path.exists(info):
+            assert head.poll() is None and time.time() < deadline
+            time.sleep(0.1)
+        out = subprocess.run(
+            [sys.executable, "-c", _BLOCKED_CLI, "--cluster-info", info,
+             "status"], env=env, capture_output=True, text=True, timeout=60)
+        assert out.returncode == 0, out.stderr
+        assert "nodes: 1" in out.stdout
+        assert out.stdout.strip().endswith("CUDA False")
+    finally:
+        head.terminate()
+        head.wait(timeout=30)
+        shutil.rmtree(session, ignore_errors=True)
 
 
 def test_rl_runner_and_learner_actors_leave_jax_and_ray_tpu_out():
