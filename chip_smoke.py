@@ -449,6 +449,20 @@ import time
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
+
+def train_flops_per_token(cfg, seq_len: int) -> float:
+    """Training FLOPs a token, forward and backward: 6 x the multiplied
+    parameters (the input embedding is a lookup, not a product; for MoE
+    only the experts a token activates) plus causal attention's
+    12 x layers x heads x head_dim x seq / 2."""
+    n = cfg.num_params() - cfg.vocab_size * cfg.dim
+    if cfg.moe_experts:
+        inactive = (cfg.moe_experts - cfg.moe_top_k) * 2 * (
+            cfg.dim * cfg.intermediate)
+        n -= cfg.n_layers * max(inactive, 0)
+    attn = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq_len
+    return 6.0 * n + attn / 2
+
 #: Relative bar on every kernel output: a correct bf16 kernel reads
 #: about 0.4% of max|ref|; an output left at zero or computed from the
 #: wrong rows reads order 100%.
@@ -1737,7 +1751,7 @@ def train_steps(torch, llama, attn, cfg, state, step_fn, tokens, targets,
         "losses": losses, "grad_norms": norms,
         "step_ms": [x * 1e3 for x in step_s], "steady_step_ms": steady * 1e3,
         "tokens_per_s": tokens_per_s,
-        "mfu": llama.flops_per_token(cfg, tokens.shape[1]) * tokens_per_s
+        "mfu": train_flops_per_token(cfg, tokens.shape[1]) * tokens_per_s
         / PEAK_BF16_FLOPS,
         "max_memory_allocated": peak,
         "launches": launches,
@@ -2169,7 +2183,7 @@ def pp_phase(torch, llama, attn, card, n_layers, dev, f1_full_loss,
         "g2": {"config": f"llama2_7b width, {PP_MOE_LAYERS} layers, MoE "
                          f"{PP_MOE_EXPERTS} experts top-{PP_MOE_TOP_K}, bf16,"
                          " flash, remat full", "steps": PP_MOE_STEPS, **g2,
-               "mfu_counts": "active experts only (flops_per_token)",
+               "mfu_counts": "active experts only (train_flops_per_token)",
                "launches_per_step": {n: c / PP_MOE_STEPS
                                      for n, c in g2["launches"].items()}},
         "g3": g3,
@@ -5659,7 +5673,7 @@ def main() -> int:
         assert launches[name] == TRAIN_STEPS * n_layers, launches
     steady = statistics.median(step_s[1:])
     tokens_per_s = BATCH * SEQ / steady
-    mfu = llama.flops_per_token(cfg, SEQ) * tokens_per_s / PEAK_BF16_FLOPS
+    mfu = train_flops_per_token(cfg, SEQ) * tokens_per_s / PEAK_BF16_FLOPS
     # (j4): the watch's hot path on the step's own arguments.
     watch_c.update(hot_path_us=hot_path_us((state, tokens, targets)),
                    step_ms=steady * 1e3)

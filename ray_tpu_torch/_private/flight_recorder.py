@@ -18,6 +18,12 @@ matter when a gang step stalls:
   store.get      duration — hooked in the worker's object plane
   lock.wait    — time spent waiting on a daemon hot-path lock
 
+Spans (`span`, `record_span`) stamp both ends with `time.time_ns()`,
+the clock torch.profiler's events are on, so a span lines up with the
+kernels and runtime calls of a device trace taken in the same process:
+the serving engine's loop (kind `engine`) and the train step (kind
+`train`) record theirs here.
+
 Steady-state cost is one `time` read plus a deque append (~1 us);
 rings are NEVER pushed — the head pulls them lazily over the
 `flight_recorder` RPC when an operator (or `ray_tpu_torch doctor`) asks.
@@ -28,6 +34,7 @@ hook site.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -39,6 +46,8 @@ __all__ = [
     "recorder",
     "configure",
     "record",
+    "record_span",
+    "span",
     "snapshot",
 ]
 
@@ -47,9 +56,12 @@ class FlightRecorder:
     """Bounded in-memory event ring.
 
     Records are tuples ``(t, kind, name, dur_ms, extra)`` — `extra` is
-    None on the hot path unless a hook passes keyword fields. Appends
-    are lock-free (deque.append is GIL-atomic); `snapshot` copies under
-    a lock only to get a consistent list view.
+    None on the hot path unless a hook passes keyword fields. A span's
+    `extra` holds its ids, its `start_ns` and `end_ns` on
+    `time.time_ns()`'s clock and the native id of the thread that
+    recorded it (`tid`). Appends are lock-free (deque.append is
+    GIL-atomic); `snapshot` copies under a lock only to get a consistent
+    list view.
     """
 
     __slots__ = ("enabled", "_ring", "_lock", "_dropped")
@@ -70,6 +82,24 @@ class FlightRecorder:
         if not self.enabled:
             return
         self._ring.append((time.time(), kind, name, dur_ms, extra))
+
+    def record_span(
+        self, kind: str, name: str, start_ns: int, end_ns: int, **ids
+    ) -> None:
+        """Record a span the caller stamped with `time.time_ns()`."""
+        if not self.enabled:
+            return
+        ids.update(start_ns=start_ns, end_ns=end_ns,
+                   tid=threading.get_native_id())
+        self._ring.append(
+            (end_ns * 1e-9, kind, name, (end_ns - start_ns) * 1e-6, ids)
+        )
+
+    def span(self, kind: str, name: str, **ids) -> "_Span":
+        """A context manager recording the body as one span."""
+        if not self.enabled:
+            return _NO_SPAN
+        return _Span(self, kind, name, ids)
 
     def snapshot(
         self,
@@ -148,6 +178,25 @@ class FlightRecorder:
         return agg
 
 
+class _Span:
+    __slots__ = ("ring", "kind", "name", "ids", "start_ns")
+
+    def __init__(self, ring: FlightRecorder, kind: str, name: str,
+                 ids: dict):
+        self.ring, self.kind, self.name, self.ids = ring, kind, name, ids
+
+    def __enter__(self) -> "_Span":
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.ring.record_span(self.kind, self.name, self.start_ns,
+                              time.time_ns(), **self.ids)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
 def _env_enabled() -> bool:
     raw = os.environ.get("RT_flight_recorder_enabled", "1")
     return raw.lower() in ("1", "true", "yes")
@@ -191,6 +240,15 @@ def record(
     kind: str, name: str, dur_ms: float, extra: Optional[dict] = None
 ) -> None:
     _GLOBAL.record(kind, name, dur_ms, extra)
+
+
+def record_span(kind: str, name: str, start_ns: int, end_ns: int,
+                **ids) -> None:
+    _GLOBAL.record_span(kind, name, start_ns, end_ns, **ids)
+
+
+def span(kind: str, name: str, **ids):
+    return _GLOBAL.span(kind, name, **ids)
 
 
 def snapshot(limit: int = 0, kinds=None) -> List[dict]:

@@ -63,6 +63,29 @@ decode. It also keeps counters that `stats()` returns: decode steps
 and their time by batch width, prefill chunks, tokens and time, and
 the requests each policy forward served.
 
+Spans: the step thread stamps each boundary of its loop once with
+`time.time_ns()` (the clock of torch.profiler's events) and records the
+interval in the process's flight recorder (kind `engine`) and in a
+counter of `stats()`, from the same stamps:
+
+  queue           submit -> admission (request)      queue_wait_ms, admitted
+  admit           the lock, gate and allocation (request)
+  prefill.launch  a chunk's start -> its sync (request, offset)
+                                                     prefill_launch_ms
+  prefill.wait    the sync (request)                 prefill_wait_ms
+  decode.launch   a step's start -> its device->host copy (step, batch)
+                                                     decode_launch_ms
+  decode.wait     the copy and its wait (step)       decode_wait_ms
+  decode.emit     the tokens on the host -> after the step's hooks (step)
+                                                     decode_emit_ms
+  idle            the loop's first park on its wake event -> its last
+                  before work resumes                idle_ms
+
+so launch + wait is `prefill_ms`, and the decode steps' ms of
+`decode_by_batch`. The counters cover the engine's life (an idle
+period once it ends); with the recorder off the spans record nothing (one
+attribute read each, ``RT_flight_recorder_enabled=0``).
+
 Compile watch: as in the JAX engine, the prefill, decode and policy
 programs are registered by family (`engine.paged_prefill[<family>]`,
 `engine.paged_decode_step[<family>]`, `engine.policy[<family>]`, the
@@ -85,6 +108,7 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+from .._private import flight_recorder
 from ..models.generate import paged_decode_step, paged_prefill
 from .kv_slots import NULL_BLOCK, PagedKVCache, default_block_len
 from .scheduler import EngineDead, EngineOverloaded, SlotScheduler
@@ -150,6 +174,7 @@ class _Request:
     __slots__ = (
         "request_id", "prompt", "max_new_tokens", "eos_token",
         "out", "cancelled", "submitted_ts", "first_token_ts",
+        "submitted_ns",
         "emitted", "slot", "bucket", "offset", "padded",
         "prefix_keys", "total_blocks", "block_ids", "n_shared",
         "skip", "gen",
@@ -174,6 +199,8 @@ class _Request:
         self.cancelled = threading.Event()
         self.submitted_ts = time.perf_counter()
         self.first_token_ts: Optional[float] = None
+        #: The queue span's start, on the clock of the engine's spans.
+        self.submitted_ns = time.time_ns()
         self.emitted = 0
         # prefill progress (engine thread only)
         self.slot: Optional[int] = None
@@ -445,6 +472,15 @@ class InferenceEngine:
         self._prefill_ms = 0.0
         #: Decode batch width -> [steps, total ms].
         self._decode_by_batch: Dict[int, List[float]] = {}
+        # The loop's spans, summed (module docstring).
+        self._queue_wait_ms = 0.0
+        self._admitted = 0
+        self._prefill_launch_ms = 0.0
+        self._prefill_wait_ms = 0.0
+        self._decode_launch_ms = 0.0
+        self._decode_wait_ms = 0.0
+        self._decode_emit_ms = 0.0
+        self._idle_ms = 0.0
         self._dead: Optional[BaseException] = None
         self._stopping = False
         self._thread = threading.Thread(
@@ -640,6 +676,14 @@ class InferenceEngine:
                     for width, (steps, ms) in sorted(
                         self._decode_by_batch.items())
                 },
+                queue_wait_ms=self._queue_wait_ms,
+                admitted=self._admitted,
+                prefill_launch_ms=self._prefill_launch_ms,
+                prefill_wait_ms=self._prefill_wait_ms,
+                decode_launch_ms=self._decode_launch_ms,
+                decode_wait_ms=self._decode_wait_ms,
+                decode_emit_ms=self._decode_emit_ms,
+                idle_ms=self._idle_ms,
                 weight_version=self._weight_version,
                 weight_gens=len(self._gens),
                 policy_pending_rows=self._policy_rows_pending,
@@ -703,14 +747,25 @@ class InferenceEngine:
             # Grad mode and the current device are thread-local: this
             # thread sets both for itself.
             with torch.inference_mode(), self._device_scope():
+                # One idle span from the first park to the last of a
+                # run of parks, recorded when work resumes.
+                idle_from = idle_to = None
                 while True:
                     with self._lock:
                         if self._stopping:
                             return
                     did_work = self._step()
                     if not did_work:
+                        if idle_from is None:
+                            idle_from = time.time_ns()
                         self._wake.wait(self.config.idle_wait_s)
                         self._wake.clear()
+                        idle_to = time.time_ns()
+                    elif idle_from is not None:
+                        self._idle_ms += (idle_to - idle_from) * 1e-6
+                        flight_recorder.record_span(
+                            "engine", "idle", idle_from, idle_to)
+                        idle_from = None
         except BaseException as e:  # noqa: BLE001 - forwarded to
             # every consumer; the loop must never die silently.
             failure = EngineDead(f"engine loop died: {e!r}")
@@ -955,6 +1010,7 @@ class InferenceEngine:
         """Admit (if idle) and advance the current prefill by ONE
         chunk, written straight into the request's pages. Returns
         whether prefill work happened."""
+        t_lock = time.time_ns()
         with self._lock:
             req = self._prefilling
             if req is None:
@@ -963,6 +1019,7 @@ class InferenceEngine:
                 )
                 if admitted is None:
                     return False
+                t_admitted = time.time_ns()
                 req, slot = admitted
                 req.slot = slot
                 # Pin the weight generation at ADMISSION: every
@@ -973,12 +1030,22 @@ class InferenceEngine:
                 self._gens[req.gen]["refs"] += 1
                 self._allocate_locked(req)
                 self._prefilling = req
+                t_allocated = time.time_ns()
+                self._queue_wait_ms += (t_admitted - req.submitted_ns) * 1e-6
+                self._admitted += 1
+                flight_recorder.record_span(
+                    "engine", "queue", req.submitted_ns, t_admitted,
+                    request=req.request_id)
+                flight_recorder.record_span(
+                    "engine", "admit", t_lock, t_allocated,
+                    request=req.request_id)
         if req.padded is None:
             padded = np.zeros((1, req.bucket), np.int64)
             padded[0, : len(req.prompt)] = req.prompt
             req.padded = padded
         chunk = self.config.prefill_chunk
-        t0 = time.perf_counter()
+        offset = req.offset
+        t0 = time.time_ns()
         dev = self._device
         tokens = torch.tensor(
             req.padded[:, req.offset:req.offset + chunk], device=dev)
@@ -1007,11 +1074,20 @@ class InferenceEngine:
             self._last_logits[req.slot] = logits[0, local]
         # Waits for the chunk, as the JAX engine does, so its time is
         # the device's.
+        t_sync = time.time_ns()
         self._sync()
-        chunk_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.time_ns()
+        chunk_ms = (t1 - t0) * 1e-6
         self._prefill_chunks += 1
         self._prefill_tokens += chunk
         self._prefill_ms += chunk_ms
+        self._prefill_launch_ms += (t_sync - t0) * 1e-6
+        self._prefill_wait_ms += (t1 - t_sync) * 1e-6
+        flight_recorder.record_span(
+            "engine", "prefill.launch", t0, t_sync,
+            request=req.request_id, offset=offset)
+        flight_recorder.record_span(
+            "engine", "prefill.wait", t_sync, t1, request=req.request_id)
         self._observe_prefill(chunk_ms, chunk)
         if last_chunk:
             req.padded = None
@@ -1044,7 +1120,8 @@ class InferenceEngine:
         batch = int(alive_idx.size)
         ec = self.config
         dev = self._device
-        t0 = time.perf_counter()
+        step = self._steps
+        t0 = time.time_ns()
         # Partition the alive batch by pinned weight generation. In
         # steady state there is exactly one group; in the window after
         # an update_weights there are two (old streams finishing, new
@@ -1080,6 +1157,7 @@ class InferenceEngine:
             )
             self._kv.pool = pool
             self._last_logits = last_logits
+            t_copy = time.time_ns()
             tokens = token.cpu().numpy()  # the one device->host copy
         else:
             # Mixed-generation window. paged_decode_step only reads its
@@ -1116,8 +1194,10 @@ class InferenceEngine:
                 )
             self._kv.pool = pool
             self._last_logits = merged
+            t_copy = time.time_ns()
             tokens = merged_tokens.cpu().numpy()  # ONE copy for the window
-        step_ms = (time.perf_counter() - t0) * 1e3
+        now_ns = time.time_ns()
+        step_ms = (now_ns - t0) * 1e-6
         self._steps += 1
         now = time.perf_counter()
         emitted = 0
@@ -1144,7 +1224,17 @@ class InferenceEngine:
             row = self._decode_by_batch.setdefault(batch, [0, 0.0])
             row[0] += 1
             row[1] += step_ms
+            self._decode_launch_ms += (t_copy - t0) * 1e-6
+            self._decode_wait_ms += (now_ns - t_copy) * 1e-6
         self._observe_step(step_ms, batch, emitted)
+        t_emitted = time.time_ns()
+        self._decode_emit_ms += (t_emitted - now_ns) * 1e-6
+        flight_recorder.record_span(
+            "engine", "decode.launch", t0, t_copy, step=step, batch=batch)
+        flight_recorder.record_span(
+            "engine", "decode.wait", t_copy, now_ns, step=step)
+        flight_recorder.record_span(
+            "engine", "decode.emit", now_ns, t_emitted, step=step)
         return True
 
     # -- metrics -------------------------------------------------------

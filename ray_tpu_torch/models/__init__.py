@@ -17,7 +17,6 @@ from .llama import (
     Llama,
     LlamaConfig,
     LlamaLayer,
-    flops_per_token,
     forward,
     forward_and_aux,
     init_params,
@@ -35,7 +34,6 @@ __all__ = [
     "config_from_hf",
     "convert_hf_llama",
     "decode_step",
-    "flops_per_token",
     "forward",
     "forward_and_aux",
     "generate_stream",

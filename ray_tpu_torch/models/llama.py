@@ -535,20 +535,6 @@ def loss_fn(model: Llama, tokens, targets, *, positions=None, sp_group=None,
     return xent + model.cfg.moe_aux_weight * aux
 
 
-def flops_per_token(cfg: LlamaConfig, seq_len: int) -> float:
-    """Training FLOPs/token (fwd+bwd), standard 6N + attention term;
-    for MoE, N counts only the parameters a token activates."""
-    n = cfg.num_params()
-    if cfg.moe_experts:
-        inactive = (cfg.moe_experts - cfg.moe_top_k) * 2 * (
-            cfg.dim * cfg.intermediate
-        )
-        n -= cfg.n_layers * max(inactive, 0)
-    attn_width = cfg.n_heads * cfg.head_dim
-    attn = 12 * cfg.n_layers * attn_width * seq_len
-    return 6.0 * n + attn / 2  # causal factor 1/2 on the attn term
-
-
 # ---------------------------------------------------------------------------
 # parameters of the JAX package
 # ---------------------------------------------------------------------------

@@ -26,6 +26,12 @@ JAX package's jitted init also draws the weights, which the port's
 caller builds) and `train.init_opt_state`, under the JAX package's
 names: one signature per (state, batch) geometry, and a drifting batch
 shape is a storm `doctor` names.
+
+Spans: each step records three in the process's flight recorder (kind
+`train`, on torch.profiler's clock), in order: `forward_backward` (the
+loss, `backward()` and the data axes' gradient sums: the kernels that
+autograd's thread launches and remat's recompute run inside it),
+`grad_norm` and `optimizer` (`optimizer.apply`).
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.parallel import loss_parallel
 
-from .._private import step_telemetry
+from .._private import flight_recorder, step_telemetry
 from ..parallel.collective import all_reduce_
 from ..parallel.mesh import axis_size
 from ..parallel.sharding import (
@@ -551,23 +557,29 @@ def make_train_step(
         params = list(model.parameters())
         for p in params:
             p.grad = None
-        if mesh is None:
-            loss = loss_fn(model, tokens, targets)
-            loss.backward()
-        else:
-            # FSDP2 averages the gradients over the data shards: weight
-            # each shard by data_shards x its share of the unmasked
-            # targets, so they add up to the whole batch's mean.
-            count = torch.sum(targets >= 0).float()
-            share = count / torch.clamp(_data_sum(count, data_shards), min=1.0)
-            with loss_parallel() if tp > 1 else contextlib.nullcontext():
+        step = state.step
+        with flight_recorder.span("train", "forward_backward", step=step):
+            if mesh is None:
                 loss = loss_fn(model, tokens, targets)
-                (loss * (share * data_shards)).backward()
-            reduce_data_grads(model, dp_mesh, sp_group)
-            loss = _data_sum(loss.detach() * share, data_shards)
+                loss.backward()
+            else:
+                # FSDP2 averages the gradients over the data shards:
+                # weight each shard by data_shards x its share of the
+                # unmasked targets, so they add up to the whole batch's
+                # mean.
+                count = torch.sum(targets >= 0).float()
+                share = count / torch.clamp(_data_sum(count, data_shards),
+                                            min=1.0)
+                with loss_parallel() if tp > 1 else contextlib.nullcontext():
+                    loss = loss_fn(model, tokens, targets)
+                    (loss * (share * data_shards)).backward()
+                reduce_data_grads(model, dp_mesh, sp_group)
+                loss = _data_sum(loss.detach() * share, data_shards)
         grads = [p.grad for p in params]
-        gnorm = global_norm(grads)
-        optimizer.apply(params, grads, state.opt_state, gnorm)
+        with flight_recorder.span("train", "grad_norm", step=step):
+            gnorm = global_norm(grads)
+        with flight_recorder.span("train", "optimizer", step=step):
+            optimizer.apply(params, grads, state.opt_state, gnorm)
         for p in params:
             p.grad = None
         state.step += 1

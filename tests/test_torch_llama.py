@@ -104,7 +104,6 @@ def test_presets_count_like_jax(preset):
     jcfg = getattr(jax_llama.LlamaConfig, preset)()
     cfg = getattr(llama.LlamaConfig, preset)()
     assert cfg.num_params() == jcfg.num_params()
-    assert llama.flops_per_token(cfg, 4096) == jax_llama.flops_per_token(jcfg, 4096)
     assert cfg.head_dim == jcfg.head_dim
 
 
