@@ -142,8 +142,14 @@ Phases, none of whose failures is caught:
       remat "full", twice in its B op (the chunk's recompute and the
       layer's own), a layer of the last chunk twice in its B op, and
       every layer one backward op.
-  (e) serving, after (c) has freed its model and optimizer: (e1) at a
-      small width in f32 (vocab 512, dim 256, 2 layers, 4 heads on 2 KV
+  (e) serving, after (c) has freed its model and optimizer. First the
+      paged decode kernel alone at the serving cell's shape (32 rows, 8
+      KV heads of 128, groups of 4, tables of 96 blocks of 16, bf16, row
+      lengths from `gpubench.traffic`'s serving mix), held to its plain
+      version by the bars of (b), then timed beside its bound (the live
+      K/V bytes at the HBM rate), the plain version and SDPA over the
+      rows gathered contiguous: the kernels line's `paged_decode` entry.
+      (e1) at a small width in f32 (vocab 512, dim 256, 2 layers, 4 heads on 2 KV
       heads), 6 greedy requests through the engine (slots 4, max_len
       256, prefill_chunk 32, prefix cache on; two share a prefix, one
       arrives while another decodes) must equal `generate` token for
@@ -151,9 +157,10 @@ Phases, none of whose failures is caught:
       `--serve-layers`, bf16, random init from the seeded generator),
       2 prompts of 1024 tokens: `prefill` and 16 `decode_step`s on the
       contiguous cache, and `paged_prefill` in 256-token chunks and 16
-      `paged_decode_step`s on a scrambled block pool. Each step's
-      logits are held to teacher-forced logits at the same positions of
-      the f32 `llama.forward` of the same weights: max abs and relative
+      `paged_decode_step`s on a scrambled block pool, each step one
+      paged decode kernel launch a layer. Each step's logits are held
+      to teacher-forced logits at the same positions of the f32
+      `llama.forward` of the same weights: max abs and relative
       L2 error each at most NOISE_RATIO x those of the bf16
       `llama.forward`. Held to the next position's, they must fall
       outside. (e3) the server on
@@ -162,12 +169,13 @@ Phases, none of whose failures is caught:
       512-token system prefix and a seeded random tail of 64-1024
       tokens, 64 new tokens each, greedy, all submitted at once and each
       stream consumed on its own thread. Every request must end with
-      "length", the prefix cache must hit, and the flash launch counters
-      must not move while the engine serves. Greedy consistency: each
-      served token's teacher-forced (bf16) logit is within delta (3x
-      the largest error of (e2)'s logits against the bf16 forward) of
-      its row's maximum; held to the
-      next position's logits (the control) not every token may be.
+      "length", the prefix cache must hit, the flash launch counters
+      must not move while the engine serves, and the paged decode
+      kernel must launch once a layer a decode step. Greedy
+      consistency: each served token's teacher-forced (bf16) logit is
+      within delta (3x the largest error of (e2)'s logits against the
+      bf16 forward) of its row's maximum; held to the next position's
+      logits (the control) not every token may be.
   (e4) the LLM app on the card, after (e3) has freed its model:
       `ray_tpu_torch.init(num_cpus=4, num_gpus=1)`, the Serve controller
       and HTTP proxy, and `build_llm_app` (one `num_gpus=1` replica,
@@ -320,7 +328,8 @@ Phases, none of whose failures is caught:
       running.
 
 Prints `{"kernels": [...]}` (with each kernel's launches under each
-remat policy, in the mesh step and in (k1)), then `{"slice": {...}}`, then
+remat policy, in the mesh step and in (k1); the paged decode kernel's
+in (e2) and (e3)), then `{"slice": {...}}`, then
 `{"serve": {...}}` (the card, TTFT and inter-token gap p50/p99, decode
 tokens/s and step ms at a full batch beside its bound, prefill
 tokens/s, prefix hits and tokens saved, pool bytes, peak memory of
@@ -398,6 +407,9 @@ apart). It fails on a machine with fewer than 4 cards.
 with `--cards 4`, only (k3)), then the last two lines.
 `--only-cluster` builds the kernels and runs only phase (l), (k1) first
 as its reference, then the last two lines.
+`--only-serve` builds the paged decode kernel and runs only phase (e)'s
+kernel timing and (e1)-(e3), then `{"serve": {...}}` (the timing under
+`paged_decode`) and the last two lines.
 `--only-rl` builds the kernels and runs only phase (i), with (i4)'s
 delta measured as (e2) measures it on (i4)'s weights A (paged logits
 against the teacher-forced bf16 forward, x 3), then the last two
@@ -1142,6 +1154,112 @@ def paged_run(torch, model, cfg, tokens, steps, chunk, tables, bl, dev):
     return torch.stack(got, 1), seq
 
 
+#: The serving cell's decode shape (gpubench's qwen3-8b-serve-chat): 32
+#: rows, 8 KV heads of 128, groups of 4, tables of 96 blocks of 16, bf16.
+PAGED_SHAPE = {"rows": 32, "kv_heads": 8, "group": 4, "head_dim": 128,
+               "block_len": 16, "table_blocks": 96}
+PAGED_REPS = 200
+
+
+def paged_lengths(rows):
+    """Row lengths of a decode batch of the serving mix: the first `rows`
+    requests of `gpubench.traffic.serve_requests` (gpubench/mixes/
+    serve-chat.json; lengths at evenly spaced quantiles, as the cell
+    sends them), each row that far into its output: request i at the
+    (i + 0.5) / rows share of its output tokens."""
+    from gpubench import traffic
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "gpubench", "mixes", "serve-chat.json")
+    with open(path) as f:
+        mix = json.load(f)
+    reqs = traffic.serve_requests(mix, 0, rows / mix["rate_per_s"], 2)
+    return [len(r.prompt) + math.ceil(r.output_tokens * (i + 0.5) / rows)
+            for i, r in enumerate(reqs)]
+
+
+def paged_decode_times(torch, reps=PAGED_REPS):
+    """The paged decode kernel alone at PAGED_SHAPE, lengths from
+    `paged_lengths`, held to its plain version once, then timed beside
+    its bound (the live rows' K/V, q and the output once at the HBM
+    rate), the plain version and `scaled_dot_product_attention` over the
+    same rows gathered contiguous and masked to their lengths (a
+    yardstick only: the port never calls it). One pool: its live K/V
+    (about 128 MB) exceeds the 50 MB L2, so the reads come from HBM.
+
+    The kernel and SDPA are timed by their device time under
+    torch.profiler (`ms`, `library_ms`): back to back, a call of the
+    wrapper can take the host longer than the kernel takes the card, and
+    CUDA events would then time the host. `launch_ms` is that events'
+    time of back-to-back wrapper calls, host included."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    s, dev = PAGED_SHAPE, torch.device("cuda")
+    rows, kvh, d = s["rows"], s["kv_heads"], s["head_dim"]
+    bl, nb = s["block_len"], s["table_blocks"]
+    g = torch.Generator(device=dev).manual_seed(7)
+    lengths = paged_lengths(rows)
+
+    def randn(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) * 0.5).to(
+            torch.bfloat16)
+
+    tables = (torch.randperm(rows * nb, generator=g, device=dev) + 1).view(
+        rows, nb)
+    pos = torch.tensor([n - 1 for n in lengths], device=dev)
+    q = randn(rows, kvh * s["group"], 1, d)
+    k, v = randn(rows, kvh, 1, d), randn(rows, kvh, 1, d)
+    pools = [randn(rows * nb + 1, kvh, bl, d) for _ in range(2)]
+    args = (q, k, v, *pools, tables, pos[:, None], pos + 1)
+    pa.reset_launch_counts()
+    out = pa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_plain(q, k, v, pools[0].clone(),
+                                   pools[1].clone(), *args[5:])
+    print(f"paged decode {s}, lengths mean {statistics.fmean(lengths):.1f} "
+          f"(min {min(lengths)}, max {max(lengths)}):")
+    ok, err = held("out", out, ref)
+    assert ok and pa.LAUNCHES == {"paged_decode": 1}, (err, pa.LAUNCHES)
+
+    def device_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        traced = profile_step(torch, lambda: [fn() for _ in range(reps)])
+        return traced["device_busy_ms"] / reps
+
+    def kernel():
+        return pa.paged_decode_attention(*args)
+
+    kernel_ms = device_ms(kernel)
+    launch_ms = cuda_ms(torch, kernel, reps)
+    plain_ms = cuda_ms(torch, lambda: pa.paged_attention_plain(*args),
+                       max(reps // 20, 3))
+    width = max(lengths)
+    kc, vc = (x[tables].transpose(1, 2).reshape(rows, kvh, nb * bl, d)
+              [:, :, :width].contiguous() for x in pools)
+    mask = (torch.arange(width, device=dev)[None, :]
+            < torch.tensor(lengths, device=dev)[:, None])[:, None, None]
+    library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, kc, vc, attn_mask=mask, enable_gqa=True))
+    live = sum(lengths) * kvh * d * 2 * 2 + 2 * nbytes(q)
+    bound = live / HBM_BYTES_PER_S * 1e3
+    rec = {"shape": s, "dtype": "bf16",
+           "lengths_mean": statistics.fmean(lengths), "live_bytes": live,
+           "ms": kernel_ms, "launch_ms": launch_ms, "bound_ms": bound,
+           "bound_by": "bytes", "bound_share": bound / kernel_ms,
+           "plain_ms": plain_ms,
+           "library_ms": library_ms, "vs_library": kernel_ms / library_ms,
+           "max_abs_err": err}
+    print(f"  kernel {kernel_ms:.4f} ms on the device, bound {bound:.4f} ms "
+          f"by bytes ({100 * bound / kernel_ms:.1f}%, "
+          f"{live / kernel_ms / 1e9:.3f} TB/s); back-to-back wrapper calls "
+          f"{launch_ms:.4f} ms; plain {plain_ms:.3f} ms; SDPA "
+          f"{library_ms:.4f} ms on the device")
+    return rec
+
+
 def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
     """Phase (e), the serving slice (see the module's doc), on device
     `dev`. Returns the `{"serve": ...}` record and (e3)'s requests."""
@@ -1149,7 +1267,11 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
 
     from ray_tpu_torch.llm import EngineConfig, InferenceEngine
     from ray_tpu_torch.models import generate as gen
+    from ray_tpu_torch.ops import paged_attention
 
+    # The paged decode kernel alone at the serving cell's shape, first,
+    # so that its pools stay out of the phase's peak.
+    paged = paged_decode_times(torch) if dev.type == "cuda" else None
     g = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.reset_peak_memory_stats()
 
@@ -1224,8 +1346,13 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
                             *forced(seq))
     nb = (t + steps) // bl
     order = torch.randperm(b * nb, generator=g, device=dev) + 1
+    paged_attention.reset_launch_counts()
     got, seq = paged_run(torch, model, cfg, tokens, steps, chunk,
                          order.view(b, nb), bl, dev)
+    e2_launches = paged_attention.LAUNCHES["paged_decode"] / steps
+    print(f"  paged decode kernel launches a decode step: {e2_launches} "
+          f"({cfg.n_layers} layers)")
+    assert e2_launches == cfg.n_layers, paged_attention.LAUNCHES
     err_paged = held_steps("paged_prefill + paged_decode_step", got,
                            *forced(seq))
     del got, seq, tokens, m32
@@ -1251,6 +1378,7 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
     arrivals = [[] for _ in requests]
     try:
         attn.reset_launch_counts()
+        paged_attention.reset_launch_counts()
         t0 = time.perf_counter()
         streams = [eng.submit(p) for p in requests]
 
@@ -1267,6 +1395,7 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
             th.join(timeout=600)
         wall_s = time.perf_counter() - t0
         serve_launches = dict(attn.LAUNCHES)
+        paged_launches = paged_attention.LAUNCHES["paged_decode"]
         stats = eng.stats()
     finally:
         eng.close()
@@ -1277,6 +1406,9 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
     assert all(len(o) == ec.max_new_tokens for o in outs)
     assert stats["prefix_hits"] >= 1, stats
     assert not any(serve_launches.values()), serve_launches
+    decode_steps = sum(r["steps"] for r in stats["decode_by_batch"].values())
+    assert paged_launches == cfg.n_layers * decode_steps, (
+        paged_launches, decode_steps)
 
     # Greedy consistency against teacher-forced logits (these launch the
     # forward kernel: the counters were read above). The control holds
@@ -1321,10 +1453,16 @@ def serve_phase(torch, llama, attn, card, n_layers, dev, profile=False):
         "delta": delta,
         "exact_argmax_share": greedy["exact_argmax"] / greedy["tokens"],
         "flash_launches_while_serving": serve_launches,
+        "paged_decode_launches_per_step": {
+            "e2": e2_launches, "e3": paged_launches / decode_steps},
+        "paged_decode_launches_e3": paged_launches,
+        "paged_decode": paged,
     }
     print(f"serve (e3): {len(requests)} requests in {wall_s:.2f} s; decode "
           f"step at batch {ec.slots} {step_ms_full} ms (bound "
-          f"{bound * 1e3:.3f} ms); TTFT p50 {serve['ttft_ms_p50']:.1f} ms")
+          f"{bound * 1e3:.3f} ms); TTFT p50 {serve['ttft_ms_p50']:.1f} ms; "
+          f"paged decode kernel launches a decode step "
+          f"{paged_launches / decode_steps} ({decode_steps} steps)")
     # (j4): the watch's hot path on a decode step's arguments, as the
     # engine passes them (its pool, tables, logits, positions, mask).
     decode_args = (model, cfg, eng._kv.pool,
@@ -5307,6 +5445,11 @@ def main() -> int:
         help="build the kernels, then run only the data and tune phase "
              "((k1)-(k2) on one card; with --cards 4, only (k3))")
     parser.add_argument(
+        "--only-serve", action="store_true",
+        help="build the paged decode kernel, then run only its timing at "
+             "the serving cell's shape and the serving phase ((e1)-(e3) "
+             "on one card)")
+    parser.add_argument(
         "--only-cluster", action="store_true",
         help="build the kernels, then run only the cluster surface's phase "
              "((l1)-(l4) on one card, with (k1) as its reference)")
@@ -5333,7 +5476,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    reports = _build.build()
+    reports = _build.build(
+        tuple(_build.DEFINES) if args.only_serve else tuple(_build.SOURCES))
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({', '.join(reports) or 'cached'})")
     print_ptxas(reports)
@@ -5349,6 +5493,18 @@ def main() -> int:
         record = {"rl": rl_phase(torch, llama, card, dev,
                                  rl_decode_delta(torch, llama, dev))}
         print(json.dumps(record))
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}))
+        return 0
+
+    if args.only_serve:
+        serve, _ = serve_phase(torch, llama, attn, card, args.serve_layers,
+                               torch.device("cuda"))
+        print(json.dumps({"serve": serve}))
         print(f"card: {card}")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu",
@@ -5897,11 +6053,28 @@ def main() -> int:
             "launches_per_step": wide["f32"]["launches_per_step"][counter],
             "library_max_abs_err": rec["library_max_abs_err"],
         })
+    # The paged decode kernel, timed alone in (e) at the serving cell's
+    # shape; its launches a decode step in (e2) and (e3).
+    paged = serve["paged_decode"]
+    kernels.append({
+        "name": "paged_decode", "route": "cuda",
+        "source": "ray_tpu_torch/csrc/paged_decode.cu",
+        "library": "paged_decode_bf16_d128",
+        "replaces": None,  # the JAX package's paged decode is plain jnp
+        **{k: paged[k] for k in (
+            "ms", "launch_ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_share",
+            "library_ms", "vs_library", "max_abs_err", "shape", "dtype",
+            "lengths_mean")},
+        "launches": serve["paged_decode_launches_e3"],
+        "launches_per_step": serve["paged_decode_launches_per_step"],
+    })
     # (a)'s nvcc build of each kernel's library, as the compile watch
     # recorded it (None: the library was cached).
     for entry in kernels:
-        entry["nvcc_ms"] = nvcc_ms.get(
-            os.path.splitext(os.path.basename(entry["source"]))[0])
+        entry["nvcc_ms"] = nvcc_ms.get(entry.get("library") or
+                                       os.path.splitext(os.path.basename(
+                                           entry["source"]))[0])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"any_softmax_data": main_rec["softmax_data"]}))
     print(json.dumps({"slice": {

@@ -9,8 +9,12 @@ Two phases, as in the JAX package:
     hit EOS keep computing but emit 0).
 
 Attention here is plain tensor code in f32 (einsum, a -1e30 mask over
-absolute positions, softmax), as in the JAX package, whose serving path
-reaches no Pallas kernel: the flash kernels are not on this path.
+absolute positions, softmax; `ops/paged_attention.py`), as in the JAX
+package, whose serving path reaches no Pallas kernel: the flash kernels
+are not on this path. One step departs from it on the card: a paged
+chunk of one token a row (the decode step) goes to the paged decode
+kernel (`paged_attention.paged_decode_attention`), which reads only each
+row's live blocks; on the CPU that call runs the same plain code.
 
 Layout against the JAX package: the functions take the port's `Llama`
 module where JAX takes a `params` dict, and loop over `model.layers`
@@ -32,14 +36,13 @@ drifting shape through any of them is a storm `doctor` names.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .._private import compile_watch
-from ..ops.attention import repeat_kv
+from ..ops import paged_attention
 from ..ops.norms import apply_rotary, rotary_embedding
 from .llama import (
     Llama,
@@ -52,7 +55,7 @@ from .llama import (
 )
 
 #: Fill of masked attention logits, as in the JAX package.
-MASK_VALUE = -1e30
+MASK_VALUE = paged_attention.MASK_VALUE
 
 
 def _device(model: Llama) -> torch.device:
@@ -75,21 +78,9 @@ def _project(cfg: LlamaConfig, x, layer: LlamaLayer, cos, sin):
     return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin), v
 
 
-def _attend_and_mlp(cfg: LlamaConfig, x, layer: LlamaLayer, q, keys, values,
-                    mask):
-    """The rest of a decoder block after the cache update: q [b, h, t, hd]
-    against keys/values [b, kv_heads, width, hd] under `mask` [b or 1, t,
-    width], in f32, then the output projection and the MLP."""
-    b, t, _ = x.shape
-    groups = cfg.n_heads // cfg.n_kv_heads
-    kf = repeat_kv(keys, groups).float()
-    vf = repeat_kv(values, groups).float()
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf)
-    logits.mul_(1.0 / math.sqrt(cfg.head_dim))
-    logits.masked_fill_(~mask[:, None], MASK_VALUE)
-    probs = torch.softmax(logits, dim=-1)
-    attn = torch.einsum("bhqk,bhkd->bhqd", probs, vf)
-    attn = attn.to(cfg.dtype).transpose(1, 2).reshape(b, t, -1)
+def _out_and_mlp(cfg: LlamaConfig, x, layer: LlamaLayer, attn):
+    """The rest of a decoder block after attention (attn [b, t, h * hd]):
+    the output projection and the MLP."""
     x = x + layer.wo(attn)
     h = model_norm(cfg, x, layer.mlp_norm)
     return x + layer.w2(model_glu(cfg, layer.w1(h), layer.w3(h)))
@@ -130,8 +121,8 @@ def _layer_with_cache(
     if isinstance(valid_len, torch.Tensor) and valid_len.dim():
         valid_len = valid_len[:, None, None]
     mask = (k_pos <= q_pos[:, :, None]) & (k_pos < valid_len)
-    return (_attend_and_mlp(cfg, x, layer, q, k_cache, v_cache, mask),
-            k_cache, v_cache)
+    attn = paged_attention.attention_f32(q, k_cache, v_cache, mask, cfg.dtype)
+    return _out_and_mlp(cfg, x, layer, attn), k_cache, v_cache
 
 
 def _positions_arg(x, device):
@@ -275,34 +266,16 @@ def _paged_layer(
     q_pos: torch.Tensor,  # [b, t] int64 absolute positions of x's tokens
     valid_len: torch.Tensor,  # [b] valid cache length incl. x
 ):
-    b, t, _ = x.shape
-    kv_heads, hd = cfg.n_kv_heads, cfg.head_dim
-    bl = k_pool.shape[2]
-    nb = tables.shape[1]
     q, k, v = _project(cfg, x, layer, cos, sin)
-    # Scatter this step's k/v: position p of row i lands in physical
-    # block tables[i, p // bl] at offset p % bl. Rows never share a
-    # writable block; dead rows all point at the null block 0, whose
-    # junk no live row reads unmasked, so duplicate indices (whose
-    # winner is unspecified) fall only there. The logical block is
-    # clamped to the table: a retired slot's stale position may sit at
-    # max_len, and an index past the table must never reach the device.
-    logical = torch.div(q_pos, bl, rounding_mode="floor").clamp_(max=nb - 1)
-    phys = torch.gather(tables, 1, logical).reshape(-1)
-    off = (q_pos % bl).reshape(-1)
-    k_pool[phys, :, off] = k.transpose(1, 2).reshape(b * t, kv_heads, hd).to(
-        k_pool.dtype)
-    v_pool[phys, :, off] = v.transpose(1, 2).reshape(b * t, kv_heads, hd).to(
-        v_pool.dtype)
-    # Gather each row's cache back into logical order: [b, nb, kvH, bl,
-    # hd] -> [b, kvH, nb*bl, hd]. Gather AFTER the scatter so the chunk
-    # attends to its own tokens (prefill self-attention).
-    kf = k_pool[tables].transpose(1, 2).reshape(b, kv_heads, nb * bl, hd)
-    vf = v_pool[tables].transpose(1, 2).reshape(b, kv_heads, nb * bl, hd)
-    k_pos = torch.arange(nb * bl, device=x.device)
-    mask = (k_pos <= q_pos[:, :, None]) & (k_pos < valid_len[:, None, None])
-    return (_attend_and_mlp(cfg, x, layer, q, kf, vf, mask),
-            k_pool, v_pool)
+    # A chunk of one token a row (the decode step) goes to the kernel on
+    # the card; a prefill chunk keeps the plain scatter, gather and f32
+    # attention (`paged_attention.paged_attention_plain`).
+    if x.shape[1] == 1:
+        attend = paged_attention.paged_decode_attention
+    else:
+        attend = paged_attention.paged_attention_plain
+    attn = attend(q, k, v, k_pool, v_pool, tables, q_pos, valid_len)
+    return _out_and_mlp(cfg, x, layer, attn), k_pool, v_pool
 
 
 @torch.inference_mode()

@@ -32,6 +32,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
 SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu",
            "flash_fwd_any": "flash_fwd_any.cu",
            "flash_bwd_any": "flash_bwd_any.cu"}
+#: Kernel name -> nvcc flags of its own. The paged decode source is built
+#: once a (dtype, head_dim), so a process builds only what it runs.
+DEFINES = {f"paged_decode_{t}_d{d}": (f"-DRTT_PAGED_{t.upper()}",
+                                      f"-DRTT_PAGED_D={d}")
+           for t in ("bf16", "f16", "f32") for d in (64, 128, 256)}
+SOURCES.update(dict.fromkeys(DEFINES, "paged_decode.cu"))
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,7 +60,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(
+        " ".join(NVCC_FLAGS + DEFINES.get(name, ())).encode())
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / SOURCES[name]]:
         digest.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
@@ -76,8 +83,8 @@ def build(names=tuple(SOURCES)) -> Dict[str, str]:
                 continue
             tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
             log = tmp.with_suffix(".log")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / SOURCES[name])]
+            cmd = [_nvcc(), *NVCC_FLAGS, *DEFINES.get(name, ()), "-o",
+                   str(tmp), str(CSRC / SOURCES[name])]
             with open(log, "w") as out:
                 proc = subprocess.Popen(cmd, stdout=out,
                                         stderr=subprocess.STDOUT)

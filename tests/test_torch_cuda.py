@@ -25,6 +25,15 @@ a 32-column last K box, a last chunk of 64 to 192 columns, Q2 read from
 global memory (d above 512), t 64, kv_len inside a 32-row KV tile, ragged
 q_len and causal t_q != t_k; and the "wide" chunks agree to the bit in
 every dtype.
+
+The paged decode kernel (`csrc/paged_decode.cu`) is held to its plain
+version (`ops/paged_attention.paged_attention_plain`, the scatter, gather
+and f32 attention of the serving step) by the same bars on the live
+rows' output, and to the byte on the pools after its append: head_dim
+64/128/256, groups 1 to 12, bf16/f16/f32, scrambled tables, rows of 1,
+15, 16, 17, 1535 and 1536 tokens, a dead row masked to the null block,
+a live row whose table holds block 0, and a shared prefix block that no
+row may write.
 """
 
 import ctypes
@@ -318,3 +327,191 @@ def test_three_term_scores_alone_meet_the_f32_bar(gen, monkeypatch):
     assert torch.equal(got[0], got[2])  # the split's rounding is cvt.rna's
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     assert not _within(torch.matmul(q2, k.transpose(1, 2)), ref, F32_REL_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the paged decode kernel (csrc/paged_decode.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+#: Row lengths (the step's token at length - 1) around a 16-token block's
+#: edges and at the 96-block table's end.
+PAGED_LENGTHS = (1, 15, 16, 17, 1535, 1536)
+
+
+def _paged_case(gen, dtype, d, group, kv_heads=2, bl=16, nb=96,
+                lengths=PAGED_LENGTHS, dead=True):
+    """A decode step's inputs: one row a length on scrambled tables, rows
+    3-5 sharing their first block (a prefix hit, never written), and (if
+    `dead`) one dead row last whose table held that shared block and a
+    stale position inside it, masked to the null block 0 as
+    `_paged_decode_step_impl` masks it. Returns (args, shared block id,
+    live rows)."""
+    rows = len(lengths) + dead
+    n_blocks = rows * nb + 1
+    tables = (torch.randperm(rows * nb, generator=gen, device="cuda")
+              + 1).view(rows, nb)
+    shared = int(tables[3, 0])
+    tables[4:, 0] = shared
+    positions = torch.tensor([n - 1 for n in lengths] + [5] * dead,
+                             device="cuda")
+    alive = torch.arange(rows, device="cuda") < len(lengths)
+    tables = torch.where(alive[:, None], tables, 0)
+    pool_shape = (n_blocks, kv_heads, bl, d)
+
+    def randn(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda") * 0.5).to(
+            dtype)
+
+    q = randn(rows, kv_heads * group, 1, d)
+    k = randn(rows, kv_heads, 1, d)
+    v = randn(rows, 1, kv_heads, d).transpose(1, 2)  # the model's layout
+    args = (q, k, v, randn(*pool_shape), randn(*pool_shape), tables,
+            positions[:, None], positions + 1)
+    return args, shared, alive
+
+
+def _paged_both(args):
+    """(kernel's result, its pools, plain version's result, its pools),
+    each on its own copy of the pools."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    q, k, v, kp, vp, tables, q_pos, valid = args
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp, vp = kp.clone(), vp.clone()
+    out = pa.paged_decode_attention(q, k, v, kp, vp, tables, q_pos, valid)
+    torch.cuda.synchronize()
+    ref = pa.paged_attention_plain(q, k, v, kp2, vp2, tables, q_pos, valid)
+    return out, (kp, vp), ref, (kp2, vp2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_paged_decode_matches_plain_version(gen, d, group, dtype):
+    """Output within the dtype's bar of the plain version, the dead
+    row's too (it reads the null block as the plain version does), the
+    pools after the append equal to the byte, the shared prefix block
+    untouched, one launch."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    args, shared, alive = _paged_case(gen, dtype, d, group)
+    before = (args[3][shared].clone(), args[4][shared].clone())
+    pa.reset_launch_counts()
+    out, pools, ref, ref_pools = _paged_both(args)
+    assert pa.LAUNCHES == {"paged_decode": 1}
+    assert out.shape == ref.shape and out.dtype == ref.dtype == dtype
+    assert _within(out[alive], ref[alive], _tol(dtype))
+    assert _within(out[~alive], ref[~alive], _tol(dtype))
+    for got, want, old in zip(pools, ref_pools, before):
+        assert torch.equal(got, want)
+        assert torch.equal(got[shared], old)
+
+
+@pytest.mark.parametrize("row", [0, 1, 5])
+def test_paged_decode_reads_block_zero_in_a_live_row(gen, row):
+    """Block 0 is a block like any other: a live row whose table holds it
+    (first, where the rows of 1 and 15 tokens append into it, or inside
+    the 1536-token row's table) attends over it as the plain version
+    does."""
+    args, _, _ = _paged_case(gen, torch.bfloat16, 128, 4, dead=False)
+    tables = args[5]
+    tables[row, 0 if row < 4 else 50] = 0
+    out, pools, ref, ref_pools = _paged_both(args)
+    assert _within(out, ref)
+    for got, want in zip(pools, ref_pools):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("group,bl", [(2, 16), (3, 8), (8, 16), (12, 16)])
+def test_paged_decode_groups_and_block_lengths(gen, group, bl):
+    """Groups padded to the kernel's head width (3), at its widest (8)
+    and split over two CTAs (12), and 8-token blocks, in bf16 at 128."""
+    args, _, alive = _paged_case(gen, torch.bfloat16, 128, group, bl=bl,
+                                 nb=1536 // bl)
+    out, pools, ref, ref_pools = _paged_both(args)
+    assert _within(out[alive], ref[alive])
+    for got, want in zip(pools, ref_pools):
+        assert torch.equal(got, want)
+
+
+def test_paged_decode_bar_rejects_one_token_short(gen):
+    """In f32 the kernel's output lies outside the bar of the plain
+    version attending one token fewer a row."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    args, _, alive = _paged_case(gen, torch.float32, 128, 4)
+    out, _, ref, _ = _paged_both(args)
+    assert _within(out[alive], ref[alive], F32_REL_TOL)
+    q, k, v, kp, vp, tables, q_pos, valid = args
+    short = pa.paged_attention_plain(q, k, v, kp.clone(), vp.clone(), tables,
+                                     q_pos, valid - 1)
+    assert not _within(out[alive], short[alive], F32_REL_TOL)
+
+
+def test_paged_decode_clamps_a_stale_position_to_the_table(gen):
+    """A position at or past the table's end writes into the table's last
+    block (at position % block_len), and is read there, as the plain
+    version does."""
+    args, _, alive = _paged_case(gen, torch.bfloat16, 128, 4,
+                                 lengths=(1537, 2000, 17, 40, 1536, 300))
+    out, pools, ref, ref_pools = _paged_both(args)
+    assert _within(out[alive], ref[alive])
+    for got, want in zip(pools, ref_pools):
+        assert torch.equal(got, want)
+
+
+def test_paged_decode_rejects_what_the_kernel_does_not_take(gen):
+    """head_dim 96, a pool that is not contiguous, int32 indices and
+    mixed dtypes raise before any launch."""
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    pa.reset_launch_counts()
+    args, _, _ = _paged_case(gen, torch.bfloat16, 128, 4)
+    q, k, v, kp, vp, tables, q_pos, valid = args
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_decode_attention(q[..., :96], k[..., :96], v[..., :96],
+                                  kp[..., :96].contiguous(),
+                                  vp[..., :96].contiguous(), tables, q_pos,
+                                  valid)
+    wide = torch.cat([kp, kp], dim=2)[:, :, ::2]  # strided blocks
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_decode_attention(q, k, v, wide, wide, tables, q_pos, valid)
+    with pytest.raises(ValueError, match="int64"):
+        pa.paged_decode_attention(q, k, v, kp, vp, tables.int(), q_pos, valid)
+    with pytest.raises(ValueError, match="float32"):
+        pa.paged_decode_attention(q, k.float(), v, kp, vp, tables, q_pos,
+                                  valid)
+    assert pa.LAUNCHES == {"paged_decode": 0}
+
+
+def test_paged_decode_step_launches_once_a_layer(gen, monkeypatch):
+    """`paged_decode_step` on a small bf16 model: one kernel launch a
+    layer, logits within the bar of the same step through the plain
+    version."""
+    from ray_tpu_torch.models import generate, llama
+    from ray_tpu_torch.ops import paged_attention as pa
+
+    cfg = llama.LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, intermediate=512, max_seq_len=256,
+                            dtype=torch.bfloat16, remat=False)
+    model = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        3), device="cuda")
+    tables = torch.arange(1, 17, device="cuda").view(2, 8)
+    tokens = torch.randint(0, 512, (2, 40), generator=gen, device="cuda")
+    positions = torch.tensor([40, 40], device="cuda")
+    alive = torch.tensor([True, True], device="cuda")
+    steps = {}
+    for name in ("kernel", "plain"):
+        if name == "plain":
+            monkeypatch.setattr(pa, "paged_decode_attention",
+                                pa.paged_attention_plain)
+        pool = generate.init_block_pool(cfg, 17, 16, device="cuda")
+        logits, pool = generate.paged_prefill(model, cfg, tokens, pool,
+                                              tables, 0, 40)
+        pa.reset_launch_counts()
+        steps[name] = generate.paged_decode_step(
+            model, cfg, pool, tables, logits[:, -1], positions, alive)
+        assert pa.LAUNCHES["paged_decode"] == (2 if name == "kernel" else 0)
+    assert torch.equal(steps["kernel"][0], steps["plain"][0])
+    assert _within(steps["kernel"][2], steps["plain"][2])
